@@ -1,0 +1,134 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them via ctypes.
+
+Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
+plain ``extern "C"`` entry point (no PyTorch headers, so a build takes
+seconds).  Libraries land in ``build/repro_torch_kernels/`` at the repo
+root (``REPRO_TORCH_BUILD_DIR`` overrides it), named by a hash of their
+source and flags, so an edited source is rebuilt and an unchanged one is
+reused.  Nothing is built at import: the first call of a kernel builds
+it, and :func:`build` builds several in parallel ahead of time (callers
+that time work build first, so the build never lands on their clock).
+
+``LAUNCHES`` counts kernel launches by name; each CUDA wrapper adds one
+where it launches, and nowhere else.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+KERNELS = ("decode_attention_paged", "flash_attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# argtypes: every pointer and the stream as c_void_p, so ctypes never cuts
+# a 64-bit address to a 32-bit int
+SIGNATURES = {
+    "decode_attention_paged": [_P] * 6 + [_I] * 9 + [_P],
+    "flash_attention": [_P] * 4 + [_I] * 8 + [_P],
+}
+
+LAUNCHES: "collections.Counter[str]" = collections.Counter()
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def build_dir() -> Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return Path(__file__).resolve().parents[3] / "build" / \
+        "repro_torch_kernels"
+
+
+def nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return build_dir() / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
+    """Compile every named kernel whose library is missing, one ``nvcc``
+    per source, all started together.  Returns the wall seconds of the
+    whole build and writes each compiler log (``-Xptxas=-v``: registers,
+    shared memory, spills) beside its library."""
+    todo = [n for n in names if not library_path(n).exists()]
+    t0 = time.perf_counter()
+    if todo:
+        out_dir = build_dir()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        exe = nvcc()
+        procs = []
+        for n in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+            os.close(fd)
+            cmd = [exe, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{n}.cu")]
+            procs.append((n, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for n, tmp, proc in procs:
+            log, _ = proc.communicate()
+            final = library_path(n)
+            final.with_suffix(".log").write_text(log)
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                failed.append(f"{n}:\n{log}")
+            else:
+                os.replace(tmp, final)
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return {"seconds": time.perf_counter() - t0, "built": len(todo)}
+
+
+def compiler_log(name: str) -> List[str]:
+    """The ptxas lines of the kernel's last build (registers, spills)."""
+    log = library_path(name).with_suffix(".log")
+    if not log.exists():
+        return []
+    return [ln.strip() for ln in log.read_text().splitlines()
+            if "ptxas info" in ln and ("registers" in ln or "spill" in ln)]
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The named kernel's library, built at first use."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            fn = getattr(lib, name)
+            fn.argtypes = SIGNATURES[name]
+            fn.restype = ctypes.c_int
+            _LIBS[name] = lib
+        return lib
+
+
+def check(name: str, err: int):
+    """Raise on a non-zero ``cudaGetLastError()`` from a launch."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
+                           "(cudaError_t)")

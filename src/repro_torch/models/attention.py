@@ -1,0 +1,237 @@
+"""GQA attention on the paged KV pool (the GQA half of
+``src/repro/models/attention.py``).
+
+Three execution paths:
+  * ``gqa_full`` — whole-prompt prefill with a causal (optionally
+    sliding-window) mask; the flash-attention kernel serves it whenever
+    ``s >= 16``, ``s % 16 == 0`` and there is no logit softcap (the
+    engine pads prompts to pow-2 buckets >= 16, so every whole-prompt
+    prefill qualifies), the einsum path otherwise;
+  * ``gqa_continue_paged`` — a chunk (or prefix-hit suffix) attending to
+    the slot's gathered pages plus itself;
+  * ``gqa_decode_paged`` — one new token per slot through the block
+    table, on the paged flash-decode kernel (softcap archs gather).
+
+Kernel calls go through :mod:`repro_torch.kernels.ops`, which picks the
+CUDA kernel or its plain version by the tensors' device.  MLA waits for
+a later slice (ROADMAP M9).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.cache import (gather_pages, paged_prefill_write,
+                                      paged_token_write)
+from repro_torch.models.layers import apply_rope, normal, rmsnorm, rope_cos_sin
+
+NEG_INF = -1e30
+
+
+def _use_attn_kernel(cfg, s: int) -> bool:
+    if cfg.attn_logit_softcap:
+        return False
+    return s >= 16 and s % 16 == 0
+
+
+def init_gqa(cfg, dtype: torch.dtype, device: torch.device,
+             generator: torch.Generator):
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    s = d ** -0.5
+    p = {
+        "wq": normal((d, h * hd), s, dtype, device, generator),
+        "wk": normal((d, kv * hd), s, dtype, device, generator),
+        "wv": normal((d, kv * hd), s, dtype, device, generator),
+        "wo": normal((h * hd, d), (h * hd) ** -0.5, dtype, device, generator),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(hd, dtype=torch.float32, device=device)
+        p["k_norm"] = torch.ones(hd, dtype=torch.float32, device=device)
+    return p
+
+
+def _causal_mask(q_len: int, kv_len: int, q_offset, window: int,
+                 device) -> torch.Tensor:
+    """[q_len, kv_len] bool; True = attend. q position i sits at
+    q_offset+i."""
+    qpos = q_offset + torch.arange(q_len, device=device)[:, None]
+    kpos = torch.arange(kv_len, device=device)[None, :]
+    m = kpos <= qpos
+    if window > 0:
+        m &= kpos > qpos - window
+    return m
+
+
+def _project_qkv(params, cfg, x, positions):
+    """Q/K/V projections, optional qk-norm, RoPE.  x: [B, S, D]."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ params["wq"]).reshape(b, s, h, hd)
+    k = (x @ params["wk"]).reshape(b, s, kv, hd)
+    v = (x @ params["wv"]).reshape(b, s, kv, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
+    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta, cfg.mrope_sections)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def gqa_full(params, cfg, x, positions):
+    """Full-sequence attention.
+
+    x: [B, S, D]; positions: [B, S] (or [B, S, 3] for M-RoPE).
+    Returns (out [B,S,D], (k, v) [B,S,kv,hd] for cache writing)."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    if _use_attn_kernel(cfg, s):
+        out = ops.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=True,
+                                  window=cfg.sliding_window)
+        return out.reshape(b, s, h * hd) @ params["wo"], (k, v)
+    rep = h // kv
+    qg = q.reshape(b, s, kv, rep, hd)
+    mask = _causal_mask(s, s, 0, cfg.sliding_window, x.device)
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, k) / hd ** 0.5
+    if cfg.attn_logit_softcap:
+        c = cfg.attn_logit_softcap
+        scores = c * torch.tanh(scores / c)
+    scores = scores.float().masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v).reshape(b, s, h * hd)
+    return out @ params["wo"], (k, v)
+
+
+def _chunk_attend(params, cfg, x, positions, k_prefix, v_prefix, start_pos):
+    """Chunk-continuation attention over a materialized prefix.
+
+    A chunk of C tokens at absolute positions [start_pos, start_pos+C)
+    attends to the cached prefix (ring, token-id masked) plus itself
+    (intra-chunk causal).  The caller writes the chunk's K/V into the
+    pages afterwards, so in-chunk evictions cannot clobber keys still
+    needed by earlier queries.
+
+    x: [B, C, D]; k_prefix/v_prefix: [B, L, kv, hd]; start_pos: int or
+    0-d tensor.  Returns (out [B,C,D], k_chunk, v_chunk [B,C,kv,hd]).
+    """
+    b, c, _ = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    L = k_prefix.shape[1]
+    assert c <= L, "chunk larger than the cache ring"
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    dev = x.device
+    sp = torch.as_tensor(start_pos, device=dev).long()
+    window = cfg.sliding_window
+    rep = h // kv
+    qg = q.reshape(b, c, kv, rep, hd)
+    scale = hd ** -0.5
+    qpos = sp + torch.arange(c, device=dev)[:, None]             # [c,1]
+
+    # ---- part 1: cached prefix (tokens < sp), ring token-id masking
+    slots = torch.arange(L, device=dev)[None, :]                # [1,L]
+    # largest token id t == slot (mod L) with t < sp (floor mod)
+    t_slot = sp - 1 - torch.remainder(sp - 1 - slots, L)        # [1,L]
+    m_pre = (t_slot >= 0) & (t_slot <= qpos)
+    if window > 0:
+        m_pre &= t_slot > qpos - window
+    s_pre = torch.einsum("bqgrd,blgd->bgrql", qg,
+                         k_prefix.to(qg.dtype)) * scale
+    s_pre = s_pre.float().masked_fill(~m_pre, NEG_INF)
+
+    # ---- part 2: the fresh chunk, intra-chunk causal
+    cpos = sp + torch.arange(c, device=dev)[None, :]            # [1,c]
+    m_chk = cpos <= qpos
+    if window > 0:
+        m_chk &= cpos > qpos - window
+    s_chk = torch.einsum("bqgrd,bcgd->bgrqc", qg, k) * scale
+    s_chk = s_chk.float().masked_fill(~m_chk, NEG_INF)
+
+    scores = torch.cat([s_pre, s_chk], dim=-1)                  # [b,g,r,q,L+c]
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bgrql,blgd->bqgrd", probs[..., :L],
+                       v_prefix.to(probs.dtype)) + \
+        torch.einsum("bgrqc,bcgd->bqgrd", probs[..., L:], v)
+    return out.reshape(b, c, h * hd) @ params["wo"], k, v
+
+
+def gqa_continue_paged(params, cfg, x, positions, layer_cache, block_tables,
+                       start_pos, n=None):
+    """Chunked-prefill continuation on the paged pool (single slot).
+
+    x: [1, C, D]; the prefix is gathered through the block table, the
+    chunk's first ``n`` rows (default C) are then scattered into its
+    pages in place — padded suffix buckets write only their valid span,
+    and padded keys stay causally masked out of every valid query.
+    Returns (out [1,C,D], layer_cache)."""
+    c = x.shape[1]
+    if n is None:
+        n = c
+    k_prefix = gather_pages(layer_cache["k"], block_tables)
+    v_prefix = gather_pages(layer_cache["v"], block_tables)
+    out, k, v = _chunk_attend(params, cfg, x, positions, k_prefix, v_prefix,
+                              start_pos)
+    bt = block_tables[0]
+    paged_prefill_write(layer_cache["k"], k[0], bt, n, start=start_pos)
+    paged_prefill_write(layer_cache["v"], v[0], bt, n, start=start_pos)
+    return out, layer_cache
+
+
+def _paged_write_token(layer_cache, k, v, block_tables, cache_pos):
+    """Write one new token per sequence into its page, in place (O(B)).
+    k/v: [B, 1, kv, hd]."""
+    P = layer_cache["k"].shape[1]
+    L = block_tables.shape[1] * P
+    widx = torch.remainder(cache_pos.long(), L)                 # [B]
+    page_ids = torch.gather(block_tables.long(), 1,
+                            (widx // P)[:, None])[:, 0]
+    offs = torch.remainder(widx, P)
+    paged_token_write(layer_cache["k"], k[:, 0], page_ids, offs)
+    paged_token_write(layer_cache["v"], v[:, 0], page_ids, offs)
+    return layer_cache
+
+
+def gqa_decode_paged(params, cfg, x, positions, layer_cache, block_tables,
+                     cache_pos):
+    """One-token decode against the paged KV pool.
+
+    x: [B, 1, D]; layer_cache: {"k","v"} pages [N, P, kv, hd];
+    block_tables: [B, pages_per_slot] int32; cache_pos: [B] int32.  The
+    new token is written in place into its page, then attention runs
+    through the block table — the paged flash-decode kernel, or for
+    softcap archs a gather of the live pages.
+    Returns (out [B,1,D], layer_cache)."""
+    b = x.shape[0]
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    _paged_write_token(layer_cache, k, v, block_tables, cache_pos)
+    lengths = cache_pos + 1
+    if cfg.attn_logit_softcap:
+        # the paged kernel has no logit softcap — gather the live pages
+        # and run the einsum path
+        P = layer_cache["k"].shape[1]
+        L = block_tables.shape[1] * P
+        k_eff = gather_pages(layer_cache["k"], block_tables)
+        v_eff = gather_pages(layer_cache["v"], block_tables)
+        rep = h // kv
+        qg = q.reshape(b, kv, rep, hd)
+        scores = torch.einsum("bgrd,blgd->bgrl", qg,
+                              k_eff.to(qg.dtype)) / hd ** 0.5
+        c = cfg.attn_logit_softcap
+        scores = c * torch.tanh(scores / c)
+        ln = lengths.long()[:, None]
+        s_idx = torch.arange(L, device=x.device)[None, :]
+        t_s = ln - 1 - torch.remainder(ln - 1 - s_idx, L)
+        valid = t_s >= 0
+        if cfg.sliding_window > 0:
+            valid &= t_s > ln - 1 - cfg.sliding_window
+        scores = scores.float().masked_fill(~valid[:, None, None, :],
+                                            NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        o = torch.einsum("bgrl,blgd->bgrd", probs,
+                         v_eff.to(probs.dtype)).reshape(b, h, hd)
+    else:
+        o = ops.decode_attention_paged(
+            q[:, 0].contiguous(), layer_cache["k"], layer_cache["v"],
+            block_tables, lengths.to(torch.int32), window=cfg.sliding_window)
+    out = o.to(x.dtype).reshape(b, 1, h * hd)
+    return out @ params["wo"], layer_cache

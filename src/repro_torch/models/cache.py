@@ -1,0 +1,159 @@
+"""Block-paged KV pool (the paged half of ``src/repro/models/cache.py``).
+
+A paged cache is a plain dict of tensors:
+
+{
+  "pos":          [B] int32                  # tokens written per slot
+  "block_tables": [B, pages_per_slot] int32  # 0 == null page
+  "layers":       [{"k": [N, P, kv, hd], "v": [N, P, kv, hd]}, ...]
+}
+
+One shared pool of ``N`` pages of ``P`` tokens per layer, priced by live
+tokens (vLLM-style PagedAttention).  Block 0 is a reserved **null page**:
+unallocated table entries point at it and padded prefill rows scatter
+into it, so every gather and scatter stays in bounds without host-side
+masking.  Where the JAX package donates the cache to a jitted step and
+gets an updated copy back, the port writes pages **in place** (O(tokens)
+scatters); the functions below mutate and return the same tensors.
+
+Only the float GQA layout is ported; int8 pages, MLA latents and SSM
+state wait for later slices (ROADMAP M8-M10).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import torch_dtype
+from repro_torch.models.config import ATTN, ModelConfig
+
+NULL_PAGE = 0           # reserved block: scatter/gather target for dead slots
+
+
+def cache_len(cfg: ModelConfig, max_len: int) -> int:
+    """Per-layer KV length: sliding-window archs only keep the window."""
+    if cfg.sliding_window:
+        return min(max_len, cfg.sliding_window)
+    return max_len
+
+
+def paged_slot_len(cfg: ModelConfig, max_len: int, block_size: int,
+                   window: int = 0) -> int:
+    """Logical per-slot ring length, rounded up to whole blocks."""
+    L = cache_len(cfg, max_len)
+    if window:
+        L = min(L, window)
+    return -(-L // block_size) * block_size
+
+
+def require_dense_gqa(cfg: ModelConfig):
+    if cfg.mla is not None or cfg.moe is not None \
+            or any(k != ATTN for k in cfg.layer_pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: only dense GQA decoders are ported "
+            "(MLA, MoE, SSM and hybrids: ROADMAP M9/M10)")
+
+
+def init_paged_cache(cfg: ModelConfig, max_slots: int, max_len: int,
+                     num_blocks: int, block_size: int = 16, dtype=None,
+                     window: int = 0, quantized: bool = False, *,
+                     device: torch.device):
+    """Block-paged KV pool shared by ``max_slots`` request slots, zeroed
+    on ``device``."""
+    require_dense_gqa(cfg)
+    if quantized:
+        raise NotImplementedError("int8 KV pages: ROADMAP M8")
+    dtype = torch_dtype(cfg.dtype if dtype is None else dtype)
+    if num_blocks < 2:
+        raise ValueError("num_blocks must be >= 2 (block 0 is the null page)")
+    P = block_size
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    layers = [{"k": torch.zeros((num_blocks, P, kv, hd), dtype=dtype,
+                                device=device),
+               "v": torch.zeros((num_blocks, P, kv, hd), dtype=dtype,
+                                device=device)}
+              for _ in cfg.layer_pattern]
+    pages_per_slot = paged_slot_len(cfg, max_len, P, window) // P
+    return {"pos": torch.zeros(max_slots, dtype=torch.int32, device=device),
+            "block_tables": torch.zeros((max_slots, pages_per_slot),
+                                        dtype=torch.int32, device=device),
+            "layers": layers}
+
+
+def paged_token_write(pages, vals, page_ids, offs):
+    """Scatter one token per sequence into the pool, in place.
+
+    pages: [N, P, ...]; vals: [B, ...]; page_ids/offs: [B].  O(B) —
+    independent of pool size.  Dead slots all write the null page;
+    those duplicate writes are harmless (never read as valid)."""
+    pages[page_ids.long(), offs.long()] = vals.to(pages.dtype)
+    return pages
+
+
+def paged_prefill_write(pages, vals, block_table, n, start=0):
+    """Scatter a prefilled span of ONE slot into its pages, in place.
+
+    pages: [N, P, ...]; vals: [S, ...] (first ``n`` rows valid — the rest
+    are padding); block_table: [pages_per_slot]; positions are
+    ``start .. start+S-1`` on the slot's logical ring of length
+    ``pages_per_slot * P``.  Padding rows and ring-evicted rows (when the
+    span wraps) go to the null page, so valid rows never collide.
+    ``start``/``n`` may be ints or 0-d tensors on the pool's device."""
+    S = vals.shape[0]
+    P = pages.shape[1]
+    L = block_table.shape[0] * P
+    p = start + torch.arange(S, device=pages.device)
+    end = start + n
+    keep = (p < end) & (p >= end - L)
+    widx = torch.remainder(p, L)
+    page_ids = torch.where(keep, block_table.long()[widx // P], NULL_PAGE)
+    pages[page_ids, torch.remainder(widx, P)] = vals.to(pages.dtype)
+    return pages
+
+
+def write_prefill_paged(cache, layer_idx: int, kv_tuple, cfg: ModelConfig,
+                        slot, n):
+    """Write one request's prefill K/V ([1, S, kv, hd] each, S >= n) into
+    ``slot``'s pages at positions [0, n), in place."""
+    layer = cache["layers"][layer_idx]
+    bt = cache["block_tables"][slot]
+    k, v = kv_tuple
+    paged_prefill_write(layer["k"], k[0], bt, n)
+    paged_prefill_write(layer["v"], v[0], bt, n)
+    return cache
+
+
+def copy_page(cache, src: int, dst: int):
+    """Copy one KV page across every layer, in place: the device half of
+    copy-on-write (the engine allocates ``dst`` and patches the table)."""
+    for layer in cache["layers"]:
+        for pages in layer.values():
+            pages[dst].copy_(pages[src])
+    return cache
+
+
+def gather_pages(pages, block_tables):
+    """Materialize the logical [B, L, ...] view of a paged layer.
+
+    pages: [N, P, ...]; block_tables: [B, pages_per_slot]."""
+    b, npg = block_tables.shape
+    g = pages[block_tables.long()]              # [B, pages, P, ...]
+    return g.reshape((b, npg * pages.shape[1]) + tuple(pages.shape[2:]))
+
+
+def kv_bytes_per_token(cfg: ModelConfig, dtype=None,
+                       quantized: bool = False) -> int:
+    """Device bytes of KV (or MLA latent) cache per token, across layers.
+    SSM layers contribute 0 (their state is O(1) in sequence length)."""
+    size = torch_dtype(cfg.dtype if dtype is None else dtype).itemsize
+    total = 0
+    for kind in cfg.layer_pattern:
+        if kind != ATTN:
+            continue
+        if cfg.mla is not None:
+            total += (cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim) * size
+        elif quantized:
+            # int8 values + one bf16 scale per (token, head) for k and v
+            total += 2 * cfg.num_kv_heads * (cfg.head_dim * 1 + 2)
+        else:
+            total += 2 * cfg.num_kv_heads * cfg.head_dim * size
+    return total

@@ -1,0 +1,129 @@
+"""The port's copies of the framework-free scheduling core schedule
+exactly as the reference ``repro.core`` does: the same annealed
+permutation and G, the same policy decisions on the same view, the same
+discrete-event results, and the same block-pool / prefix-index state
+under one operation sequence.  The batched-annealer selectors, which
+reach the JAX-only annealer in the reference, raise in the port."""
+import importlib
+
+import numpy as np
+import pytest
+
+PKGS = ("repro", "repro_torch")
+
+
+def _mods(pkg):
+    return {name: importlib.import_module(f"{pkg}.{name}") for name in (
+        "core", "core.slo", "core.policies", "core.latency_model",
+        "core.annealing", "core.events", "data.synthetic", "engine.blocks",
+        "engine.prefix")}
+
+
+def _annealed(m):
+    reqs = m["data.synthetic"].sample_requests(24, seed=3)
+    res = m["core.annealing"].priority_mapping(
+        m["core.slo"].as_arrays(reqs), m["core.latency_model"].PAPER_TABLE2,
+        8, m["core.annealing"].SAParams(seed=0))
+    return (res.perm.tolist(), res.batch_id.tolist(), res.G,
+            res.evaluations, res.early_exit)
+
+
+def _view(m):
+    """Six pending requests (two with tight TTFT SLOs) against two
+    loose-SLO running ones on a full paged executor: slo-preempt
+    evicts."""
+    slo, pol = m["core.slo"], m["core.policies"]
+    model = m["core.latency_model"].PAPER_TABLE2
+    reqs = m["data.synthetic"].sample_requests(8, seed=11)
+    for r in reqs[:2]:
+        r.slo = slo.SLO(ttft=0.2, tpot=0.2)
+        r.submit_time = 1.4
+    for r in reqs[6:]:
+        r.slo = slo.SLO(e2e=1e3)
+    active = tuple(pol.make_active_view(
+        r, generated=12, remaining=r.output_len - 12,
+        context_len=r.input_len + 12, now=1.5, ttft=0.9, e2e_base=0.0,
+        batch=2, model=model, blocks_held=6) for r in reqs[6:])
+    return pol.SchedulerView(
+        pending=tuple(reqs[:6]), active=active, now=1.5, free=0,
+        max_batch=3, discipline=pol.StallingPrefill(), free_blocks=20,
+        total_blocks=64, block_size=16, pages_per_slot=128), model
+
+
+def _decide(m, policy):
+    view, model = _view(m)
+    pol = m["core.policies"].make(policy, model=model, max_batch=3)
+    dec = pol.decide(view)
+    return list(dec.admit), list(dec.preempt)
+
+
+def _simulated(m, policy, discipline):
+    reqs = m["data.synthetic"].sample_requests(20, seed=4)
+    rng = np.random.default_rng(0)
+    t = 0.0
+    for i, r in enumerate(reqs):
+        t += float(rng.exponential(0.3))
+        r.arrival_time = t
+        if i % 3 == 2:                 # tight arrivals: preemption bait
+            r.slo = m["core.slo"].SLO(ttft=1.0, tpot=0.2)
+    res = m["core.events"].simulate(
+        reqs, m["core.latency_model"].PAPER_TABLE2, 2, policy,
+        discipline=discipline, noise_sigma=0.05,
+        rng=np.random.default_rng(1))
+    return (res.e2e, res.ttft, res.met, res.preemptions)
+
+
+def _pool_and_index(m):
+    pool = m["engine.blocks"].BlockPool(24)
+    idx = m["engine.prefix"].RadixPrefixIndex(pool, 4)
+    rng = np.random.default_rng(2)
+    sys_prompt = rng.integers(0, 50, 12).tolist()
+    log = []
+    for i in range(6):
+        toks = sys_prompt + rng.integers(0, 50, 4 + i).tolist()
+        got = idx.match(toks, max_tokens=len(toks) - 1)
+        pool.share(got)
+        fresh = pool.alloc(-(-len(toks) // 4) - len(got))
+        idx.insert(toks, got + fresh, max_tokens=len(toks))
+        log.append((got, fresh, pool.available, len(idx),
+                    idx.reclaimable()))
+        if i % 2:
+            pool.release(got + fresh)
+    log.append((idx.evict(3), pool.available, len(idx), idx.hit_rate))
+    return log
+
+
+CASES = {
+    "priority_mapping": _annealed,
+    "decide-fcfs": lambda m: _decide(m, "fcfs"),
+    "decide-slo-reanneal": lambda m: _decide(m, "slo-reanneal"),
+    "decide-slo-preempt": lambda m: _decide(m, "slo-preempt"),
+    "simulate-fcfs": lambda m: _simulated(m, "fcfs", "stall"),
+    "simulate-slo-reanneal-chunked": lambda m: _simulated(
+        m, "slo-reanneal", "chunked:64"),
+    "simulate-slo-preempt": lambda m: _simulated(m, "slo-preempt", "stall"),
+    "block-pool-and-prefix-index": _pool_and_index,
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_copy_schedules_identically(case):
+    ref, port = (CASES[case](_mods(pkg)) for pkg in PKGS)
+    assert port == ref
+
+
+@pytest.mark.parametrize("selector", [
+    "slo-reanneal:jax", "scheduler-use-jax", "route:annealed"])
+def test_batched_annealer_selectors_raise(selector):
+    m = _mods("repro_torch")
+    model = m["core.latency_model"].PAPER_TABLE2
+    with pytest.raises(ValueError, match="torch annealer: ROADMAP M7"):
+        if selector == "scheduler-use-jax":
+            m["core"].SLOAwareScheduler(model, use_jax=True)
+        elif selector == "route:annealed":
+            mapper = m["core.policies"].make(selector, model=model)
+            mapper.map_batch(m["data.synthetic"].sample_requests(4), [
+                m["core.policies"].InstanceState(instance_id=i)
+                for i in range(2)])
+        else:
+            m["core.policies"].make(selector, model=model, max_batch=4)

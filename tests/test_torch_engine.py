@@ -1,0 +1,122 @@
+"""Port engine vs JAX engine: the same seeded workloads through
+``Engine.run_policy`` under fcfs / slo-reanneal / slo-preempt, stalling
+and ``chunked:16`` prefill, prefix cache on and off, on reduced
+``qwen3-1.7b`` in float32.
+
+Per request: identical greedy tokens and the same completion set.  The
+SLO policies read the measured engine clock, so their admission order
+may differ between the two engines; tokens are compared per request,
+never per tick.  Under fcfs the order is clock-free, so the prefix-cache
+accounting (cached tokens, ``prefix_stats()``, copy-on-write count) must
+match too."""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_reduced
+from repro.core import policies as jax_policies
+from repro.core.latency_model import PAPER_TABLE2 as JAX_MODEL
+from repro.data import synthetic as jax_synthetic
+from repro.engine.engine import Engine as JaxEngine
+from repro.engine.request import RuntimeRequest as JaxRuntimeRequest
+from repro.models import init_params
+from repro_torch.bridge import from_jax_params
+from repro_torch.core import policies
+from repro_torch.core.latency_model import PAPER_TABLE2
+from repro_torch.data import synthetic
+from repro_torch.engine.engine import Engine
+from repro_torch.engine.request import RuntimeRequest
+
+torch.set_num_threads(2)
+CFG = dataclasses.replace(get_reduced("qwen3-1.7b"), dtype="float32")
+ENGINE_KW = dict(max_slots=3, max_seq_len=256)
+
+
+@pytest.fixture(scope="module")
+def params():
+    jp = jax.jit(init_params, static_argnums=1)(jax.random.PRNGKey(0), CFG)
+    return jp, from_jax_params(jax.tree.map(np.asarray, jp), device="cpu")
+
+
+def _pairs(syn, workload):
+    if workload == "serve":
+        return syn.sample_serve_workload(6, CFG.vocab_size, seed=0)
+    return syn.sample_multiturn_token_requests(2, turns=3,
+                                               vocab=CFG.vocab_size)
+
+
+def _run(port: bool, params, policy, discipline, prefix, workload):
+    syn = synthetic if port else jax_synthetic
+    rt_cls = RuntimeRequest if port else JaxRuntimeRequest
+    rts = [rt_cls(request=r, prompt_tokens=p, max_new_tokens=r.output_len)
+           for r, p in _pairs(syn, workload)]
+    if port:
+        eng = Engine(CFG, params[1], prefix_cache=prefix, device="cpu",
+                     **ENGINE_KW)
+        pol = policies.make(policy, model=PAPER_TABLE2, max_batch=3)
+    else:
+        eng = JaxEngine(CFG, params[0], prefix_cache=prefix, **ENGINE_KW)
+        pol = jax_policies.make(policy, model=JAX_MODEL, max_batch=3)
+    return eng.run_policy(rts, pol, discipline=discipline), eng
+
+
+@pytest.mark.parametrize("policy,discipline,prefix,workload", [
+    ("fcfs", "stall", True, "serve"),
+    ("fcfs", "stall", False, "serve"),
+    ("slo-reanneal", "stall", True, "serve"),
+    ("slo-preempt", "stall", True, "serve"),
+    ("fcfs", "chunked:16", True, "serve"),
+    ("fcfs", "stall", True, "multiturn"),
+    ("fcfs", "stall", False, "multiturn"),
+    ("fcfs", "chunked:16", True, "multiturn"),
+])
+def test_engine_tokens_match_jax(params, policy, discipline, prefix,
+                                 workload):
+    got, eng = _run(True, params, policy, discipline, prefix, workload)
+    want, jeng = _run(False, params, policy, discipline, prefix, workload)
+    assert sorted(got) == sorted(want)
+    for rid in want:
+        assert got[rid]["tokens"] == want[rid]["tokens"], rid
+    if policy == "fcfs":
+        assert [got[r]["cached"] for r in sorted(got)] == \
+            [want[r]["cached"] for r in sorted(want)]
+        assert eng.prefix_stats() == jeng.prefix_stats()
+        assert eng.cow_copies == jeng.cow_copies
+    if workload == "multiturn" and prefix:
+        assert eng.prefix_stats()["hit_rate"] > 0
+
+
+def test_warm_up_leaves_engine_cache_untouched(params):
+    """Warm-up runs on a scratch pool: the engine's pages, positions and
+    block tables are bit-identical before and after."""
+    eng = Engine(CFG, params[1], device="cpu", **ENGINE_KW)
+    r, p = synthetic.sample_serve_workload(1, CFG.vocab_size, seed=3)[0]
+    rt = RuntimeRequest(request=r, prompt_tokens=p, max_new_tokens=4)
+    eng.begin_prefill(rt, 0)
+    eng.prefill_step(rt)                      # pages now hold a prompt
+    eng.decode_round()
+    snap = [t.clone() for t in _tensors(eng.cache)]
+    toks = torch.ones((1, 64), dtype=torch.int32)
+    eng._warm_up(("prefill", 64), eng._prefill_step, toks, 40, 1)
+    eng._warm_up(("chunk", 64), eng._chunk_step, toks, 1, 40)
+    eng._warm_up(("decode-probe",), eng._decode_step,
+                 torch.ones((3, 1), dtype=torch.int32),
+                 torch.tensor([True, True, True]))
+    assert all(torch.equal(a, b) for a, b in zip(snap, _tensors(eng.cache)))
+
+
+def _tensors(cache):
+    yield cache["pos"]
+    yield cache["block_tables"]
+    for layer in cache["layers"]:
+        yield from layer.values()
+
+
+def test_entry_points_need_cuda_unless_asked(params):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(CFG, params[1], **ENGINE_KW)

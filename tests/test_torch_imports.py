@@ -1,0 +1,46 @@
+"""The port stands alone: importing ``repro_torch`` and every submodule
+loads neither ``jax`` nor the JAX package ``repro``, and no source file
+of the port imports them."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+
+_PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                              "repro_torch.")]
+for name in mods:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(mods), bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_import_loads_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    n_mods = int(out.stdout.split()[0])
+    assert n_mods >= 30, out.stdout        # every submodule was imported
+
+
+_IMPORT = re.compile(
+    r"^\s*(?:from|import)\s+(?:jax|jaxlib|repro)(?:\.|\s|$)"
+    r"|import_module\(\s*f?[\"'](?:jax|repro)\."
+    r"|\brepro\.(?!_)", re.M)
+
+
+def test_sources_import_no_jax_and_no_reference():
+    hits = []
+    for path in sorted((SRC / "repro_torch").rglob("*.py")):
+        for m in _IMPORT.finditer(path.read_text()):
+            hits.append(f"{path.relative_to(SRC)}: {m.group(0).strip()}")
+    assert not hits, hits
