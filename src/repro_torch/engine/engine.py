@@ -1,15 +1,25 @@
-"""Slot-based continuous-batching serving engine over the paged KV pool.
+"""Slot-based continuous-batching serving engine.
 
-Counterpart of the paged path of ``src/repro/engine/engine.py``: a fixed pool
-of ``max_slots`` request slots; prompts padded to power-of-two length
+Counterpart of ``src/repro/engine/engine.py``: a fixed pool of
+``max_slots`` request slots; whole prompts padded to power-of-two length
 buckets (>= 16, which is also what the flash-attention kernel takes);
-each decode round runs over the full slot pool.  KV memory is one
-shared ``[num_blocks, block_size, kv, hd]`` page array per layer plus
-per-slot block tables; prefill and decode write their K/V **in place**
-into the slot's pages (the JAX engine gets the same effect from buffer
-donation).  Blocks are reserved on admit, aliased from the radix prefix
-index where a cached prefix matches, copied on write when shared, and
-released on finish or preemption.
+each decode round runs over the full slot pool.  KV memory comes in two
+layouts:
+
+* **paged** (the default): one shared ``[num_blocks, block_size, kv,
+  hd]`` page array per layer plus per-slot block tables; prefill and
+  decode write their K/V **in place** into the slot's pages (the JAX
+  engine gets the same effect from buffer donation).  Blocks are
+  reserved on admit, aliased from the radix prefix index where a cached
+  prefix matches, copied on write when shared, and released on finish or
+  preemption.
+* **dense** (``paged=False``): one ``[max_slots, L, kv, hd]`` ring per
+  layer.  A whole-prompt prefill fills a fresh single-slot cache that is
+  then copied into the slot; chunked prefills walk a private
+  single-slot cache at exact chunk lengths and are copied in when the
+  last chunk completes; a decode round writes only the running slots'
+  rows (the JAX engine computes every row and restores the inactive
+  ones with ``where``: the same result).
 
 Scheduling is delegated to the same policy objects as the discrete-event
 core (:mod:`repro_torch.core.policies`): ``run_policy`` builds a
@@ -20,13 +30,12 @@ decode round) — chunk-as-tick, as in the JAX engine.
 Every prefill and decode step is timed on the host clock after a device
 synchronize, and fed to the ``LatencyProfiler``, so the paper's linear
 latency model is fit from this engine on this device.  Per-shape
-warm-up (first use of a prompt bucket, a chunk bucket, the decode round;
+warm-up (first use of a prompt bucket, a chunk length, the decode round;
 also the first build and load of each CUDA kernel) runs off the clock on
-a scratch pool, so it never changes engine state.
+a scratch cache, so it never changes engine state.
 
-Not ported yet (ROADMAP M6, M10, M11): the dense ``paged=False`` layout,
-``dispatch_decode`` and the streaming loop's dispatch/sync split, and the
-device mesh.
+Not ported yet (ROADMAP M6, M11): ``dispatch_decode`` and the streaming
+loop's dispatch/sync split, and the device mesh.
 """
 from __future__ import annotations
 
@@ -50,12 +59,12 @@ from repro_torch.engine.blocks import BlockPool
 from repro_torch.engine.prefix import RadixPrefixIndex
 from repro_torch.engine.request import Phase, RuntimeRequest
 from repro_torch.engine.sampling import sample
-from repro_torch.models.cache import (copy_page, init_paged_cache,
-                                      paged_slot_len)
+from repro_torch.models.cache import (copy_page, init_cache,
+                                      init_paged_cache, paged_slot_len)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import (forward_chunk_paged,
-                                      forward_decode_paged,
-                                      forward_prefill_paged)
+from repro_torch.models.model import (forward_chunk, forward_chunk_paged,
+                                      forward_decode, forward_decode_paged,
+                                      forward_full, forward_prefill_paged)
 
 
 def _bucket(n: int, lo: int = 16) -> int:
@@ -77,15 +86,14 @@ class Engine:
 
         ``chunked_prefill > 0``: split prompts into chunks of that size,
         each riding a tick beside the running decode round (Sarathi).
+        ``paged`` (default True) selects the block-paged pool:
         ``num_blocks`` pages of ``block_size`` tokens (+ the null page)
         default to ``max_slots`` full-length slots; admission refuses
         requests whose prompt + output budget exceeds the free blocks.
-        ``prefix_cache`` enables shared-prefix KV reuse (refcounted
-        pages aliased through a radix index, copy-on-write on divergent
-        writes) for full-attention archs."""
-        if paged is False:
-            raise NotImplementedError("the dense KV layout (paged=False) "
-                                      "is not ported yet: ROADMAP M10")
+        ``paged=False`` keeps the dense ``max_slots x max_seq_len``
+        layout.  ``prefix_cache`` (paged only) enables shared-prefix KV
+        reuse (refcounted pages aliased through a radix index,
+        copy-on-write on divergent writes) for full-attention archs."""
         self.cfg = cfg
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
@@ -102,37 +110,83 @@ class Engine:
         self.clock = 0.0             # engine-internal wall clock
         self.slot_free = [True] * max_slots
         self.slot_req: List[Optional[RuntimeRequest]] = [None] * max_slots
-        self.block_size = block_size
-        self.slot_len = paged_slot_len(cfg, max_seq_len, block_size)
-        self.pages_per_slot = self.slot_len // block_size
-        if num_blocks is None:
-            num_blocks = max_slots * self.pages_per_slot + 1
-        self.num_blocks = num_blocks
-        self.pool = BlockPool(num_blocks)
-        self._slot_blocks: List[List[int]] = [[] for _ in range(max_slots)]
-        self.cache = init_paged_cache(cfg, max_slots, max_seq_len,
-                                      num_blocks, block_size,
-                                      device=self.device)
-        # warm-up target: same slots and tables, two pages (every table
-        # entry is the null page), so warming never touches self.cache
-        self._scratch = init_paged_cache(cfg, max_slots, max_seq_len, 2,
-                                         block_size, device=self.device)
-        # prefix sharing needs position-faithful KV: no window rings
-        self.prefix = RadixPrefixIndex(self.pool, block_size) \
-            if prefix_cache and not cfg.sliding_window else None
+        self.paged = paged is None or bool(paged)
+        if self.paged:
+            self.block_size = block_size
+            self.slot_len = paged_slot_len(cfg, max_seq_len, block_size)
+            self.pages_per_slot = self.slot_len // block_size
+            if num_blocks is None:
+                num_blocks = max_slots * self.pages_per_slot + 1
+            self.num_blocks = num_blocks
+            self.pool = BlockPool(num_blocks)
+            self._slot_blocks: List[List[int]] = [[] for _ in
+                                                  range(max_slots)]
+            self.cache = init_paged_cache(cfg, max_slots, max_seq_len,
+                                          num_blocks, block_size,
+                                          device=self.device)
+            # warm-up target: same slots and tables, two pages (every
+            # table entry is the null page), so warming never touches
+            # self.cache
+            self._scratch = init_paged_cache(cfg, max_slots, max_seq_len,
+                                             2, block_size,
+                                             device=self.device)
+            # prefix sharing needs position-faithful KV: no window rings
+            self.prefix = RadixPrefixIndex(self.pool, block_size) \
+                if prefix_cache and not cfg.sliding_window else None
+        else:
+            self.pool = None
+            self.prefix = None
+            self.cache = init_cache(cfg, max_slots, max_seq_len,
+                                    device=self.device)
+            # warm-up target for decode rounds: the same slots over a
+            # 16-token ring (the decode kernel takes any ring length;
+            # nothing else in a round depends on it)
+            self._scratch = init_cache(cfg, max_slots, 16,
+                                       device=self.device)
+        # dense in-progress chunked prefills: slot -> private single-slot
+        # cache, copied into the slot when the final chunk completes
+        self._partial: Dict[int, dict] = {}
         self.chunked_prefill = chunked_prefill
         self._warm = set()
         self.cow_copies = 0          # copy-on-write page splits performed
 
     # ------------------------------------------------------------ steps
     def _decode_step(self, cache, tokens, active):
-        """tokens [B,1]; active [B] bool -> (logits [B,V], cache).  Pages
-        of inactive slots need no freeze (freed slots' tables point at
-        the null page); their ``pos`` keeps its old value."""
-        logits, new = forward_decode_paged(self.params, self.cfg,
-                                           tokens=tokens, cache=cache)
+        """tokens [B,1]; active [B] bool -> (logits [B,V], cache).  Paged:
+        pages of inactive slots need no freeze (freed slots' tables point
+        at the null page).  Dense: only active slots' rows are written.
+        Either way an inactive slot's ``pos`` keeps its old value."""
+        if self.paged:
+            logits, new = forward_decode_paged(self.params, self.cfg,
+                                               tokens=tokens, cache=cache)
+        else:
+            logits, new = forward_decode(self.params, self.cfg,
+                                         tokens=tokens, cache=cache,
+                                         active=active)
         cache["pos"] = torch.where(active, new["pos"], cache["pos"])
         return logits[:, -1], cache
+
+    def _prefill_one(self, tokens, length):
+        """Dense whole-prompt prefill into a fresh single-slot cache.
+        tokens [1, Lpad] -> (logits [V] at the last real token, cache1)."""
+        cache1 = init_cache(self.cfg, 1, self.max_seq_len,
+                            device=self.device)
+        logits, cache1, _ = forward_full(self.params, self.cfg,
+                                         tokens=tokens, cache=cache1)
+        cache1["pos"].fill_(length)
+        return logits[0, length - 1], cache1
+
+    def _prefill_chunk(self, cache1, tokens):
+        """One dense chunk continuation over a single-slot cache."""
+        return forward_chunk(self.params, self.cfg, tokens=tokens,
+                             cache=cache1)
+
+    def _write_slot(self, slot: int, cache1):
+        """Copy a single-request dense cache into slot ``slot``."""
+        for pool_l, one_l in zip(self.cache["layers"], cache1["layers"]):
+            for name, buf in pool_l.items():
+                buf[slot].copy_(one_l[name][0])
+        self.cache["pos"][slot] = cache1["pos"][0]
 
     def _prefill_step(self, cache, tokens, length, slot):
         return forward_prefill_paged(self.params, self.cfg, tokens=tokens,
@@ -158,7 +212,7 @@ class Engine:
     def finish_slot(self, rt: RuntimeRequest):
         """Release a finished request's slot: publish its KV-valid span
         (prompt + all but the never-written final token) to the prefix
-        index, return its blocks, and free the slot."""
+        index, return its blocks (paged), and free the slot."""
         self._index_span(rt, rt.input_len + len(rt.generated) - 1)
         self._release_blocks(rt.slot)
         self.slot_free[rt.slot] = True
@@ -249,7 +303,7 @@ class Engine:
             self.device)
 
     def _release_blocks(self, slot: int):
-        if self._slot_blocks[slot]:
+        if self.paged and self._slot_blocks[slot]:
             self.pool.release(self._slot_blocks[slot])
             self._slot_blocks[slot] = []
             self.cache["block_tables"][slot] = 0
@@ -331,7 +385,7 @@ class Engine:
         if rt.phase is not Phase.PREFILLING:
             raise ValueError(f"request {rt.req_id} has no staged prefill")
         slot = rt.slot
-        if not self._slot_blocks[slot]:
+        if self.paged and not self._slot_blocks[slot]:
             # first step: claim the pages (aliasing any prefix indexed
             # since admission) and skip the cached span
             self._assign_blocks(rt, slot)
@@ -344,24 +398,57 @@ class Engine:
         if m <= 0:
             raise ValueError(f"empty prefill span for request {rt.req_id}")
         last = done + m >= n
-        L = _bucket(m)
-        toks = np.zeros((1, L), np.int32)
-        toks[0, :m] = ctx[done:done + m]
+        whole = done == 0 and last
+        if self.paged or whole:
+            L = _bucket(m)
+            toks = np.zeros((1, L), np.int32)
+            toks[0, :m] = ctx[done:done + m]
+        else:
+            # dense chunks run at exact length (never bucketed)
+            toks = np.asarray(ctx[done:done + m], np.int32)[None]
         toks = torch.from_numpy(toks).to(self.device)
-        if done == 0 and last:
+        if whole and not self.paged:
+            # dense whole-context fast path: one bucketed prefill into a
+            # fresh single-slot cache (it touches no engine state, so it
+            # warms as is), copied into the slot
+            self._warm_up(("prefill", L),
+                          lambda _s, t: self._prefill_one(t, n), toks)
+            synchronize(self.device)
+            t0 = time.perf_counter()
+            logits, cache1 = self._prefill_one(toks, n)
+            self._write_slot(slot, cache1)
+            row = logits[None, :]
+        elif whole:
             # whole-context fast path: one bucketed prefill
             self._warm_up(("prefill", L), self._prefill_step, toks, n, slot)
             synchronize(self.device)
             t0 = time.perf_counter()
             logits, _ = self._prefill_step(self.cache, toks, n, slot)
             row = logits[None, :]
-        else:
+        elif self.paged:
             # chunk / prefix-hit suffix: padded to a pow-2 bucket whose
             # padded rows are never written and never attended
             self._warm_up(("chunk", L), self._chunk_step, toks, slot, m)
             synchronize(self.device)
             t0 = time.perf_counter()
             logits, _ = self._chunk_step(self.cache, toks, slot, m)
+            row = logits[:, 0]
+        else:
+            # dense chunk walk over a private single-slot cache, copied
+            # into the slot when the final chunk completes; each new
+            # chunk length warms on a scratch single-slot cache
+            self._warm_up(("chunk", m), lambda _s, t: self._prefill_chunk(
+                init_cache(self.cfg, 1, self.max_seq_len,
+                           device=self.device), t), toks)
+            cache1 = self._partial.get(slot)
+            if cache1 is None:
+                cache1 = self._partial[slot] = init_cache(
+                    self.cfg, 1, self.max_seq_len, device=self.device)
+            synchronize(self.device)
+            t0 = time.perf_counter()
+            logits, _ = self._prefill_chunk(cache1, toks)
+            if last:
+                self._write_slot(slot, self._partial.pop(slot))
             row = logits[:, 0]
         synchronize(self.device)
         dt = time.perf_counter() - t0
@@ -385,6 +472,7 @@ class Engine:
         prompt + generated."""
         if rt.slot < 0 or self.slot_req[rt.slot] is not rt:
             raise ValueError(f"request {rt.req_id} is not running")
+        self._partial.pop(rt.slot, None)     # drop any half-built cache
         self._release_blocks(rt.slot)
         self.slot_free[rt.slot] = True
         self.slot_req[rt.slot] = None
@@ -411,7 +499,8 @@ class Engine:
                    if rt is not None and rt.phase is Phase.RUNNING]
         if not running:
             return
-        self._cow_guard()
+        if self.paged:
+            self._cow_guard()
         active_np = np.array([rt is not None and rt.phase is Phase.RUNNING
                               for rt in self.slot_req])
         tokens = np.zeros((self.max_slots, 1), np.int32)
@@ -485,18 +574,20 @@ class Engine:
                 rt.ttft_time, rt.submit_time, b, model,
                 # only pages this request exclusively owns are freeable
                 # by preempting it
-                blocks_held=sum(1 for bl in self._slot_blocks[rt.slot]
-                                if self.pool.refcount(bl) == 1))
+                blocks_held=(sum(1 for bl in self._slot_blocks[rt.slot]
+                                 if self.pool.refcount(bl) == 1)
+                             if self.paged else 0))
                 for rt in active_rts),
             now=self.clock, free=len(self.free_slots()),
             max_batch=self.max_slots,
             pending_generated=tuple(len(rt.generated) for rt in waiting),
-            pending_cached=tuple(self._probe_cached(rt) for rt in waiting),
+            pending_cached=(tuple(self._probe_cached(rt) for rt in waiting)
+                            if self.paged else ()),
             discipline=disc,
-            free_blocks=self._admission_blocks(),
-            total_blocks=self.pool.total,
-            block_size=self.block_size,
-            pages_per_slot=self.pages_per_slot)
+            free_blocks=self._admission_blocks() if self.paged else None,
+            total_blocks=self.pool.total if self.paged else None,
+            block_size=self.block_size if self.paged else 0,
+            pages_per_slot=self.pages_per_slot if self.paged else 0)
 
     # ------------------------------------------------------------ runs
     def run_policy(self, rts: Sequence[RuntimeRequest],
@@ -575,7 +666,7 @@ class Engine:
                         break
                     # reserve atomically so same-step admissions never
                     # race a probe against a later allocation
-                    if not self._reserve_blocks(waiting[j]):
+                    if self.paged and not self._reserve_blocks(waiting[j]):
                         continue        # out of KV blocks: keep waiting
                     sel.append(j)
                 chosen = [waiting[j] for j in sel]
@@ -596,8 +687,9 @@ class Engine:
                     self.clock = max(self.clock,
                                      t0 + future[fi].request.arrival_time)
                 elif waiting:
-                    if all(self._unique_blocks_needed(rt)
-                           > self._admission_blocks() for rt in waiting):
+                    if self.paged and all(
+                            self._unique_blocks_needed(rt)
+                            > self._admission_blocks() for rt in waiting):
                         rt = waiting[0]
                         raise ValueError(
                             f"request {rt.req_id} needs "

@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them via ctypes.
 
-Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
-plain ``extern "C"`` entry point (no PyTorch headers, so a build takes
-seconds).  Libraries land in ``build/repro_torch_kernels/`` at the repo
-root (``REPRO_TORCH_BUILD_DIR`` overrides it), named by a hash of their
-source and flags, so an edited source is rebuilt and an unchanged one is
-reused.  Nothing is built at import: the first call of a kernel builds
+Each ``csrc/<source>.cu`` compiles on its own into a shared library
+with plain ``extern "C"`` entry points, one per kernel it holds (no
+PyTorch headers, so a build takes seconds).  Libraries land in
+``build/repro_torch_kernels/`` at the repo root
+(``REPRO_TORCH_BUILD_DIR`` overrides it), named by a hash of their
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source or header is rebuilt and an unchanged one is reused.  Nothing is built at import: the first call of a kernel builds
 it, and :func:`build` builds several in parallel ahead of time (callers
 that time work build first, so the build never lands on their clock).
 
@@ -27,7 +28,15 @@ from pathlib import Path
 from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("decode_attention_paged", "flash_attention")
+# kernel (its C entry point and launch counter) -> the source holding it
+SOURCES = {
+    "decode_attention_paged": "decode_attention_paged",
+    "decode_attention_paged_q8": "decode_attention_paged",
+    "decode_attention": "decode_attention",
+    "decode_attention_q8": "decode_attention",
+    "flash_attention": "flash_attention",
+}
+KERNELS = tuple(SOURCES)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -36,12 +45,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # a 64-bit address to a 32-bit int
 SIGNATURES = {
     "decode_attention_paged": [_P] * 6 + [_I] * 9 + [_P],
+    "decode_attention_paged_q8": [_P] * 8 + [_I] * 9 + [_P],
+    "decode_attention": [_P] * 5 + [_I] * 6 + [_P],
+    "decode_attention_q8": [_P] * 7 + [_I] * 6 + [_P],
     "flash_attention": [_P] * 4 + [_I] * 8 + [_P],
 }
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[str, "ctypes._CFuncPtr"] = {}
 _LOCK = threading.Lock()
 
 
@@ -64,18 +77,23 @@ def nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return build_dir() / f"lib{name}-{digest[:16]}.so"
+def library_path(source: str) -> Path:
+    """The library built from ``csrc/<source>.cu``."""
+    h = hashlib.sha1((CSRC / f"{source}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{source}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
-    """Compile every named kernel whose library is missing, one ``nvcc``
-    per source, all started together.  Returns the wall seconds of the
-    whole build and writes each compiler log (``-Xptxas=-v``: registers,
-    shared memory, spills) beside its library."""
-    todo = [n for n in names if not library_path(n).exists()]
+    """Compile the sources of the named kernels whose library is missing,
+    one ``nvcc`` per source, all started together.  Returns the wall
+    seconds of the whole build and writes each compiler log
+    (``-Xptxas=-v``: registers, shared memory, spills) beside its
+    library."""
+    sources = dict.fromkeys(SOURCES[n] for n in names)
+    todo = [s for s in sources if not library_path(s).exists()]
     t0 = time.perf_counter()
     if todo:
         out_dir = build_dir()
@@ -104,27 +122,31 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     return {"seconds": time.perf_counter() - t0, "built": len(todo)}
 
 
-def compiler_log(name: str) -> List[str]:
-    """The ptxas lines of the kernel's last build (registers, spills)."""
-    log = library_path(name).with_suffix(".log")
+def compiler_log(source: str) -> List[str]:
+    """The ptxas lines of the source's last build (registers, spills)."""
+    log = library_path(source).with_suffix(".log")
     if not log.exists():
         return []
     return [ln.strip() for ln in log.read_text().splitlines()
             if "ptxas info" in ln and ("registers" in ln or "spill" in ln)]
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The named kernel's library, built at first use."""
+def load(name: str):
+    """The named kernel's C entry point, its library built at first
+    use."""
     with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is None:
-            build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
+        fn = _FNS.get(name)
+        if fn is None:
+            source = SOURCES[name]
+            lib = _LIBS.get(source)
+            if lib is None:
+                build([name])
+                lib = _LIBS[source] = ctypes.CDLL(str(library_path(source)))
             fn = getattr(lib, name)
             fn.argtypes = SIGNATURES[name]
             fn.restype = ctypes.c_int
-            _LIBS[name] = lib
-        return lib
+            _FNS[name] = fn
+        return fn
 
 
 def check(name: str, err: int):

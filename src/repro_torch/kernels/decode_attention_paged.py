@@ -1,27 +1,36 @@
-"""Paged flash-decode: one-token GQA decode through a block table.
+"""Paged flash-decode: one-token GQA decode through a block table, over
+float or int8 pages.
 
-Counterpart of the Pallas TPU kernel
-``repro/kernels/decode_attention_paged.py::decode_attention_paged``.
-The hand-written CUDA kernel is ``csrc/decode_attention_paged.cu`` (its
-header says what bounds it on the card and how the design answers);
-this module holds its launch wrapper and the plain PyTorch version of
-the same function, which the CPU path runs and the card is held to.
+Counterpart of the Pallas TPU kernels
+``repro/kernels/decode_attention_paged.py::decode_attention_paged`` and
+``::decode_attention_paged_q8``.  The hand-written CUDA kernels are in
+``csrc/decode_attention_paged.cu`` (the block they share with the dense
+decode kernels, what bounds it on the card and how the design answers,
+is ``csrc/decode_attention_common.cuh``); this module holds their launch
+wrappers and the plain PyTorch versions of the same functions, which
+the CPU path runs and the card is held to.
 
 Masking is by token id on the slot's logical ring of length
 ``pages_per_seq * page_size``: ring slot ``s`` holds token
 ``t_s = len-1 - mod(len-1-s, L)`` (floor mod — ``torch.remainder``,
 never ``fmod``), masked when negative (not yet written) or, with a
 window, evicted.
+
+int8 pages are dequantized in float32 (int8 x bf16 scale is exact
+there): in registers in the CUDA kernel, as in the TPU kernel's VMEM,
+and before the float math in the plain version.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.models.cache import dequantize_kv
 
 NEG_INF = -1e30
 NAME = "decode_attention_paged"
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+NAME_Q8 = "decode_attention_paged_q8"
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def decode_attention_paged_plain(q, k_pages, v_pages, block_tables, lengths,
@@ -55,50 +64,108 @@ def decode_attention_paged_plain(q, k_pages, v_pages, block_tables, lengths,
     return torch.einsum("bhl,blhd->bhd", p, v.float()).to(q.dtype)
 
 
+def decode_attention_paged_q8_plain(q, k_pages, k_scale, v_pages, v_scale,
+                                    block_tables, lengths, *,
+                                    window: int = 0):
+    """int8 pages [N,P,KV,hd] + bf16 scales [N,P,KV,1]: dequantize the
+    pool in float32, then :func:`decode_attention_paged_plain`."""
+    f32 = torch.float32
+    return decode_attention_paged_plain(
+        q, dequantize_kv(k_pages, k_scale, f32),
+        dequantize_kv(v_pages, v_scale, f32), block_tables, lengths,
+        window=window)
+
+
+def check_decode(name, q, k, v, k_scale=None, v_scale=None, **ints):
+    """Validate the arguments of a decode kernel (paged or dense, float
+    or int8 with scales).  ``ints`` are the int32 index tensors.  Returns
+    (batch, q heads, kv heads, head_dim); raises on anything the kernel
+    does not take."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: CUDA kernel got a {dev} tensor")
+    named = {"q": q, "k": k, "v": v, **ints}
+    if k_scale is not None:
+        named.update(k_scale=k_scale, v_scale=v_scale)
+    for n, t in named.items():
+        if t.device != dev:
+            raise ValueError(f"{name}: {n} on {t.device}, q on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {n} must be contiguous")
+    kv_dtype = q.dtype if k_scale is None else torch.int8
+    if q.dtype not in DTYPE_CODES or k.dtype != kv_dtype \
+            or v.dtype != kv_dtype:
+        raise TypeError(f"{name}: q must be float32 or bfloat16 and k/v "
+                        f"{'int8' if k_scale is not None else 'the same'}, "
+                        f"got {q.dtype}/{k.dtype}/{v.dtype}")
+    for n, t in ints.items():
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: {n} must be int32, got {t.dtype}")
+    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"{name}: bad shapes q {tuple(q.shape)}, k/v "
+                         f"{tuple(k.shape)}/{tuple(v.shape)}")
+    if k_scale is not None:
+        want = tuple(k.shape[:3]) + (1,)
+        for n, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.dtype != torch.bfloat16 or tuple(t.shape) != want:
+                raise ValueError(f"{name}: {n} must be bfloat16 {want}, got "
+                                 f"{t.dtype} {tuple(t.shape)}")
+    b, h, hd = q.shape
+    kv, hd_k = k.shape[2], k.shape[3]
+    if hd not in (64, 128) or hd_k != hd:
+        raise ValueError(f"{name}: head_dim {hd}/{hd_k} not in (64, 128)")
+    if kv == 0 or h % kv or h // kv > 16:
+        raise ValueError(f"{name}: {h} q heads over {kv} kv heads "
+                         "(group must divide and be <= 16)")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"{name}: k/v must be 16-byte aligned")
+    return b, h, kv, hd
+
+
+def _check_tables(name, b, block_tables, lengths):
+    if block_tables.dim() != 2 or block_tables.shape[0] != b \
+            or lengths.shape != (b,):
+        raise ValueError(f"{name}: block_tables {tuple(block_tables.shape)}"
+                         f" / lengths {tuple(lengths.shape)} for batch {b}")
+
+
 def decode_attention_paged_cuda(q, k_pages, v_pages, block_tables, lengths,
                                 *, window: int = 0):
     """Launch the CUDA kernel on the current stream.  Raises on anything
     the kernel does not take; never falls back."""
-    dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"{NAME}: CUDA kernel got a {dev} tensor")
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
-                    ("block_tables", block_tables), ("lengths", lengths)):
-        if t.device != dev:
-            raise ValueError(f"{NAME}: {name} on {t.device}, q on {dev}")
-    if q.dtype not in _DTYPE_CODES or k_pages.dtype != q.dtype \
-            or v_pages.dtype != q.dtype:
-        raise TypeError(f"{NAME}: q/k/v must share float32 or bfloat16, got "
-                        f"{q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
-    if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
-        raise TypeError(f"{NAME}: block_tables and lengths must be int32")
-    if q.dim() != 3 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
-        raise ValueError(f"{NAME}: bad shapes q {tuple(q.shape)}, pages "
-                         f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}")
-    b, h, hd = q.shape
-    n_blocks, P, kv, hd_k = k_pages.shape
-    if hd not in (64, 128) or hd_k != hd:
-        raise ValueError(f"{NAME}: head_dim {hd}/{hd_k} not in (64, 128)")
-    if kv == 0 or h % kv or h // kv > 16:
-        raise ValueError(f"{NAME}: {h} q heads over {kv} kv heads "
-                         "(group must divide and be <= 16)")
-    if block_tables.dim() != 2 or block_tables.shape[0] != b \
-            or lengths.shape != (b,):
-        raise ValueError(f"{NAME}: block_tables {tuple(block_tables.shape)}"
-                         f" / lengths {tuple(lengths.shape)} for batch {b}")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("block_tables", block_tables), ("lengths", lengths)):
-        if not t.is_contiguous():
-            raise ValueError(f"{NAME}: {name} must be contiguous")
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError(f"{NAME}: pages must be 16-byte aligned")
+    b, h, kv, hd = check_decode(NAME, q, k_pages, v_pages,
+                                block_tables=block_tables, lengths=lengths)
+    _check_tables(NAME, b, block_tables, lengths)
+    n_blocks, P = k_pages.shape[:2]
     out = torch.empty_like(q)
-    lib = _build.load(NAME)
-    err = lib.decode_attention_paged(
+    err = _build.load(NAME)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         b, h, kv, hd, n_blocks, P, block_tables.shape[1], int(window),
-        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
+        DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(NAME, err)
     _build.LAUNCHES[NAME] += 1
+    return out
+
+
+def decode_attention_paged_q8_cuda(q, k_pages, k_scale, v_pages, v_scale,
+                                   block_tables, lengths, *,
+                                   window: int = 0):
+    """Launch the int8 CUDA kernel on the current stream (q/out float32
+    or bf16).  Raises on anything the kernel does not take; never falls
+    back."""
+    b, h, kv, hd = check_decode(NAME_Q8, q, k_pages, v_pages, k_scale,
+                                v_scale, block_tables=block_tables,
+                                lengths=lengths)
+    _check_tables(NAME_Q8, b, block_tables, lengths)
+    n_blocks, P = k_pages.shape[:2]
+    out = torch.empty_like(q)
+    err = _build.load(NAME_Q8)(
+        q.data_ptr(), k_pages.data_ptr(), k_scale.data_ptr(),
+        v_pages.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), b, h, kv, hd, n_blocks, P,
+        block_tables.shape[1], int(window), DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(NAME_Q8, err)
+    _build.LAUNCHES[NAME_Q8] += 1
     return out

@@ -1,0 +1,55 @@
+"""Dense flash-decode over an int8 cache with per-(token, kv head) bf16
+scales.
+
+Counterpart of the Pallas TPU kernel
+``repro/kernels/decode_attention_q8.py::decode_attention_q8``.  The
+hand-written CUDA kernel is ``decode_attention_q8`` in
+``csrc/decode_attention.cu`` (the block it shares with the other decode
+kernels, what bounds it on the card and how the design answers, is
+``csrc/decode_attention_common.cuh``); this module holds its launch
+wrapper and the plain PyTorch version of the same function.
+
+The cache is dequantized in float32 (int8 x bf16 scale is exact
+there): in registers in the CUDA kernel, as in the TPU kernel's VMEM,
+and before the float math in the plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import (check_dense,
+                                                  decode_attention_plain)
+from repro_torch.kernels.decode_attention_paged import (DTYPE_CODES,
+                                                        check_decode)
+from repro_torch.models.cache import dequantize_kv
+
+NAME = "decode_attention_q8"
+
+
+def decode_attention_q8_plain(q, k_cache, k_scale, v_cache, v_scale,
+                              n_valid):
+    """q: [B,H,hd] bf16/f32; caches: [B,L,KV,hd] int8; scales:
+    [B,L,KV,1] bf16; n_valid: [B]. -> [B,H,hd]."""
+    f32 = torch.float32
+    return decode_attention_plain(q, dequantize_kv(k_cache, k_scale, f32),
+                                  dequantize_kv(v_cache, v_scale, f32),
+                                  n_valid)
+
+
+def decode_attention_q8_cuda(q, k_cache, k_scale, v_cache, v_scale,
+                             n_valid):
+    """Launch the CUDA kernel on the current stream.  Raises on anything
+    the kernel does not take; never falls back."""
+    b, h, kv, hd = check_decode(NAME, q, k_cache, v_cache, k_scale, v_scale,
+                                n_valid=n_valid)
+    check_dense(NAME, b, k_cache, n_valid)
+    out = torch.empty_like(q)
+    err = _build.load(NAME)(
+        q.data_ptr(), k_cache.data_ptr(), k_scale.data_ptr(),
+        v_cache.data_ptr(), v_scale.data_ptr(), n_valid.data_ptr(),
+        out.data_ptr(), b, h, kv, hd, k_cache.shape[1], DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(NAME, err)
+    _build.LAUNCHES[NAME] += 1
+    return out

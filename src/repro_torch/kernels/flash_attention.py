@@ -67,8 +67,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError(f"{NAME}: k/v must be 16-byte aligned")
     out = torch.empty_like(q)
-    lib = _build.load(NAME)
-    err = lib.flash_attention(
+    err = _build.load(NAME)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
         kv, hd, int(bool(causal)), int(window), _DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(dev).cuda_stream)

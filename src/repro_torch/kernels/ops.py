@@ -10,7 +10,9 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import decode_attention as _dense
 from repro_torch.kernels import decode_attention_paged as _paged
+from repro_torch.kernels import decode_attention_q8 as _dense_q8
 from repro_torch.kernels import flash_attention as _flash
 
 
@@ -39,3 +41,31 @@ def decode_attention_paged(q, k_pages, v_pages, block_tables, lengths, *,
             q, k_pages, v_pages, block_tables, lengths, window=window)
     return _paged.decode_attention_paged_cuda(
         q, k_pages, v_pages, block_tables, lengths, window=window)
+
+
+def decode_attention_paged_q8(q, k_pages, k_scale, v_pages, v_scale,
+                              block_tables, lengths, *, window: int = 0):
+    """int8-KV paged flash-decode (per-(token, head) bf16 scales)."""
+    if q.device.type == "cpu":
+        return _paged.decode_attention_paged_q8_plain(
+            q, k_pages, k_scale, v_pages, v_scale, block_tables, lengths,
+            window=window)
+    return _paged.decode_attention_paged_q8_cuda(
+        q, k_pages, k_scale, v_pages, v_scale, block_tables, lengths,
+        window=window)
+
+
+def decode_attention(q, k_cache, v_cache, n_valid):
+    """Flash-decode over a dense [B, L, kv, hd] cache."""
+    if q.device.type == "cpu":
+        return _dense.decode_attention_plain(q, k_cache, v_cache, n_valid)
+    return _dense.decode_attention_cuda(q, k_cache, v_cache, n_valid)
+
+
+def decode_attention_q8(q, k_cache, k_scale, v_cache, v_scale, n_valid):
+    """Flash-decode over a dense int8 cache with bf16 scales."""
+    if q.device.type == "cpu":
+        return _dense_q8.decode_attention_q8_plain(q, k_cache, k_scale,
+                                                   v_cache, v_scale, n_valid)
+    return _dense_q8.decode_attention_q8_cuda(q, k_cache, k_scale, v_cache,
+                                              v_scale, n_valid)

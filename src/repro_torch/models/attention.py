@@ -1,28 +1,33 @@
-"""GQA attention on the paged KV pool (the GQA half of
+"""GQA attention on the dense and paged KV caches (the GQA half of
 ``src/repro/models/attention.py``).
 
-Three execution paths:
+Execution paths:
   * ``gqa_full`` — whole-prompt prefill with a causal (optionally
     sliding-window) mask; the flash-attention kernel serves it whenever
     ``s >= 16``, ``s % 16 == 0`` and there is no logit softcap (the
     engine pads prompts to pow-2 buckets >= 16, so every whole-prompt
     prefill qualifies), the einsum path otherwise;
-  * ``gqa_continue_paged`` — a chunk (or prefix-hit suffix) attending to
-    the slot's gathered pages plus itself;
-  * ``gqa_decode_paged`` — one new token per slot through the block
-    table, on the paged flash-decode kernel (softcap archs gather).
+  * ``gqa_continue`` / ``gqa_continue_paged`` — a chunk (or prefix-hit
+    suffix) attending to the slot's dense ring or gathered pages plus
+    itself;
+  * ``gqa_decode`` / ``gqa_decode_paged`` — one new token per slot, on
+    the dense or paged flash-decode kernel (float or int8 caches;
+    softcap archs take the einsum form).
 
-Kernel calls go through :mod:`repro_torch.kernels.ops`, which picks the
-CUDA kernel or its plain version by the tensors' device.  MLA waits for
-a later slice (ROADMAP M9).
+int8 caches (``k_scale`` in the layer dict) store each new token
+quantized per (token, kv head) and dequantize inside attention.  Kernel
+calls go through :mod:`repro_torch.kernels.ops`, which picks the CUDA
+kernel or its plain version by the tensors' device.  MLA waits for a
+later slice (ROADMAP M9).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.cache import (gather_pages, paged_prefill_write,
-                                      paged_token_write)
+from repro_torch.models.cache import (dequantize_kv, gather_pages,
+                                      paged_prefill_write, paged_token_write,
+                                      quantize_kv)
 from repro_torch.models.layers import apply_rope, normal, rmsnorm, rope_cos_sin
 
 NEG_INF = -1e30
@@ -154,6 +159,108 @@ def _chunk_attend(params, cfg, x, positions, k_prefix, v_prefix, start_pos):
     return out.reshape(b, c, h * hd) @ params["wo"], k, v
 
 
+def _masked_softmax_attend(qg, k_eff, v_eff, valid, softcap, dtype):
+    """The einsum form of one-token decode: scores in ``dtype`` scaled by
+    1/sqrt(hd) (optional softcap), masked in float32, probabilities cast
+    back before PV.  qg: [B,kv,rep,hd]; k/v_eff: [B,L,kv,hd]; valid:
+    [B,L].  Returns [B, kv*rep, hd]."""
+    b, kv, rep, hd = qg.shape
+    scores = torch.einsum("bgrd,blgd->bgrl", qg,
+                          k_eff.to(qg.dtype)) / hd ** 0.5
+    if softcap:
+        scores = softcap * torch.tanh(scores / softcap)
+    scores = scores.float().masked_fill(~valid[:, None, None, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    return torch.einsum("bgrl,blgd->bgrd", probs,
+                        v_eff.to(probs.dtype)).reshape(b, kv * rep, hd)
+
+
+def _write_token(layer_cache, vals, index, active):
+    """Write one token per slot into each named buffer of ``layer_cache``
+    in place.  ``index`` addresses the [B] target rows; with ``active``
+    ([B] bool) an inactive slot's row is written back unchanged."""
+    for name, val in vals.items():
+        buf = layer_cache[name]
+        val = val.to(buf.dtype)
+        if active is not None:
+            keep = active.reshape((-1,) + (1,) * (val.dim() - 1))
+            val = torch.where(keep, val, buf[index])
+        buf[index] = val
+
+
+def _kv_vals(layer_cache, k, v):
+    """The new token's buffer entries ([B, ...] each): quantized with
+    fresh per-token scales for int8 caches."""
+    if "k_scale" in layer_cache:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    return {"k": k, "v": v}
+
+
+def gqa_decode(params, cfg, x, positions, layer_cache, cache_pos,
+               active=None):
+    """One-token decode against the dense cache.
+
+    x: [B, 1, D]; layer_cache: {"k","v"[,"k_scale","v_scale"]} rings
+    [B, L, kv, hd]; cache_pos: [B] int32 — tokens already in the cache.
+    The new token is written in place at ring slot ``pos % L`` (only for
+    ``active`` slots when given: an inactive slot's rows stay as they
+    were), then attends to the first ``min(pos+1, L)`` slots — the dense
+    flash-decode kernel (int8 caches: its q8 variant), or for softcap
+    archs the einsum form.  Returns (out [B,1,D], layer_cache)."""
+    b = x.shape[0]
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    L = layer_cache["k"].shape[1]
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    widx = torch.remainder(cache_pos.long(), L)
+    rows = torch.arange(b, device=x.device)
+    _write_token(layer_cache, _kv_vals(layer_cache, k[:, 0], v[:, 0]),
+                 (rows, widx), active)
+    n_valid = torch.clamp(cache_pos + 1, max=L).to(torch.int32)
+    quant = "k_scale" in layer_cache
+    if cfg.attn_logit_softcap:
+        k_eff, v_eff = layer_cache["k"], layer_cache["v"]
+        if quant:
+            k_eff = dequantize_kv(k_eff, layer_cache["k_scale"], x.dtype)
+            v_eff = dequantize_kv(v_eff, layer_cache["v_scale"], x.dtype)
+        valid = torch.arange(L, device=x.device)[None, :] \
+            < n_valid.long()[:, None]
+        o = _masked_softmax_attend(q.reshape(b, kv, h // kv, hd), k_eff,
+                                   v_eff, valid, cfg.attn_logit_softcap,
+                                   x.dtype)
+    elif quant:
+        o = ops.decode_attention_q8(
+            q[:, 0].contiguous(), layer_cache["k"], layer_cache["k_scale"],
+            layer_cache["v"], layer_cache["v_scale"], n_valid)
+    else:
+        o = ops.decode_attention(q[:, 0].contiguous(), layer_cache["k"],
+                                 layer_cache["v"], n_valid)
+    out = o.to(x.dtype).reshape(b, 1, h * hd)
+    return out @ params["wo"], layer_cache
+
+
+def gqa_continue(params, cfg, x, positions, layer_cache, start_pos):
+    """Chunked-prefill continuation (Sarathi-style) on the dense layout.
+
+    Ring-safe: the cache may be a window ring (slot t%L holds token t).
+    x: [B, C, D]; layer_cache: {"k","v"} rings [B, L, kv, hd]; start_pos:
+    int or 0-d tensor.  The chunk's K/V are written into the ring in
+    place after attention.  Returns (out [B,C,D], layer_cache)."""
+    if "k_scale" in layer_cache:
+        # the JAX package's gqa_continue drops the scales of an int8 ring
+        # (reads raw int8 values); there is no reference to port
+        raise NotImplementedError("chunked prefill on a dense int8 cache")
+    L = layer_cache["k"].shape[1]
+    c = x.shape[1]
+    out, k, v = _chunk_attend(params, cfg, x, positions, layer_cache["k"],
+                              layer_cache["v"], start_pos)
+    widx = torch.remainder(start_pos + torch.arange(c, device=x.device), L)
+    layer_cache["k"][:, widx] = k.to(layer_cache["k"].dtype)
+    layer_cache["v"][:, widx] = v.to(layer_cache["v"].dtype)
+    return out, layer_cache
+
+
 def gqa_continue_paged(params, cfg, x, positions, layer_cache, block_tables,
                        start_pos, n=None):
     """Chunked-prefill continuation on the paged pool (single slot).
@@ -162,22 +269,30 @@ def gqa_continue_paged(params, cfg, x, positions, layer_cache, block_tables,
     chunk's first ``n`` rows (default C) are then scattered into its
     pages in place — padded suffix buckets write only their valid span,
     and padded keys stay causally masked out of every valid query.
-    Returns (out [1,C,D], layer_cache)."""
+    int8 pages are dequantized in the gather and the chunk is written
+    quantized with fresh per-token scales.  Returns (out [1,C,D],
+    layer_cache)."""
     c = x.shape[1]
     if n is None:
         n = c
     k_prefix = gather_pages(layer_cache["k"], block_tables)
     v_prefix = gather_pages(layer_cache["v"], block_tables)
+    if "k_scale" in layer_cache:
+        k_prefix = dequantize_kv(k_prefix, gather_pages(
+            layer_cache["k_scale"], block_tables), x.dtype)
+        v_prefix = dequantize_kv(v_prefix, gather_pages(
+            layer_cache["v_scale"], block_tables), x.dtype)
     out, k, v = _chunk_attend(params, cfg, x, positions, k_prefix, v_prefix,
                               start_pos)
     bt = block_tables[0]
-    paged_prefill_write(layer_cache["k"], k[0], bt, n, start=start_pos)
-    paged_prefill_write(layer_cache["v"], v[0], bt, n, start=start_pos)
+    for name, val in _kv_vals(layer_cache, k[0], v[0]).items():
+        paged_prefill_write(layer_cache[name], val, bt, n, start=start_pos)
     return out, layer_cache
 
 
 def _paged_write_token(layer_cache, k, v, block_tables, cache_pos):
-    """Write one new token per sequence into its page, in place (O(B)).
+    """Write one new token per sequence into its page, in place (O(B);
+    int8 pages get the token quantized and its scales).
     k/v: [B, 1, kv, hd]."""
     P = layer_cache["k"].shape[1]
     L = block_tables.shape[1] * P
@@ -185,8 +300,8 @@ def _paged_write_token(layer_cache, k, v, block_tables, cache_pos):
     page_ids = torch.gather(block_tables.long(), 1,
                             (widx // P)[:, None])[:, 0]
     offs = torch.remainder(widx, P)
-    paged_token_write(layer_cache["k"], k[:, 0], page_ids, offs)
-    paged_token_write(layer_cache["v"], v[:, 0], page_ids, offs)
+    for name, val in _kv_vals(layer_cache, k[:, 0], v[:, 0]).items():
+        paged_token_write(layer_cache[name], val, page_ids, offs)
     return layer_cache
 
 
@@ -194,41 +309,45 @@ def gqa_decode_paged(params, cfg, x, positions, layer_cache, block_tables,
                      cache_pos):
     """One-token decode against the paged KV pool.
 
-    x: [B, 1, D]; layer_cache: {"k","v"} pages [N, P, kv, hd];
-    block_tables: [B, pages_per_slot] int32; cache_pos: [B] int32.  The
-    new token is written in place into its page, then attention runs
-    through the block table — the paged flash-decode kernel, or for
-    softcap archs a gather of the live pages.
+    x: [B, 1, D]; layer_cache: {"k","v"[,"k_scale","v_scale"]} pages
+    [N, P, kv, hd]; block_tables: [B, pages_per_slot] int32; cache_pos:
+    [B] int32.  The new token is written in place into its page, then
+    attention runs through the block table — the paged flash-decode
+    kernel (int8 pages: its q8 variant), or for softcap archs a gather of
+    the live pages.
     Returns (out [B,1,D], layer_cache)."""
     b = x.shape[0]
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q, k, v = _project_qkv(params, cfg, x, positions)
     _paged_write_token(layer_cache, k, v, block_tables, cache_pos)
     lengths = cache_pos + 1
+    quant = "k_scale" in layer_cache
     if cfg.attn_logit_softcap:
-        # the paged kernel has no logit softcap — gather the live pages
-        # and run the einsum path
+        # the paged kernels have no logit softcap — gather the live pages
+        # (dequantized for int8) and run the einsum path
         P = layer_cache["k"].shape[1]
         L = block_tables.shape[1] * P
         k_eff = gather_pages(layer_cache["k"], block_tables)
         v_eff = gather_pages(layer_cache["v"], block_tables)
-        rep = h // kv
-        qg = q.reshape(b, kv, rep, hd)
-        scores = torch.einsum("bgrd,blgd->bgrl", qg,
-                              k_eff.to(qg.dtype)) / hd ** 0.5
-        c = cfg.attn_logit_softcap
-        scores = c * torch.tanh(scores / c)
+        if quant:
+            k_eff = dequantize_kv(k_eff, gather_pages(layer_cache["k_scale"],
+                                                      block_tables), x.dtype)
+            v_eff = dequantize_kv(v_eff, gather_pages(layer_cache["v_scale"],
+                                                      block_tables), x.dtype)
         ln = lengths.long()[:, None]
         s_idx = torch.arange(L, device=x.device)[None, :]
         t_s = ln - 1 - torch.remainder(ln - 1 - s_idx, L)
         valid = t_s >= 0
         if cfg.sliding_window > 0:
             valid &= t_s > ln - 1 - cfg.sliding_window
-        scores = scores.float().masked_fill(~valid[:, None, None, :],
-                                            NEG_INF)
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        o = torch.einsum("bgrl,blgd->bgrd", probs,
-                         v_eff.to(probs.dtype)).reshape(b, h, hd)
+        o = _masked_softmax_attend(q.reshape(b, kv, h // kv, hd), k_eff,
+                                   v_eff, valid, cfg.attn_logit_softcap,
+                                   x.dtype)
+    elif quant:
+        o = ops.decode_attention_paged_q8(
+            q[:, 0].contiguous(), layer_cache["k"], layer_cache["k_scale"],
+            layer_cache["v"], layer_cache["v_scale"], block_tables,
+            lengths.to(torch.int32), window=cfg.sliding_window)
     else:
         o = ops.decode_attention_paged(
             q[:, 0].contiguous(), layer_cache["k"], layer_cache["v"],

@@ -1,23 +1,32 @@
-"""Block-paged KV pool (the paged half of ``src/repro/models/cache.py``).
+"""GQA decode caches, dense and block-paged (``src/repro/models/cache.py``).
 
-A paged cache is a plain dict of tensors:
+A cache is a plain dict of tensors.  Two layouts:
 
-{
-  "pos":          [B] int32                  # tokens written per slot
-  "block_tables": [B, pages_per_slot] int32  # 0 == null page
-  "layers":       [{"k": [N, P, kv, hd], "v": [N, P, kv, hd]}, ...]
-}
+* **dense** (``init_cache``): one contiguous ``[B, L, kv, hd]`` buffer
+  per layer, a ring of ``L`` slots (token ``t`` lives at slot ``t % L``)
+  priced by worst-case length per slot::
 
-One shared pool of ``N`` pages of ``P`` tokens per layer, priced by live
-tokens (vLLM-style PagedAttention).  Block 0 is a reserved **null page**:
-unallocated table entries point at it and padded prefill rows scatter
-into it, so every gather and scatter stays in bounds without host-side
-masking.  Where the JAX package donates the cache to a jitted step and
-gets an updated copy back, the port writes pages **in place** (O(tokens)
-scatters); the functions below mutate and return the same tensors.
+    {"pos": [B] int32, "layers": [{"k": [B, L, kv, hd], "v": ...}, ...]}
 
-Only the float GQA layout is ported; int8 pages, MLA latents and SSM
-state wait for later slices (ROADMAP M8-M10).
+* **paged** (``init_paged_cache``): one shared pool of ``N`` pages of
+  ``P`` tokens per layer plus per-slot block tables, priced by live
+  tokens (vLLM-style PagedAttention)::
+
+    {"pos": [B] int32, "block_tables": [B, pages_per_slot] int32,
+     "layers": [{"k": [N, P, kv, hd], "v": [N, P, kv, hd]}, ...]}
+
+  Block 0 is a reserved **null page**: unallocated table entries point
+  at it and padded prefill rows scatter into it, so every gather and
+  scatter stays in bounds without host-side masking.
+
+Either layout may be **int8** (``quantized=True``): ``k``/``v`` hold int8
+values and each layer adds ``k_scale``/``v_scale`` ``[..., kv, 1]``
+bf16, one scale per (token, kv head) (:func:`quantize_kv`).
+
+Where the JAX package donates the cache to a jitted step and gets an
+updated copy back, the port writes **in place** (O(tokens) scatters);
+the functions below mutate and return the same tensors.  MLA latents
+and SSM state wait for later slices (ROADMAP M9/M10).
 """
 from __future__ import annotations
 
@@ -53,24 +62,111 @@ def require_dense_gqa(cfg: ModelConfig):
             "(MLA, MoE, SSM and hybrids: ROADMAP M9/M10)")
 
 
+def _kv_layer(lead, kv: int, hd: int, dtype, quantized: bool, device):
+    """One attention layer's zeroed K/V buffers of shape ``lead + (kv,
+    hd)`` (int8 values plus bf16 per-(token, head) scales when
+    ``quantized``)."""
+    if quantized:
+        return {
+            "k": torch.zeros(lead + (kv, hd), dtype=torch.int8,
+                             device=device),
+            "v": torch.zeros(lead + (kv, hd), dtype=torch.int8,
+                             device=device),
+            "k_scale": torch.zeros(lead + (kv, 1), dtype=torch.bfloat16,
+                                   device=device),
+            "v_scale": torch.zeros(lead + (kv, 1), dtype=torch.bfloat16,
+                                   device=device)}
+    return {"k": torch.zeros(lead + (kv, hd), dtype=dtype, device=device),
+            "v": torch.zeros(lead + (kv, hd), dtype=dtype, device=device)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+               window: int = 0, quantized: bool = False, *,
+               device: torch.device):
+    """Dense per-slot KV rings of length ``cache_len`` (capped by
+    ``window`` when > 0), zeroed on ``device``.  ``quantized``: int8 KV
+    with per-(token, head) bf16 scales."""
+    require_dense_gqa(cfg)
+    dtype = torch_dtype(cfg.dtype if dtype is None else dtype)
+    L = cache_len(cfg, max_len)
+    if window:
+        L = min(L, window)
+    layers = [_kv_layer((batch, L), cfg.num_kv_heads, cfg.head_dim, dtype,
+                        quantized, device) for _ in cfg.layer_pattern]
+    return {"pos": torch.zeros(batch, dtype=torch.int32, device=device),
+            "layers": layers}
+
+
+def quantize_kv(x):
+    """x: [..., hd] -> (int8 values, bf16 scale [..., 1]).  The scale is
+    computed in float32 and the values rounded half to even against it;
+    only the stored scale is rounded to bf16 (bit-exact with the JAX
+    package's ``quantize_kv``)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def dequantize_kv(q, scale, dtype=torch.bfloat16):
+    """int8 values x bf16 scale in ``dtype``.  The default bf16 is the
+    JAX package's ``dequantize_kv`` bit for bit (the exact product
+    rounded to bf16).  Attention dequantizes in its compute dtype: under
+    ``jit`` XLA keeps the product in float32 when the consumer is
+    float32 (excess precision), and the TPU and CUDA kernels multiply in
+    float32; in float32 the product is exact."""
+    return q.to(dtype) * scale.to(dtype)
+
+
+def _ring_write(buf, vals):
+    """Write a prefilled sequence into a ring buffer of length L in
+    place, keeping the ring invariant ``token t lives at slot t % L``.
+
+    buf: [B, L, ...]; vals: [B, S, ...] (tokens 0..S-1).  With S < L the
+    rows past S keep their values."""
+    L = buf.shape[1]
+    s = vals.shape[1]
+    vals = vals.to(buf.dtype)
+    if s < L:
+        buf[:, :s] = vals
+    else:
+        buf.copy_(torch.roll(vals[:, s - L:], shifts=s % L, dims=1))
+    return buf
+
+
+def write_prefill(cache, layer_idx: int, kv_tuple, cfg: ModelConfig):
+    """Write full-sequence K/V ([B, S, kv, hd] each) produced by a
+    prefill pass into the dense cache at positions [0, S), in place
+    (quantized with fresh per-token scales for int8 caches)."""
+    layer = cache["layers"][layer_idx]
+    k, v = kv_tuple
+    if "k_scale" in layer:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        for name, val in (("k", kq), ("v", vq), ("k_scale", ks),
+                          ("v_scale", vs)):
+            _ring_write(layer[name], val)
+    else:
+        _ring_write(layer["k"], k)
+        _ring_write(layer["v"], v)
+    return cache
+
+
 def init_paged_cache(cfg: ModelConfig, max_slots: int, max_len: int,
                      num_blocks: int, block_size: int = 16, dtype=None,
                      window: int = 0, quantized: bool = False, *,
                      device: torch.device):
     """Block-paged KV pool shared by ``max_slots`` request slots, zeroed
-    on ``device``."""
+    on ``device`` (int8 pages with bf16 scale pages when
+    ``quantized``)."""
     require_dense_gqa(cfg)
-    if quantized:
-        raise NotImplementedError("int8 KV pages: ROADMAP M8")
     dtype = torch_dtype(cfg.dtype if dtype is None else dtype)
     if num_blocks < 2:
         raise ValueError("num_blocks must be >= 2 (block 0 is the null page)")
     P = block_size
-    kv, hd = cfg.num_kv_heads, cfg.head_dim
-    layers = [{"k": torch.zeros((num_blocks, P, kv, hd), dtype=dtype,
-                                device=device),
-               "v": torch.zeros((num_blocks, P, kv, hd), dtype=dtype,
-                                device=device)}
+    layers = [_kv_layer((num_blocks, P), cfg.num_kv_heads, cfg.head_dim,
+                        dtype, quantized, device)
               for _ in cfg.layer_pattern]
     pages_per_slot = paged_slot_len(cfg, max_len, P, window) // P
     return {"pos": torch.zeros(max_slots, dtype=torch.int32, device=device),
@@ -113,18 +209,27 @@ def paged_prefill_write(pages, vals, block_table, n, start=0):
 def write_prefill_paged(cache, layer_idx: int, kv_tuple, cfg: ModelConfig,
                         slot, n):
     """Write one request's prefill K/V ([1, S, kv, hd] each, S >= n) into
-    ``slot``'s pages at positions [0, n), in place."""
+    ``slot``'s pages at positions [0, n), in place (quantized with fresh
+    per-token scales for int8 pages)."""
     layer = cache["layers"][layer_idx]
     bt = cache["block_tables"][slot]
     k, v = kv_tuple
-    paged_prefill_write(layer["k"], k[0], bt, n)
-    paged_prefill_write(layer["v"], v[0], bt, n)
+    if "k_scale" in layer:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        for name, val in (("k", kq), ("v", vq), ("k_scale", ks),
+                          ("v_scale", vs)):
+            paged_prefill_write(layer[name], val[0], bt, n)
+    else:
+        paged_prefill_write(layer["k"], k[0], bt, n)
+        paged_prefill_write(layer["v"], v[0], bt, n)
     return cache
 
 
 def copy_page(cache, src: int, dst: int):
-    """Copy one KV page across every layer, in place: the device half of
-    copy-on-write (the engine allocates ``dst`` and patches the table)."""
+    """Copy one KV page (and its scale page, for int8 pools) across every
+    layer, in place: the device half of copy-on-write (the engine
+    allocates ``dst`` and patches the table)."""
     for layer in cache["layers"]:
         for pages in layer.values():
             pages[dst].copy_(pages[src])

@@ -1,11 +1,12 @@
-"""Dense decoder on the paged KV pool (the dense paged path of
-``src/repro/models/model.py``).
+"""Dense GQA decoder over the dense and paged KV caches (the dense-model
+paths of ``src/repro/models/model.py``).
 
 Parameters are a plain dict of tensors with the JAX package's layout
 (``x @ w``, ``w: [d_in, d_out]``; norm scales float32), so
 :func:`repro_torch.bridge.from_jax_params` is a straight copy.  The
-forward functions take the paged cache dict of
-:mod:`repro_torch.models.cache` and update its pages in place.
+forward functions take a cache dict of :mod:`repro_torch.models.cache`
+(dense: ``forward_full``/``forward_decode``/``forward_chunk``; paged:
+the ``*_paged`` forwards), float or int8, and update it in place.
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ import torch
 
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention as attn
-from repro_torch.models.cache import require_dense_gqa, write_prefill_paged
+from repro_torch.models.cache import (require_dense_gqa, write_prefill,
+                                      write_prefill_paged)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, \
     init_norm, normal
@@ -79,6 +81,87 @@ def _default_positions(cfg, batch, seq, offset, device):
     if cfg.mrope_sections:
         pos = pos[..., None].expand(batch, seq, 3)
     return pos
+
+
+def _attn_block_decode(block, cfg, x, positions, layer_cache, cache_pos,
+                       active=None):
+    h, _ = attn.gqa_decode(block["attn"], cfg,
+                           apply_norm(x, block["attn_norm"], cfg), positions,
+                           layer_cache, cache_pos, active=active)
+    return _mlp_residual(block, cfg, x + h)
+
+
+def forward_full(params, cfg: ModelConfig, *, tokens, cache=None,
+                 last_only: bool = False):
+    """Prefill pass over a whole sequence. tokens: [B, S].
+
+    With ``cache`` (a dense cache of :func:`init_cache`), each layer's
+    K/V are ring-written into it in place and ``pos`` advances by S.
+    ``last_only`` applies the LM head to the final position only.
+    Returns (logits [B, S or 1, V], cache_or_None, aux) — ``aux`` is the
+    MoE load-balance loss of the JAX signature, 0 for dense models."""
+    x = embed_tokens(params, cfg, tokens)
+    b, s = x.shape[0], x.shape[1]
+    positions = _default_positions(cfg, b, s, 0, x.device)
+    for i, block in enumerate(params["layers"]):
+        x, kv_out = _attn_block_full(block, cfg, x, positions)
+        if cache is not None:
+            write_prefill(cache, i, kv_out, cfg)
+    if last_only:
+        x = x[:, -1:]
+    x = apply_norm(x, params["final_norm"], cfg)
+    logits = lm_head(params, cfg, x)
+    if cache is not None:
+        cache["pos"] += s
+    return logits, cache, 0.0
+
+
+def forward_decode(params, cfg: ModelConfig, *, tokens, cache, active=None):
+    """One-token decode step for every slot of a dense cache.
+    tokens: [B, 1].
+
+    New K/V are ring-written in place; ``active`` ([B] bool, optional)
+    limits the writes to those slots, so an inactive slot's rows keep
+    their values.  Returns (logits [B, 1, V], new_cache) where
+    ``new_cache`` shares the layer tensors and carries ``pos + 1`` for
+    every slot (the engine keeps the old ``pos`` of inactive slots, as
+    the JAX engine does)."""
+    x = embed_tokens(params, cfg, tokens)
+    b = x.shape[0]
+    cache_pos = cache["pos"]
+    positions = cache_pos[:, None]
+    if cfg.mrope_sections:
+        positions = positions[..., None].expand(b, 1, 3)
+    for block, layer_cache in zip(params["layers"], cache["layers"]):
+        x = _attn_block_decode(block, cfg, x, positions, layer_cache,
+                               cache_pos, active)
+    x = apply_norm(x, params["final_norm"], cfg)
+    return lm_head(params, cfg, x), {"pos": cache_pos + 1,
+                                     "layers": cache["layers"]}
+
+
+def forward_chunk(params, cfg: ModelConfig, *, tokens, cache):
+    """Chunked-prefill step (Sarathi-style): a chunk of C tokens against
+    a dense cache already holding ``cache["pos"]`` tokens (uniform across
+    the batch).  The chunk's K/V are ring-written in place and ``pos``
+    advances by C.  Returns (logits of the chunk's last position
+    [B,1,V], cache)."""
+    x = embed_tokens(params, cfg, tokens)
+    b, c = x.shape[0], x.shape[1]
+    pos0 = cache["pos"][0].clone()
+    positions = (pos0 + torch.arange(c, device=x.device,
+                                     dtype=torch.int32))[None].expand(b, c)
+    if cfg.mrope_sections:
+        positions = positions[..., None].expand(b, c, 3)
+    for block, layer_cache in zip(params["layers"], cache["layers"]):
+        xin = apply_norm(x, block["attn_norm"], cfg)
+        h, _ = attn.gqa_continue(block["attn"], cfg, xin, positions,
+                                 layer_cache, pos0)
+        x = _mlp_residual(block, cfg, x + h)
+    x = apply_norm(x[:, -1:], params["final_norm"], cfg)
+    logits = lm_head(params, cfg, x)
+    cache["pos"] += c
+    return logits, cache
 
 
 def forward_decode_paged(params, cfg: ModelConfig, *, tokens, cache):

@@ -18,9 +18,18 @@ for name in mods:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(mods), bad)
+print(len(mods), bad, *mods)
 sys.exit(1 if bad else 0)
 """
+
+# modules whose import must be covered by name (the dense layout, the
+# int8 caches and the decode kernels' wrappers)
+NEW_MODULES = ("repro_torch.kernels.decode_attention",
+               "repro_torch.kernels.decode_attention_q8",
+               "repro_torch.kernels.decode_attention_paged",
+               "repro_torch.kernels.ops", "repro_torch.models.cache",
+               "repro_torch.models.attention", "repro_torch.models.model",
+               "repro_torch.engine.engine")
 
 
 def test_import_loads_no_jax_and_no_reference():
@@ -30,6 +39,8 @@ def test_import_loads_no_jax_and_no_reference():
     assert out.returncode == 0, out.stdout + out.stderr
     n_mods = int(out.stdout.split()[0])
     assert n_mods >= 30, out.stdout        # every submodule was imported
+    imported = set(out.stdout.split()[2:])
+    assert set(NEW_MODULES) <= imported, out.stdout
 
 
 _IMPORT = re.compile(
