@@ -11,7 +11,11 @@ Phases (any failure exits non-zero before the last line):
   build    nvcc builds every kernel source in src/repro_torch/kernels/csrc
   kernels  each kernel vs its plain version on the card, bf16 and f32,
            at Qwen2.5-7B shapes; CUDA-event times (plain, kernel, kernel,
-           plain) at the serve path's shape and at one long shape
+           plain) at the serve path's shape and at one long shape; the
+           training kernels (forward + lse, dq, dk/dv) over causal and
+           windowed cases, GQA groups 1/2/7, S 16/128/2048, hd 64/128,
+           timed at the train shape (B4 S2048 H16 KV8 hd128 bf16) and at
+           S=128, and dq/dk/dv checked bitwise repeatable
   serve    Qwen2.5-7B at its published config (28 layers, bf16, random
            seeded weights): latency-model fit, then run_policy under
            fcfs, slo-reanneal, slo-preempt + chunked:32, and a multi-turn
@@ -20,13 +24,19 @@ Phases (any failure exits non-zero before the last line):
   int8     the same model: one 128-token prompt and 32 greedy decode
            steps through an int8 paged cache and an int8 dense cache,
            each against the same run on a bf16 cache
+  train    Qwen3-1.7B at its published config (28 layers, bf16, random
+           seeded weights): AdamW lr 3e-4, B=4, S=2048, per-layer remat;
+           one warm-up step (attention-weight gradients checked finite
+           and nonzero), then timed steps: loss, ms, tokens/s, peak memory
   parity   Qwen2.5-7B at full width, 2 layers, float32, TF32 off: the
            paged and the dense engine on cuda (kernels) and on cpu
            (plain versions) must emit identical tokens; int8 paged and
-           dense decode logits, cuda vs cpu, are reported and bounded
-Each path (paged serve, dense serve, int8) is driven with the launch
-counts set to 0 just before it and read just after; every kernel must
-launch on the path that runs it.  The line before the last is the
+           dense decode logits, cuda vs cpu, are reported and bounded;
+           one train step of Qwen3-1.7B at 2 layers in float32, cuda vs
+           cpu: loss, every gradient and the updated params, bounded
+Each path (paged serve, dense serve, int8, train) is driven with the
+launch counts set to 0 just before it and read just after; every kernel
+must launch on the path that runs it.  The line before the last is the
 kernels JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -35,17 +45,26 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "serve", "int8", "parity")
+PHASES = ("device", "build", "kernels", "serve", "int8", "train", "parity")
 PEAK_BYTES = 3.35e12                       # H100 SXM HBM3, bytes/s
 PEAK_FLOPS = {"bfloat16": 989e12,          # dense tensor-core bf16
               "float32": 67e12}            # float32 outside tensor cores
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# gradient kernels, as a share of max |plain| over the tensor: both sides
+# round the same f32 sums to the output dtype once, so bf16 may differ by
+# a rounding flip (2^-8 of an element) where another summation order
+# crosses a tie: 1e-2 allows ~2.5 such ulps at the largest element.  f32
+# differs only by summation order (hd=128 dot products, up to 2048 keys
+# per sum): 5e-5, 6x tighter than the JAX suite's 3e-4 against its
+# oracle (tests/test_kernels.py:213)
+GRAD_TOL = {"bfloat16": 1e-2, "float32": 5e-5}
 # Qwen2.5-7B attention shapes and the serve engine's page geometry
 H, KV, HD, PAGE = 28, 4, 128, 16
 KERNELS = {
@@ -69,11 +88,26 @@ KERNELS = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention_q8.py:63"},
+    "flash_attention_fwd_lse": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention_bwd.py:90"},
+    "flash_attention_dq": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention_bwd.py:228"},
+    "flash_attention_dkv": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention_bwd.py:250"},
 }
+TRAIN_KERNELS = ("flash_attention_fwd_lse", "flash_attention_dq",
+                 "flash_attention_dkv")
 # the path each kernel must launch on (counts reset before, read after)
 PATHS = {"serve_paged": ("decode_attention_paged", "flash_attention"),
          "serve_dense": ("flash_attention", "decode_attention"),
-         "int8": ("decode_attention_paged_q8", "decode_attention_q8")}
+         "int8": ("decode_attention_paged_q8", "decode_attention_q8"),
+         "train": TRAIN_KERNELS}
 # the int8 KV library yardstick: no single PyTorch call dequantizes int8
 # K/V with per-row scales inside attention
 NO_LIBRARY = {
@@ -266,11 +300,171 @@ def sdpa_fn(args):
         return lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True)
     except TypeError:                      # older torch: expand kv heads
-        rep = H // KV
+        rep = q.shape[1] // k.shape[1]
         ke = k.repeat_interleave(rep, dim=1)
         ve = v.repeat_interleave(rep, dim=1)
         return lambda: F.scaled_dot_product_attention(q, ke, ve,
                                                       is_causal=True)
+
+
+def sdpa_bwd_fn(args, dout):
+    """SDPA's backward through autograd (dq, dk, dv in one call): the
+    yardstick for the dq and dk/dv kernels together."""
+    import torch
+    leaves = [t.detach().requires_grad_() for t in args]
+    out = sdpa_fn(leaves)()
+    dout = dout.transpose(1, 2)            # SDPA's [B, H, S, hd] layout
+    return lambda: torch.autograd.grad(out, leaves, dout,
+                                       retain_graph=True)
+
+
+def flash_train_inputs(b, s, h, kv, hd, dtype, gen):
+    """q, k, v and a seeded cotangent dout for the training kernels."""
+    import torch
+    kw = dict(device="cuda", dtype=dtype)
+    return (torch.randn((b, s, h, hd), generator=gen, **kw),
+            torch.randn((b, s, kv, hd), generator=gen, **kw),
+            torch.randn((b, s, kv, hd), generator=gen, **kw),
+            torch.randn((b, s, h, hd), generator=gen, **kw))
+
+
+def flash_train_cost(name, q, k, window, dtype_name):
+    """Bound of one training-kernel call: each input read once and each
+    output written once (q-sized out/dout/dq, k-sized dk/dv, f32
+    [B,H,S] lse and delta); 4 / 6 / 8 flops per q head x hd x attended
+    pair for the forward (QKᵀ, PV), dq (QKᵀ, dO·Vᵀ, dS·K) and dk/dv
+    (QKᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q)."""
+    b, s, h, hd = q.shape
+    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
+    qb, kb, rows = q.numel() * q.element_size(), \
+        k.numel() * k.element_size(), b * h * s * 4
+    nbytes, per_pair = {
+        "flash_attention_fwd_lse": (2 * qb + 2 * kb + rows, 4),
+        "flash_attention_dq": (3 * qb + 2 * kb + 2 * rows, 6),
+        "flash_attention_dkv": (2 * qb + 4 * kb + 2 * rows, 8)}[name]
+    return bound(nbytes, per_pair * b * h * hd * pairs, dtype_name)
+
+
+def check_train_kernels(results):
+    """The training kernels against their plain versions: out and lse of
+    the forward (TOL), dq/dk/dv of the backward from the same residuals
+    (GRAD_TOL relative to max |plain|), on the cases below and at the
+    shape the train phase gives them (B4 S2048 H16 KV8 hd128); then
+    dq/dk/dv bitwise repeatable, and times at the train shape and at
+    S=128."""
+    import torch
+    from repro_torch.kernels import flash_attention_bwd as fb
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    cases = [  # label, b, s, h, kv, hd, window
+        ("S16 rep1 hd64 causal", 1, 16, 4, 4, 64, 0),
+        ("S128 rep2 hd128 causal", 2, 128, 16, 8, 128, 0),
+        ("S128 rep7 hd128 window32", 1, 128, 14, 2, 128, 32),
+        ("S128 rep7 hd64 window48", 1, 128, 7, 1, 64, 48),
+        ("S2048 rep2 hd128 causal", 1, 2048, 16, 8, 128, 0),
+        ("S2048 rep2 hd64 window256", 1, 2048, 4, 2, 64, 256),
+        ("B4 S2048 rep2 hd128 causal (train)", 4, 2048, 16, 8, 128, 0),
+    ]
+    worst = {n: dict.fromkeys(dtypes, 0.0) for n in TRAIN_KERNELS}
+    for label, b, s, h, kv, hd, window in cases:
+        for dn, dt in dtypes.items():
+            q, k, v, do = flash_train_inputs(b, s, h, kv, hd, dt, gen)
+            kw = {"causal": True, "window": window}
+            out, lse = fb.flash_attention_fwd_lse_cuda(q, k, v, **kw)
+            out_p, lse_p = fb.flash_attention_fwd_lse_plain(q, k, v, **kw)
+            delta = fb.attention_delta(out_p, do)
+            dq = fb.flash_attention_dq_cuda(q, k, v, do, lse_p, delta, **kw)
+            dk, dv = fb.flash_attention_dkv_cuda(q, k, v, do, lse_p, delta,
+                                                 **kw)
+            want = fb.flash_attention_bwd_plain(q, k, v, out_p, lse_p, do,
+                                                **kw)
+            torch.cuda.synchronize()
+            checks = []
+            for got, ref in ((out, out_p), (lse, lse_p)):
+                err = (got.float() - ref.float()).abs()
+                checks.append(("flash_attention_fwd_lse", float(err.max()),
+                               bool((err <= TOL[dn] + TOL[dn]
+                                     * ref.float().abs()).all()),
+                               TOL[dn]))
+            for name, got, ref in (("flash_attention_dq", dq, want[0]),
+                                   ("flash_attention_dkv", dk, want[1]),
+                                   ("flash_attention_dkv", dv, want[2])):
+                err = float((got.float() - ref.float()).abs().max())
+                scale = float(ref.float().abs().max())
+                checks.append((name, err, err <= GRAD_TOL[dn] * scale,
+                               GRAD_TOL[dn] * scale))
+            for name, err, ok, lim in checks:
+                worst[name][dn] = max(worst[name][dn], err)
+                log(f"  {name:<24} {label:<30} {dn:<8} max_abs_err="
+                    f"{err:.3e} limit={lim:.3e} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{name} {label} {dn} disagrees")
+    for name in TRAIN_KERNELS:
+        results[name] = {"name": name, **KERNELS[name],
+                         "max_abs_err": max(worst[name].values()),
+                         "max_err": worst[name],
+                         "tol": TOL if name == TRAIN_KERNELS[0] else
+                         {"relative_to_max_plain": GRAD_TOL}}
+
+    bf = torch.bfloat16
+    shapes = (("train", "B4 S2048 H16 KV8 hd128 causal bf16", 2048, 3),
+              ("S128", "B4 S128 H16 KV8 hd128 causal bf16", 128, 50))
+    for key, shape, s, iters in shapes:
+        q, k, v, do = flash_train_inputs(4, s, 16, 8, 128, bf, gen)
+        kw = {"causal": True, "window": 0}
+        out, lse = fb.flash_attention_fwd_lse_cuda(q, k, v, **kw)
+        delta = fb.attention_delta(out, do)
+        if key == "train":
+            # no atomics: the same inputs give the same bits
+            a = (fb.flash_attention_dq_cuda(q, k, v, do, lse, delta, **kw),
+                 *fb.flash_attention_dkv_cuda(q, k, v, do, lse, delta, **kw))
+            b2 = (fb.flash_attention_dq_cuda(q, k, v, do, lse, delta, **kw),
+                  *fb.flash_attention_dkv_cuda(q, k, v, do, lse, delta,
+                                               **kw))
+            same = all(torch.equal(x, y) for x, y in zip(a, b2))
+            log(f"  dq/dk/dv bitwise equal across two runs at {shape}: "
+                f"{same}")
+            if not same:
+                raise AssertionError("dq/dk/dv differ between two runs")
+            for name in TRAIN_KERNELS[1:]:
+                results[name]["bitwise_repeatable"] = same
+        fwd_p = lambda: fb.flash_attention_fwd_lse_plain(q, k, v, **kw)
+        bwd_p = lambda: fb.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                     **kw)
+        runs = {
+            "flash_attention_fwd_lse": (
+                fwd_p, lambda: fb.flash_attention_fwd_lse_cuda(q, k, v, **kw),
+                sdpa_fn((q, k, v))),
+            "flash_attention_dq": (
+                bwd_p, lambda: fb.flash_attention_dq_cuda(
+                    q, k, v, do, lse, delta, **kw), None),
+            "flash_attention_dkv": (
+                bwd_p, lambda: fb.flash_attention_dkv_cuda(
+                    q, k, v, do, lse, delta, **kw), None)}
+        lib_bwd = time_ms(sdpa_bwd_fn((q, k, v), do), iters)
+        pair = time_ms(lambda: fb.flash_attention_bwd_cuda(
+            q, k, v, out, lse, do, **kw), iters)
+        for name, (plain, kernel, lib) in runs.items():
+            k_ms, p_ms = alternate(plain, kernel, iters)
+            b_ms, b_by = flash_train_cost(name, q, k, 0, "bfloat16")
+            r = {"shape": shape, "ms": k_ms, "plain_ms": p_ms,
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": time_ms(lib, iters) if lib else lib_bwd}
+            if name != TRAIN_KERNELS[0]:
+                r.update(plain_covers="dq, dk and dv together",
+                         library_covers="dq, dk and dv together (SDPA "
+                                        "backward through autograd)",
+                         pair_ms=pair)
+            if key == "train":
+                results[name].update(r)
+            else:
+                results[name]["S128"] = r
+            log(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by}), library "
+                f"{r['library_ms']:.4f} ms at {shape}"
+                + (f"; delta+dq+dkv {pair:.4f} ms" if "pair_ms" in r
+                   else ""))
 
 
 # ------------------------------------------------------------------ phases
@@ -418,6 +612,7 @@ def phase_kernels(results):
             f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
             f"{r['library_ms']} ms at {r['shape']}; long: "
             f"{json.dumps(r['long'])}")
+    check_train_kernels(results)
 
 
 def _serve_run(cfg, params, model, pairs, policy, discipline, paged):
@@ -614,6 +809,109 @@ def phase_int8(ctx):
     ctx["int8"] = report
 
 
+def _attn_grads_ok(grads):
+    """Every leaf's gradient finite, and wq/wk/wv/wo of every layer not
+    all zero: the check that attention passed its gradient back."""
+    import torch
+    from repro_torch.train.optimizer import leaves
+    for i, g in enumerate(leaves(grads)):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"gradient leaf {i} is not finite")
+    zero = [f"layer {i} {n}" for i, layer in enumerate(grads["layers"])
+            for n in ("wq", "wk", "wv", "wo")
+            if not bool(layer["attn"][n].abs().max() > 0)]
+    if zero:
+        raise AssertionError(f"all-zero attention gradients: {zero}")
+    log(f"  first step: every gradient finite; wq/wk/wv/wo nonzero in all "
+        f"{len(grads['layers'])} layers")
+
+
+def phase_train(ctx):
+    """Qwen3-1.7B at its published config, bf16, trained on the card as
+    the launcher trains (token_stream batches, labels = tokens)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.models.model import init_params
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import loss_and_grads, train_step
+    B, S, STEPS = 4, 2048, 5
+    cfg = get_config("qwen3-1.7b")
+    ctx.pop("params", None)                # the serve model's 15 GB
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0, device="cuda")
+    n = sum(t.numel() for t in opt.leaves(params))
+    log(f"  {cfg.name}: {cfg.num_layers} layers d={cfg.d_model} "
+        f"heads={cfg.num_heads}/{cfg.num_kv_heads} hd={cfg.head_dim} "
+        f"vocab={cfg.vocab_size} {cfg.dtype}: {n / 1e9:.3f} B params; "
+        f"B={B} S={S}, AdamW lr 3e-4, remat per layer")
+    ocfg = opt.AdamWConfig(lr=3e-4, warmup_steps=max((STEPS + 1) // 10, 1))
+    state = opt.init(params)
+
+    def batch(step):
+        toks = torch.from_numpy(token_stream(S, cfg.vocab_size, seed=step,
+                                             batch=B)).cuda()
+        return {"tokens": toks, "labels": toks}
+
+    # warm-up step, off the clock: train_step's two halves, so the
+    # gradients can be checked
+    t = time.perf_counter()
+    loss, _, grads = loss_and_grads(cfg, params, batch(0))
+    _attn_grads_ok(grads)
+    opt.apply(ocfg, params, grads, state)
+    del grads
+    losses = [float(loss)]
+    torch.cuda.synchronize()
+    log(f"  step 0 (warm-up) loss {losses[0]:.4f} "
+        f"{(time.perf_counter() - t) * 1e3:.1f} ms")
+
+    def timed():
+        out = []
+        for step in range(1, STEPS + 1):
+            b = batch(step)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, m = train_step(cfg, ocfg, params, state, b)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            out.append({"step": step, "loss": loss, "ms": ms,
+                        "tok_per_s": B * S / ms * 1e3,
+                        "grad_norm": float(m["grad_norm"]),
+                        "lr": float(m["lr"])})
+            log(f"  step {step} loss {loss:.4f} {ms:.1f} ms "
+                f"{out[-1]['tok_per_s']:.0f} tokens/s "
+                f"grad_norm {out[-1]['grad_norm']:.3f}")
+        return out
+
+    rows = count_path(ctx["results"], "train", timed)
+    launches = ctx["results"].get("flash_attention", {}).get(
+        "launches_by_path", {}).get("train", 0)
+    if launches:
+        raise AssertionError(f"the forward-only flash kernel launched "
+                             f"{launches} times on the train path")
+    per_step = {k: ctx["results"][k]["launches_by_path"]["train"] / STEPS
+                for k in TRAIN_KERNELS}
+    losses += [r["loss"] for r in rows]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = sorted(r["ms"] for r in rows)
+    report = {"model": cfg.name, "batch": B, "seq": S, "steps": rows,
+              "warmup_loss": losses[0], "median_ms": ms[len(ms) // 2],
+              "median_tok_per_s": B * S / ms[len(ms) // 2] * 1e3,
+              "peak_gib": peak, "launches_per_step": per_step}
+    log(f"  train {cfg.name}: losses {[round(x, 4) for x in losses]}, "
+        f"median {report['median_ms']:.1f} ms/step "
+        f"({report['median_tok_per_s']:.0f} tokens/s), peak "
+        f"max_memory_allocated {peak:.2f} GiB, launches per step "
+        f"{per_step} (forward-only flash: 0)")
+    log("  train run: " + json.dumps(report))
+    del params, state
+    torch.cuda.empty_cache()
+
+
 def phase_parity(ctx):
     import torch
     from repro_torch.configs import get_config
@@ -688,6 +986,65 @@ def phase_parity(ctx):
         if not diff <= limit:
             raise AssertionError(f"int8 {layout}: cuda vs cpu logits "
                                  f"differ by {diff} > {limit}")
+    _train_parity()
+
+
+def _train_parity():
+    """One train step of Qwen3-1.7B at full width, 2 layers, float32, TF32
+    off, on cuda (kernels) and on cpu (plain versions) from the same
+    params and batch.  Bounds, stated before the first measurement:
+    loss within 1e-5 of its value (f32 matmuls summed in other orders);
+    each gradient within 1e-4 of its leaf's max |cpu gradient| (the
+    attention kernels' own f32 bound is 5e-5, downstream sums add their
+    own order); updated params within 1e-6 in every leaf but at most
+    max(8, 1e-3 numel) of its elements, and within 2 lr everywhere: the
+    first AdamW step moves an element by lr·g/(|g|+eps), a sign for all
+    but the smallest gradients, so an element whose gradient is within
+    rounding of 0 may move the other way.  The count is per leaf, so a
+    leaf updated wrongly as a whole fails, a norm scale's included."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import loss_and_grads
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), num_layers=2,
+                              layer_pattern=(), dtype="float32")
+    p_gpu = init_params(cfg, seed=3, device="cuda")
+    p_cpu = _map(p_gpu, lambda t: t.cpu())
+    gen = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                         dtype=torch.int32)
+    ocfg = opt.AdamWConfig(lr=3e-4, warmup_steps=1)
+    out = {}
+    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+        b = {"tokens": toks.to(dev), "labels": toks.to(dev)}
+        loss, _, grads = loss_and_grads(cfg, params, b)
+        opt.apply(ocfg, params, grads, opt.init(params))
+        out[dev] = (float(loss), _map(grads, lambda t: t.cpu()),
+                    _map(params, lambda t: t.cpu()))
+    (lg, gg, pg), (lc, gc, pc) = out["cuda"], out["cpu"]
+    g_worst = max(float((a - c).abs().max()) / max(float(c.abs().max()),
+                                                   1e-30)
+                  for a, c in zip(opt.leaves(gg), opt.leaves(gc)))
+    lr = ocfg.lr
+    p_max = max(float((a - c).abs().max())
+                for a, c in zip(opt.leaves(pg), opt.leaves(pc)))
+    # (elements beyond 1e-6, allowed, numel) per leaf
+    counts = [(int(((a - c).abs() > 1e-6).sum()),
+               max(8, int(1e-3 * c.numel())), c.numel())
+              for a, c in zip(opt.leaves(pg), opt.leaves(pc))]
+    n, lim, numel = max(counts, key=lambda t: t[0] / t[1])
+    log(f"  parity {cfg.name} x2 layers f32 train step B2 S64: loss cuda "
+        f"{lg:.6f} cpu {lc:.6f} (|diff| {abs(lg - lc):.3e}, limit "
+        f"{1e-5 * abs(lc):.3e}); worst gradient diff / leaf max "
+        f"{g_worst:.3e} (limit 1e-4); updated params max |diff| "
+        f"{p_max:.3e} (limit {2 * lr:.1e}), "
+        f"{sum(c[0] for c in counts)} elements beyond 1e-6 over "
+        f"{len(counts)} leaves; nearest its limit: {n} of {numel} "
+        f"(limit {lim})")
+    if not (abs(lg - lc) <= 1e-5 * abs(lc) and g_worst <= 1e-4
+            and p_max <= 2 * lr and all(c[0] <= c[1] for c in counts)):
+        raise AssertionError("train step: cuda vs cpu out of bounds")
 
 
 def _leaves(tree):
@@ -743,6 +1100,7 @@ def main(argv=None) -> int:
     for phase, fn in (("kernels", lambda: phase_kernels(ctx["results"])),
                       ("serve", lambda: phase_serve(ctx)),
                       ("int8", lambda: phase_int8(ctx)),
+                      ("train", lambda: phase_train(ctx)),
                       ("parity", lambda: phase_parity(ctx))):
         if phase not in phases:
             continue

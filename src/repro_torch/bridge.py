@@ -1,4 +1,5 @@
-"""Parameters of the JAX package, as numpy arrays, into the port.
+"""Parameters (and AdamW state) of the JAX package, as numpy arrays,
+into the port.
 
 The port keeps the JAX parameter layout (``x @ w`` with ``w: [d_in,
 d_out]``, float32 norm scales, the same nesting of dicts and lists), so
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.train.optimizer import AdamWState
 
 
 def _tensor(x, device: torch.device) -> torch.Tensor:
@@ -34,3 +36,13 @@ def from_jax_params(tree, device=None):
             return type(node)(conv(v) for v in node)
         return _tensor(node, dev)
     return conv(tree)
+
+
+def from_jax_opt_state(state, device=None):
+    """A JAX ``AdamWState`` of numpy arrays
+    (``jax.tree.map(np.asarray, state)``) as the port's
+    :class:`~repro_torch.train.optimizer.AdamWState` on ``device``
+    (default ``cuda``): the int32 step and the float32 moments."""
+    return AdamWState(step=from_jax_params(state.step, device),
+                      mu=from_jax_params(state.mu, device),
+                      nu=from_jax_params(state.nu, device))

@@ -35,6 +35,9 @@ SOURCES = {
     "decode_attention": "decode_attention",
     "decode_attention_q8": "decode_attention",
     "flash_attention": "flash_attention",
+    "flash_attention_fwd_lse": "flash_attention_bwd",
+    "flash_attention_dq": "flash_attention_bwd",
+    "flash_attention_dkv": "flash_attention_bwd",
 }
 KERNELS = tuple(SOURCES)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -49,6 +52,9 @@ SIGNATURES = {
     "decode_attention": [_P] * 5 + [_I] * 6 + [_P],
     "decode_attention_q8": [_P] * 7 + [_I] * 6 + [_P],
     "flash_attention": [_P] * 4 + [_I] * 8 + [_P],
+    "flash_attention_fwd_lse": [_P] * 5 + [_I] * 8 + [_P],
+    "flash_attention_dq": [_P] * 7 + [_I] * 8 + [_P],
+    "flash_attention_dkv": [_P] * 8 + [_I] * 8 + [_P],
 }
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()

@@ -9,11 +9,14 @@ from __future__ import annotations
 
 from typing import Dict
 
+import torch
+
 from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as _dense
 from repro_torch.kernels import decode_attention_paged as _paged
 from repro_torch.kernels import decode_attention_q8 as _dense_q8
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import flash_attention_bwd as _flash_bwd
 
 
 def launch_counts() -> Dict[str, int]:
@@ -26,7 +29,15 @@ def reset_launch_counts():
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """Causal (windowed) GQA attention over a whole sequence."""
+    """Causal (windowed) GQA attention over a whole sequence.
+
+    Differentiable: when grad mode is on and any of q/k/v requires grad,
+    it runs :class:`~repro_torch.kernels.flash_attention_bwd.FlashAttentionFn`
+    (the forward that saves the log-sum-exp, then the dq and dk/dv
+    backward); otherwise the forward-only kernel."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _flash_bwd.FlashAttentionFn.apply(q, k, v, causal, window)
     if q.device.type == "cpu":
         return _flash.flash_attention_plain(q, k, v, causal=causal,
                                             window=window)

@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention as attn
@@ -91,19 +92,33 @@ def _attn_block_decode(block, cfg, x, positions, layer_cache, cache_pos,
     return _mlp_residual(block, cfg, x + h)
 
 
+def _remat_layer(block, cfg, x, positions):
+    return _attn_block_full(block, cfg, x, positions)[0]
+
+
 def forward_full(params, cfg: ModelConfig, *, tokens, cache=None,
-                 last_only: bool = False):
-    """Prefill pass over a whole sequence. tokens: [B, S].
+                 last_only: bool = False, remat: bool = False):
+    """Train / prefill pass over a whole sequence. tokens: [B, S].
 
     With ``cache`` (a dense cache of :func:`init_cache`), each layer's
     K/V are ring-written into it in place and ``pos`` advances by S.
     ``last_only`` applies the LM head to the final position only.
+    ``remat`` recomputes each layer in the backward pass instead of
+    keeping its activations (``torch.utils.checkpoint``, the counterpart
+    of the JAX ``jax.checkpoint`` per layer); it cannot write a cache.
     Returns (logits [B, S or 1, V], cache_or_None, aux) — ``aux`` is the
     MoE load-balance loss of the JAX signature, 0 for dense models."""
+    if remat and cache is not None:
+        raise ValueError("remat recomputes layers in the backward pass and "
+                         "cannot write a cache")
     x = embed_tokens(params, cfg, tokens)
     b, s = x.shape[0], x.shape[1]
     positions = _default_positions(cfg, b, s, 0, x.device)
     for i, block in enumerate(params["layers"]):
+        if remat:
+            x = checkpoint(_remat_layer, block, cfg, x, positions,
+                           use_reentrant=False)
+            continue
         x, kv_out = _attn_block_full(block, cfg, x, positions)
         if cache is not None:
             write_prefill(cache, i, kv_out, cfg)

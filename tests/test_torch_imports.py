@@ -17,19 +17,25 @@ mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in mods:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+             if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
 print(len(mods), bad, *mods)
 sys.exit(1 if bad else 0)
 """
 
 # modules whose import must be covered by name (the dense layout, the
-# int8 caches and the decode kernels' wrappers)
+# int8 caches, the decode kernels' wrappers, and training: the flash
+# backward, the loss and step, AdamW, checkpoints, the launcher)
 NEW_MODULES = ("repro_torch.kernels.decode_attention",
                "repro_torch.kernels.decode_attention_q8",
                "repro_torch.kernels.decode_attention_paged",
                "repro_torch.kernels.ops", "repro_torch.models.cache",
                "repro_torch.models.attention", "repro_torch.models.model",
-               "repro_torch.engine.engine")
+               "repro_torch.engine.engine",
+               "repro_torch.kernels.flash_attention_bwd",
+               "repro_torch.train.train_step",
+               "repro_torch.train.optimizer",
+               "repro_torch.train.checkpoint",
+               "repro_torch.launch.train", "repro_torch.bridge")
 
 
 def test_import_loads_no_jax_and_no_reference():
@@ -44,7 +50,7 @@ def test_import_loads_no_jax_and_no_reference():
 
 
 _IMPORT = re.compile(
-    r"^\s*(?:from|import)\s+(?:jax|jaxlib|repro)(?:\.|\s|$)"
+    r"^\s*(?:from|import)\s+(?:jax|jaxlib|ml_dtypes|repro)(?:\.|\s|$)"
     r"|import_module\(\s*f?[\"'](?:jax|repro)\."
     r"|\brepro\.(?!_)", re.M)
 

@@ -226,4 +226,6 @@ def test_cpu_wrappers_run_plain_and_launch_nothing():
                                                   window=8))
     assert ops.launch_counts() == dict.fromkeys(
         ("decode_attention_paged", "decode_attention_paged_q8",
-         "decode_attention", "decode_attention_q8", "flash_attention"), 0)
+         "decode_attention", "decode_attention_q8", "flash_attention",
+         "flash_attention_fwd_lse", "flash_attention_dq",
+         "flash_attention_dkv"), 0)
