@@ -15,12 +15,20 @@ Phases (any failure exits non-zero before the last line):
            training kernels (forward + lse, dq, dk/dv) over causal and
            windowed cases, GQA groups 1/2/7, S 16/128/2048, hd 64/128,
            timed at the train shape (B4 S2048 H16 KV8 hd128 bf16) and at
-           S=128, and dq/dk/dv checked bitwise repeatable
+           S=128, and dq/dk/dv checked bitwise repeatable; the SSD scan
+           at the Mamba2-780M widths (nh 48, hd 64, ds 128), B 1/4 x S
+           16/100/256/2048, with and without an initial state, bitwise
+           repeatable, timed at the serve shapes (B1 S96; B1 S32 from a
+           state) and at B4 S2048
   serve    Qwen2.5-7B at its published config (28 layers, bf16, random
            seeded weights): latency-model fit, then run_policy under
            fcfs, slo-reanneal, slo-preempt + chunked:32, and a multi-turn
            fcfs run with prefix hits, on the paged engine; then the same
            three policy runs on the dense engine (paged=False)
+  ssm      Mamba2-780M at its published config (48 layers, d 1536, bf16,
+           random seeded weights) on the dense engine: latency-model fit,
+           then fcfs, slo-reanneal, slo-preempt + chunked:32; the SSD scan
+           launches once per layer per prefill pass
   int8     the same model: one 128-token prompt and 32 greedy decode
            steps through an int8 paged cache and an int8 dense cache,
            each against the same run on a bf16 cache
@@ -33,8 +41,12 @@ Phases (any failure exits non-zero before the last line):
            (plain versions) must emit identical tokens; int8 paged and
            dense decode logits, cuda vs cpu, are reported and bounded;
            one train step of Qwen3-1.7B at 2 layers in float32, cuda vs
-           cpu: loss, every gradient and the updated params, bounded
-Each path (paged serve, dense serve, int8, train) is driven with the
+           cpu: loss, every gradient and the updated params, bounded;
+           Mamba2-780M at 2 layers in float32: the dense engine's tokens
+           under fcfs and slo-preempt + chunked:32, and the logits of one
+           prefill and 4 decode steps, bounded
+Each path (paged serve, dense serve, Mamba2 serve, int8, train) is
+driven with the
 launch counts set to 0 just before it and read just after; every kernel
 must launch on the path that runs it.  The line before the last is the
 kernels JSON; the last line is
@@ -52,7 +64,8 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "serve", "int8", "train", "parity")
+PHASES = ("device", "build", "kernels", "serve", "ssm", "int8", "train",
+          "parity")
 PEAK_BYTES = 3.35e12                       # H100 SXM HBM3, bytes/s
 PEAK_FLOPS = {"bfloat16": 989e12,          # dense tensor-core bf16
               "float32": 67e12}            # float32 outside tensor cores
@@ -65,8 +78,22 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # per sum): 5e-5, 6x tighter than the JAX suite's 3e-4 against its
 # oracle (tests/test_kernels.py:213)
 GRAD_TOL = {"bfloat16": 1e-2, "float32": 5e-5}
+# the SSD scan, element by element: a share of max |plain| over the
+# tensor (magnitudes grow with s) capped at the JAX suite's own bound
+# against its oracle (tests/test_kernels.py: atol = rtol = 2e-3 in f32,
+# 5e-2 in bf16), plus a share of the element, so never looser than that
+# bound.  f32: sums of up to 256 terms in another order (the kernel's
+# 64-row chunks, the plain version's 256, and another FMA order), 5e-5 of
+# max |plain|, as the gradient kernels' f32 bound.  bf16 y: both sides
+# round the same f32 sum once, so a sum next to a rounding boundary may
+# land one bf16 ulp apart, at most 2^-7 of the element.  The final state
+# is float32 in both dtypes.  (share of max, cap, share of the element)
+SSD_TOL = {"float32": (5e-5, 2e-3, 0.0), "bfloat16": (5e-5, 5e-2, 2 ** -7)}
 # Qwen2.5-7B attention shapes and the serve engine's page geometry
 H, KV, HD, PAGE = 28, 4, 128, 16
+# Mamba2-780M's SSD widths (configs/mamba2_780m.py) and the scan kernel's
+# own chunk (csrc/ssd_scan.cu)
+SSM_NH, SSM_HD, SSM_DS, SSD_Q = 48, 64, 128, 64
 KERNELS = {
     "decode_attention_paged": {
         "route": "cuda",
@@ -100,12 +127,17 @@ KERNELS = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention_bwd.py:250"},
+    "ssd_scan": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:74"},
 }
 TRAIN_KERNELS = ("flash_attention_fwd_lse", "flash_attention_dq",
                  "flash_attention_dkv")
 # the path each kernel must launch on (counts reset before, read after)
 PATHS = {"serve_paged": ("decode_attention_paged", "flash_attention"),
          "serve_dense": ("flash_attention", "decode_attention"),
+         "serve_ssm": ("ssd_scan",),
          "int8": ("decode_attention_paged_q8", "decode_attention_q8"),
          "train": TRAIN_KERNELS}
 # the int8 KV library yardstick: no single PyTorch call dequantizes int8
@@ -116,7 +148,8 @@ NO_LIBRARY = {
     "decode_attention_paged_q8": "no single PyTorch call pages through a "
                                  "block table over int8 K/V",
     "decode_attention_q8": "no single PyTorch call attends over int8 K/V "
-                           "with per-row scales"}
+                           "with per-row scales",
+    "ssd_scan": "no single PyTorch call computes the SSD chunk scan"}
 
 
 def log(msg):
@@ -467,6 +500,115 @@ def check_train_kernels(results):
                    else ""))
 
 
+def ssd_inputs(b, s, dtype, with_state, gen):
+    """The scan's inputs at the Mamba2-780M widths: x, B, C normal of std
+    0.5 in ``dtype``, dt = softplus(N(0,1) - 1) and A = -(1..16) (the
+    model's A_log init) in float32, a N(0,1) initial state or None."""
+    import torch
+    import torch.nn.functional as F
+    kw = dict(device="cuda", generator=gen)
+    x = (0.5 * torch.randn((b, s, SSM_NH, SSM_HD), **kw)).to(dtype)
+    dt = F.softplus(torch.randn((b, s, SSM_NH), **kw) - 1.0)
+    A = -torch.linspace(1.0, 16.0, SSM_NH, device="cuda")
+    B = (0.5 * torch.randn((b, s, SSM_DS), **kw)).to(dtype)
+    C = (0.5 * torch.randn((b, s, SSM_DS), **kw)).to(dtype)
+    st = torch.randn((b, SSM_NH, SSM_HD, SSM_DS), **kw) if with_state \
+        else None
+    return x, dt, A, B, C, st
+
+
+def ssd_cost(x, st, dtype_name):
+    """Bound of one scan: x, dt, A, B, C (and the initial state) read
+    once, y and the final state written once; per batch row and 64-row
+    chunk of n rows, 2n²·ds flops for C·Bᵀ, once (B and C are shared by
+    every head), and per head 2n²·hd (with x·dt) + 2n·hd·ds (the
+    inter-chunk term) + 2n·hd·ds (the state update)."""
+    b, s, nh, hd = x.shape
+    el = x.element_size()
+    nbytes = (2 * x.numel() * el + b * s * nh * 4 + nh * 4
+              + 2 * b * s * SSM_DS * el
+              + b * nh * hd * SSM_DS * 4 * (1 if st is None else 2))
+    rows = [min(SSD_Q, s - r) for r in range(0, s, SSD_Q)]
+    flops = b * sum(2 * n * n * SSM_DS
+                    + nh * (2 * n * n * hd + 4 * n * hd * SSM_DS)
+                    for n in rows)
+    return bound(nbytes, flops, dtype_name)
+
+
+def check_ssd_kernel(results):
+    """The SSD scan against its plain version (SSD_TOL) on y and the
+    final state, bf16 and f32, B 1/4 x S 16/100 (ragged)/256/2048 (8 of
+    the model's 256-token chunks), with and without an initial state;
+    bitwise repeatable; timed in float32, the dtype the model hands it,
+    at the serve path's shapes and at B4 S2048."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    worst = dict.fromkeys(dtypes, 0.0)
+    for b in (1, 4):
+        for s in (16, 100, 256, 2048):
+            for with_state in (False, True):
+                for dn, dt in dtypes.items():
+                    x, d, A, B, C, st = ssd_inputs(b, s, dt, with_state, gen)
+                    y, fin = ss.ssd_scan_cuda(x, d, A, B, C, init_state=st)
+                    yp, fp = ss.ssd_scan_plain(x, d, A, B, C, chunk=256,
+                                               init_state=st)
+                    torch.cuda.synchronize()
+                    label = f"B{b} S{s}{' +state' if with_state else ''}"
+                    for what, got, want, tn in (("y", y, yp, dn),
+                                                ("state", fin, fp,
+                                                 "float32")):
+                        share, cap, rel = SSD_TOL[tn]
+                        want = want.float()
+                        err = (got.float() - want).abs()
+                        lim = min(share * float(want.abs().max()), cap)
+                        ok = bool((err <= lim + rel * want.abs()).all())
+                        worst[dn] = max(worst[dn], float(err.max()))
+                        log(f"  ssd_scan {label:<14} {dn:<8} {what:<5} "
+                            f"max_abs_err={float(err.max()):.3e} "
+                            f"limit={lim:.3e}+{rel:.2e}|plain| "
+                            f"{'ok' if ok else 'FAIL'}")
+                        if not ok:
+                            raise AssertionError(f"ssd_scan {label} {dn} "
+                                                 f"{what} disagrees")
+    x, d, A, B, C, st = ssd_inputs(4, 2048, torch.bfloat16, True, gen)
+    runs = [ss.ssd_scan_cuda(x, d, A, B, C, init_state=st)
+            for _ in range(2)]
+    same = all(torch.equal(p, q) for p, q in zip(*runs))
+    log(f"  ssd_scan y/state bitwise equal across two runs at B4 S2048 "
+        f"bf16 +state: {same}")
+    if not same:
+        raise AssertionError("ssd_scan differs between two runs")
+    r = results["ssd_scan"] = {
+        "name": "ssd_scan", **KERNELS["ssd_scan"],
+        "max_abs_err": max(worst.values()), "max_err": worst,
+        "tol": {"share_of_max_cap_share_of_element": SSD_TOL},
+        "bitwise_repeatable": same}
+    f32 = torch.float32
+    for key, b, s, with_state, iters in (("serve", 1, 96, False, 50),
+                                         ("chunk", 1, 32, True, 50),
+                                         ("long", 4, 2048, False, 5)):
+        x, d, A, B, C, st = ssd_inputs(b, s, f32, with_state, gen)
+        k_ms, p_ms = alternate(
+            lambda: ss.ssd_scan_plain(x, d, A, B, C, chunk=256,
+                                      init_state=st),
+            lambda: ss.ssd_scan_cuda(x, d, A, B, C, init_state=st),
+            iters)
+        b_ms, b_by = ssd_cost(x, st, "float32")
+        row = {"shape": f"B{b} S{s} nh48 hd64 ds128 f32"
+                        + (" from a state" if with_state else ""),
+               "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": None}
+        if key == "serve":
+            r.update(row)
+        else:
+            r[key] = row
+        log(f"  ssd_scan: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}) at {row['shape']}")
+
+
 # ------------------------------------------------------------------ phases
 def phase_kernels(results):
     import torch
@@ -613,16 +755,18 @@ def phase_kernels(results):
             f"{r['library_ms']} ms at {r['shape']}; long: "
             f"{json.dumps(r['long'])}")
     check_train_kernels(results)
+    check_ssd_kernel(results)
 
 
-def _serve_run(cfg, params, model, pairs, policy, discipline, paged):
+def _serve_run(cfg, params, model, pairs, policy, discipline, paged,
+               profiler=None):
     import torch
     from repro_torch.core.policies import make
     from repro_torch.engine.engine import Engine
     from repro_torch.launch.serve import _to_rts
     rts = _to_rts(pairs)
     eng = Engine(cfg, params, max_slots=4, max_seq_len=256, paged=paged,
-                 device="cuda")
+                 profiler=profiler, device="cuda")
     pol = make(policy, model=model, max_batch=4)
     out = eng.run_policy(rts, pol, discipline=discipline, model=model)
     torch.cuda.synchronize()
@@ -642,7 +786,13 @@ def _serve_run(cfg, params, model, pairs, policy, discipline, paged):
             "tokens": ntok, "engine_s": eng.clock,
             "tok_per_s": ntok / eng.clock,
             "preemptions": sum(v["preemptions"] for v in out.values()),
-            "prefix_hit_rate": eng.prefix_stats()["hit_rate"]}
+            "prefix_hit_rate": eng.prefix_stats()["hit_rate"],
+            # prefill passes: timed steps (whole prompts and chunks) and
+            # the off-clock warm-ups of new lengths
+            "prefill_passes": (None if profiler is None else
+                               len(profiler.prefill_samples) + sum(
+                                   1 for k in eng._warm
+                                   if k[0] in ("prefill", "chunk")))}
 
 
 def full_model(ctx):
@@ -736,6 +886,72 @@ def phase_serve(ctx):
                    sample_serve_workload(8, cfg.vocab_size, seed=1), policy,
                    disc, False) for policy, disc in policies])
     _log_runs(card, runs)
+
+
+def phase_ssm(ctx):
+    """Mamba2-780M at its published config on the dense engine: the SSD
+    scan launches once per layer per prefill pass (whole prompt or
+    chunk, warm-ups included); no attention kernel launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.latency_model import PAPER_TABLE2
+    from repro_torch.core.profiler import LatencyProfiler
+    from repro_torch.data.synthetic import sample_serve_workload
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import fit_latency_model
+    from repro_torch.models.model import init_params
+    card, results = ctx["card"], ctx["results"]
+    cfg = get_config("mamba2-780m")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    log(f"  {cfg.name}: {cfg.num_layers} layers d={cfg.d_model} d_inner="
+        f"{cfg.ssm.d_inner(cfg.d_model)} heads={cfg.ssm.n_heads(cfg.d_model)}"
+        f"x{cfg.ssm.head_dim} d_state={cfg.ssm.d_state} conv="
+        f"{cfg.ssm.d_conv} chunk={cfg.ssm.chunk_size} vocab="
+        f"{cfg.vocab_size} {cfg.dtype}: "
+        f"{sum(t.numel() for t in leaves) / 1e9:.3f} B params, "
+        f"{sum(t.numel() * t.element_size() for t in leaves) / 1e9:.2f} GB "
+        f"drawn in {time.perf_counter() - t0:.1f} s")
+    policies = (("fcfs", "stall"), ("slo-reanneal", "stall"),
+                ("slo-preempt", "chunked:32"))
+
+    def path():
+        rng = np.random.default_rng(0)
+        model = fit_latency_model(cfg, params, 4, rng, device="cuda")
+        if model == PAPER_TABLE2:
+            raise AssertionError("the latency model fell back to the "
+                                 "paper's V100 table instead of fitting "
+                                 "this card")
+        log(f"  latency model fit on {card}: {model}")
+        runs = []
+        for policy, disc in policies:
+            before = ops.launch_counts()
+            r = _serve_run(cfg, params, model,
+                           sample_serve_workload(8, cfg.vocab_size, seed=1),
+                           policy, disc, False, profiler=LatencyProfiler())
+            r["launches"] = {k: n - before[k] for k, n in
+                             ops.launch_counts().items() if n - before[k]}
+            runs.append(r)
+        return runs
+
+    runs = count_path(results, "serve_ssm", path)
+    _log_runs(card, runs)
+    for r in runs:
+        k4 = r["launches"].get("ssd_scan", 0)
+        log(f"  ssm {r['policy']} {r['discipline']}: ssd_scan launches "
+            f"{k4} = {cfg.num_layers} x {r['prefill_passes']} prefill "
+            f"passes; other kernels: "
+            f"{ {k: n for k, n in r['launches'].items() if k != 'ssd_scan'} }")
+        if r["completed"] != r["n"] or k4 != cfg.num_layers \
+                * r["prefill_passes"] or set(r["launches"]) != {"ssd_scan"}:
+            raise AssertionError(f"ssm run {r['policy']} {r['discipline']}: "
+                                 f"{r}")
+    ctx["ssm"] = runs
+    del params
+    torch.cuda.empty_cache()
 
 
 def _decode_run(cfg, params, prompt, steps, quantized, layout,
@@ -987,6 +1203,65 @@ def phase_parity(ctx):
             raise AssertionError(f"int8 {layout}: cuda vs cpu logits "
                                  f"differ by {diff} > {limit}")
     _train_parity()
+    _ssm_parity()
+
+
+def _ssm_parity():
+    """Mamba2-780M at full width, 2 layers, float32, TF32 off, on cuda
+    (the SSD scan kernel) and on cpu (its plain version): the dense
+    engine's greedy tokens per request must be identical under fcfs and
+    slo-preempt + chunked:32 (the paper's table as latency model on both,
+    so the two devices plan alike), and the logits of one prefill and 4
+    decode steps (cuda's greedy tokens fed to both) must agree within
+    1e-4 of max |cpu logit|: f32 sums in other orders (the kernel's own
+    bound against plain is 5e-5 of max |plain|; the matmuls around it and
+    the second layer add their own order)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.latency_model import PAPER_TABLE2
+    from repro_torch.core.policies import make
+    from repro_torch.data.synthetic import sample_serve_workload
+    from repro_torch.engine.engine import Engine
+    from repro_torch.launch.serve import _to_rts
+    from repro_torch.models.model import init_params
+    cfg = dataclasses.replace(get_config("mamba2-780m"), num_layers=2,
+                              layer_pattern=(), dtype="float32")
+    p_gpu = init_params(cfg, seed=1, device="cuda")
+    p_cpu = _map(p_gpu, lambda t: t.cpu())
+    for policy, disc in (("fcfs", "stall"), ("slo-preempt", "chunked:32")):
+        tokens = {}
+        for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+            rts = _to_rts(sample_serve_workload(4, cfg.vocab_size, seed=2))
+            for rt in rts:
+                rt.max_new_tokens = 8
+            eng = Engine(cfg, params, max_slots=4, max_seq_len=256,
+                         device=dev)
+            out = eng.run_policy(rts, make(policy, model=PAPER_TABLE2,
+                                           max_batch=4), discipline=disc)
+            tokens[dev] = {k: v["tokens"] for k, v in out.items()}
+        same = tokens["cuda"] == tokens["cpu"]
+        log(f"  parity {cfg.name} x2 layers f32 dense engine {policy} "
+            f"{disc}: tokens identical={same} "
+            f"({sum(len(v) for v in tokens['cuda'].values())} tokens)")
+        if not same:
+            raise AssertionError(f"ssm {policy} {disc}: cuda vs cpu tokens "
+                                 f"differ: {tokens}")
+    _, prompt = sample_serve_workload(1, cfg.vocab_size, seed=3)[0]
+    prompt = torch.from_numpy(prompt[None]).to(torch.int32)
+    with torch.no_grad():
+        g, toks = _decode_run(cfg, p_gpu, prompt.cuda(), 4, False, "dense")
+        c, _ = _decode_run(cfg, p_cpu, prompt, 4, False, "dense",
+                           tokens=toks)
+    diffs = (g - c).abs().amax(-1)
+    scale = float(c.abs().max())
+    limit = 1e-4 * max(scale, 1.0)
+    log(f"  parity {cfg.name} x2 layers f32: {prompt.shape[1]}-token "
+        f"prefill + 4 decode steps, max |logit diff| cuda vs cpu per step "
+        f"{[f'{float(d):.3e}' for d in diffs]} (max |logit| {scale:.3f}, "
+        f"limit {limit:.3e})")
+    if not float(diffs.max()) <= limit:
+        raise AssertionError(f"ssm logits: cuda vs cpu differ by "
+                             f"{float(diffs.max())} > {limit}")
 
 
 def _train_parity():
@@ -1099,6 +1374,7 @@ def main(argv=None) -> int:
             log(f"  {source}: {line}")
     for phase, fn in (("kernels", lambda: phase_kernels(ctx["results"])),
                       ("serve", lambda: phase_serve(ctx)),
+                      ("ssm", lambda: phase_ssm(ctx)),
                       ("int8", lambda: phase_int8(ctx)),
                       ("train", lambda: phase_train(ctx)),
                       ("parity", lambda: phase_parity(ctx))):

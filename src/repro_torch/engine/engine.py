@@ -2,9 +2,10 @@
 
 Counterpart of ``src/repro/engine/engine.py``: a fixed pool of
 ``max_slots`` request slots; whole prompts padded to power-of-two length
-buckets (>= 16, which is also what the flash-attention kernel takes);
-each decode round runs over the full slot pool.  KV memory comes in two
-layouts:
+buckets (>= 16, which is also what the flash-attention kernel takes) —
+SSM archs prefill at exact length, since their recurrent state must see
+no pad token; each decode round runs over the full slot pool.  KV
+memory comes in two layouts:
 
 * **paged** (the default): one shared ``[num_blocks, block_size, kv,
   hd]`` page array per layer plus per-slot block tables; prefill and
@@ -19,7 +20,9 @@ layouts:
   single-slot cache at exact chunk lengths and are copied in when the
   last chunk completes; a decode round writes only the running slots'
   rows (the JAX engine computes every row and restores the inactive
-  ones with ``where``: the same result).
+  ones with ``where``: the same result).  Archs without attention
+  layers (Mamba2) always take this layout, as in the JAX engine: their
+  per-slot conv and recurrent state is O(1) in sequence length.
 
 Scheduling is delegated to the same policy objects as the discrete-event
 core (:mod:`repro_torch.core.policies`): ``run_policy`` builds a
@@ -86,7 +89,9 @@ class Engine:
 
         ``chunked_prefill > 0``: split prompts into chunks of that size,
         each riding a tick beside the running decode round (Sarathi).
-        ``paged`` (default True) selects the block-paged pool:
+        ``paged`` (default: whether the arch has attention layers;
+        an attention-free arch is dense whatever is asked, as in the
+        JAX engine) selects the block-paged pool:
         ``num_blocks`` pages of ``block_size`` tokens (+ the null page)
         default to ``max_slots`` full-length slots; admission refuses
         requests whose prompt + output budget exceeds the free blocks.
@@ -110,7 +115,8 @@ class Engine:
         self.clock = 0.0             # engine-internal wall clock
         self.slot_free = [True] * max_slots
         self.slot_req: List[Optional[RuntimeRequest]] = [None] * max_slots
-        self.paged = paged is None or bool(paged)
+        self.paged = (paged is None or bool(paged)) \
+            and bool(cfg.attn_layers)
         if self.paged:
             self.block_size = block_size
             self.slot_len = paged_slot_len(cfg, max_seq_len, block_size)
@@ -400,7 +406,9 @@ class Engine:
         last = done + m >= n
         whole = done == 0 and last
         if self.paged or whole:
-            L = _bucket(m)
+            # SSM state is sequence-order sensitive: exact length (one
+            # warm-up per distinct length), never a padded bucket
+            L = m if self.cfg.ssm_layers else _bucket(m)
             toks = np.zeros((1, L), np.int32)
             toks[0, :m] = ctx[done:done + m]
         else:
@@ -408,9 +416,9 @@ class Engine:
             toks = np.asarray(ctx[done:done + m], np.int32)[None]
         toks = torch.from_numpy(toks).to(self.device)
         if whole and not self.paged:
-            # dense whole-context fast path: one bucketed prefill into a
-            # fresh single-slot cache (it touches no engine state, so it
-            # warms as is), copied into the slot
+            # dense whole-context fast path: one bucketed (SSM: exact-
+            # length) prefill into a fresh single-slot cache (it touches
+            # no engine state, so it warms as is), copied into the slot
             self._warm_up(("prefill", L),
                           lambda _s, t: self._prefill_one(t, n), toks)
             synchronize(self.device)

@@ -38,6 +38,7 @@ SOURCES = {
     "flash_attention_fwd_lse": "flash_attention_bwd",
     "flash_attention_dq": "flash_attention_bwd",
     "flash_attention_dkv": "flash_attention_bwd",
+    "ssd_scan": "ssd_scan",
 }
 KERNELS = tuple(SOURCES)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -55,6 +56,7 @@ SIGNATURES = {
     "flash_attention_fwd_lse": [_P] * 5 + [_I] * 8 + [_P],
     "flash_attention_dq": [_P] * 7 + [_I] * 8 + [_P],
     "flash_attention_dkv": [_P] * 8 + [_I] * 8 + [_P],
+    "ssd_scan": [_P] * 8 + [_I] * 6 + [_P],
 }
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()

@@ -17,6 +17,7 @@ from repro_torch.kernels import decode_attention_paged as _paged
 from repro_torch.kernels import decode_attention_q8 as _dense_q8
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import flash_attention_bwd as _flash_bwd
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def launch_counts() -> Dict[str, int]:
@@ -80,3 +81,20 @@ def decode_attention_q8(q, k_cache, k_scale, v_cache, v_scale, n_valid):
                                                    v_cache, v_scale, n_valid)
     return _dense_q8.decode_attention_q8_cuda(q, k_cache, k_scale, v_cache,
                                               v_scale, n_valid)
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int, init_state=None):
+    """Mamba2 SSD chunk scan from ``init_state`` (zeros when None).
+    -> (y [b,s,nh,hd] in x's dtype, final_state [b,nh,hd,ds] f32).
+    Forward only: the kernel has no backward yet, so a call that would
+    need gradients raises rather than return a result autograd cannot
+    see through."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, B, C, init_state)):
+        raise NotImplementedError("the SSD scan has no backward kernel: "
+                                  "training SSM layers is ROADMAP.md M10")
+    if x.device.type == "cpu":
+        return _ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
+                                   init_state=init_state)
+    return _ssd.ssd_scan_cuda(x, dt, A, B, C, init_state=init_state)

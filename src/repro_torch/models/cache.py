@@ -1,4 +1,5 @@
-"""GQA decode caches, dense and block-paged (``src/repro/models/cache.py``).
+"""Decode caches, dense and block-paged (``src/repro/models/cache.py``):
+GQA K/V, and the recurrent state of Mamba2 (SSM) layers.
 
 A cache is a plain dict of tensors.  Two layouts:
 
@@ -7,6 +8,10 @@ A cache is a plain dict of tensors.  Two layouts:
   priced by worst-case length per slot::
 
     {"pos": [B] int32, "layers": [{"k": [B, L, kv, hd], "v": ...}, ...]}
+
+  An SSM layer holds ``{"conv": [B, d_conv-1, d_inner + 2 ds], "ssm":
+  [B, nh, hd, ds]}`` (the conv state in the cache dtype, the recurrent
+  state float32): O(1) in sequence length, so there is no ring.
 
 * **paged** (``init_paged_cache``): one shared pool of ``N`` pages of
   ``P`` tokens per layer plus per-slot block tables, priced by live
@@ -25,15 +30,17 @@ bf16, one scale per (token, kv head) (:func:`quantize_kv`).
 
 Where the JAX package donates the cache to a jitted step and gets an
 updated copy back, the port writes **in place** (O(tokens) scatters);
-the functions below mutate and return the same tensors.  MLA latents
-and SSM state wait for later slices (ROADMAP M9/M10).
+the functions below mutate and return the same tensors.  SSM layers
+live in the dense layout only (an attention-free arch never takes the
+paged pool, as in the JAX engine); MLA latents, MoE and hybrid stacks
+wait for later slices (ROADMAP.md M9/M10).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.device import torch_dtype
-from repro_torch.models.config import ATTN, ModelConfig
+from repro_torch.models.config import ATTN, SSM, ModelConfig
 
 NULL_PAGE = 0           # reserved block: scatter/gather target for dead slots
 
@@ -54,12 +61,23 @@ def paged_slot_len(cfg: ModelConfig, max_len: int, block_size: int,
     return -(-L // block_size) * block_size
 
 
-def require_dense_gqa(cfg: ModelConfig):
-    if cfg.mla is not None or cfg.moe is not None \
-            or any(k != ATTN for k in cfg.layer_pattern):
+def require_ported(cfg: ModelConfig, paged: bool = False):
+    """Raise ``NotImplementedError`` unless the port runs ``cfg`` on the
+    given layout: dense GQA decoders on either, attention-free Mamba2
+    (SSM) stacks on the dense layout only."""
+    if cfg.mla is not None or cfg.moe is not None:
+        raise NotImplementedError(f"{cfg.name}: MLA and MoE are not ported "
+                                  "(ROADMAP.md M9)")
+    kinds = set(cfg.layer_pattern)
+    if kinds == {SSM}:
+        if paged:
+            raise NotImplementedError(
+                f"{cfg.name}: SSM state lives in the dense layout only; "
+                "the paged pool holds attention K/V (ROADMAP.md M10)")
+    elif kinds != {ATTN}:
         raise NotImplementedError(
-            f"{cfg.name}: only dense GQA decoders are ported "
-            "(MLA, MoE, SSM and hybrids: ROADMAP M9/M10)")
+            f"{cfg.name}: hybrid SSM + attention stacks are not ported "
+            "(ROADMAP.md M10)")
 
 
 def _kv_layer(lead, kv: int, hd: int, dtype, quantized: bool, device):
@@ -80,19 +98,33 @@ def _kv_layer(lead, kv: int, hd: int, dtype, quantized: bool, device):
             "v": torch.zeros(lead + (kv, hd), dtype=dtype, device=device)}
 
 
+def _ssm_layer(cfg: ModelConfig, batch: int, dtype, device):
+    """One SSM layer's zeroed conv state (``dtype``) and float32
+    recurrent state."""
+    s = cfg.ssm
+    di = s.d_inner(cfg.d_model)
+    return {"conv": torch.zeros((batch, s.d_conv - 1, di + 2 * s.d_state),
+                                dtype=dtype, device=device),
+            "ssm": torch.zeros((batch, s.n_heads(cfg.d_model), s.head_dim,
+                                s.d_state), dtype=torch.float32,
+                               device=device)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                window: int = 0, quantized: bool = False, *,
                device: torch.device):
     """Dense per-slot KV rings of length ``cache_len`` (capped by
     ``window`` when > 0), zeroed on ``device``.  ``quantized``: int8 KV
-    with per-(token, head) bf16 scales."""
-    require_dense_gqa(cfg)
+    with per-(token, head) bf16 scales.  SSM layers get their conv and
+    recurrent state (``window`` and ``quantized`` do not apply)."""
+    require_ported(cfg)
     dtype = torch_dtype(cfg.dtype if dtype is None else dtype)
     L = cache_len(cfg, max_len)
     if window:
         L = min(L, window)
-    layers = [_kv_layer((batch, L), cfg.num_kv_heads, cfg.head_dim, dtype,
-                        quantized, device) for _ in cfg.layer_pattern]
+    layers = [_ssm_layer(cfg, batch, dtype, device) if kind == SSM else
+              _kv_layer((batch, L), cfg.num_kv_heads, cfg.head_dim, dtype,
+                        quantized, device) for kind in cfg.layer_pattern]
     return {"pos": torch.zeros(batch, dtype=torch.int32, device=device),
             "layers": layers}
 
@@ -138,8 +170,14 @@ def _ring_write(buf, vals):
 def write_prefill(cache, layer_idx: int, kv_tuple, cfg: ModelConfig):
     """Write full-sequence K/V ([B, S, kv, hd] each) produced by a
     prefill pass into the dense cache at positions [0, S), in place
-    (quantized with fresh per-token scales for int8 caches)."""
+    (quantized with fresh per-token scales for int8 caches); for an SSM
+    layer, its final (conv, ssm) state."""
     layer = cache["layers"][layer_idx]
+    if "ssm" in layer:
+        conv, ssm = kv_tuple
+        layer["conv"].copy_(conv)
+        layer["ssm"].copy_(ssm)
+        return cache
     k, v = kv_tuple
     if "k_scale" in layer:
         kq, ks = quantize_kv(k)
@@ -159,8 +197,8 @@ def init_paged_cache(cfg: ModelConfig, max_slots: int, max_len: int,
                      device: torch.device):
     """Block-paged KV pool shared by ``max_slots`` request slots, zeroed
     on ``device`` (int8 pages with bf16 scale pages when
-    ``quantized``)."""
-    require_dense_gqa(cfg)
+    ``quantized``).  Attention-only archs: SSM state has no pages."""
+    require_ported(cfg, paged=True)
     dtype = torch_dtype(cfg.dtype if dtype is None else dtype)
     if num_blocks < 2:
         raise ValueError("num_blocks must be >= 2 (block 0 is the null page)")

@@ -1,5 +1,6 @@
-"""Dense GQA decoder over the dense and paged KV caches (the dense-model
-paths of ``src/repro/models/model.py``).
+"""Dense GQA decoders over the dense and paged KV caches, and
+attention-free Mamba2 (SSM) stacks over the dense cache (the dense-model
+and SSM paths of ``src/repro/models/model.py``).
 
 Parameters are a plain dict of tensors with the JAX package's layout
 (``x @ w``, ``w: [d_in, d_out]``; norm scales float32), so
@@ -17,9 +18,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention as attn
-from repro_torch.models.cache import (require_dense_gqa, write_prefill,
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.cache import (require_ported, write_prefill,
                                       write_prefill_paged)
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import SSM, ModelConfig
 from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, \
     init_norm, normal
 
@@ -27,8 +29,10 @@ from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, \
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
                 generator: Optional[torch.Generator] = None):
     """Random parameters at ``cfg``'s shapes, drawn on ``device`` (default
-    ``cuda``) in ``cfg.dtype`` from a seeded generator on that device."""
-    require_dense_gqa(cfg)
+    ``cuda``) in ``cfg.dtype`` from a seeded generator on that device
+    (norm scales and the SSM blocks' ``A_log``/``dt_bias``/``D``/``norm``
+    float32, as in the JAX package)."""
+    require_ported(cfg)
     if cfg.num_codebooks > 1:
         raise NotImplementedError("multi-codebook heads: ROADMAP M10")
     dev = resolve_device(device)
@@ -44,7 +48,12 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((cfg.d_model, cfg.vocab_size), s, dtype,
                                    dev, generator)
-    for _ in range(cfg.num_layers):
+    for kind in cfg.layer_pattern:
+        if kind == SSM:
+            params["layers"].append({
+                "norm": init_norm(cfg, cfg.d_model, dev),
+                "mamba": ssm_mod.init_mamba2(cfg, dtype, dev, generator)})
+            continue
         params["layers"].append({
             "attn_norm": init_norm(cfg, cfg.d_model, dev),
             "mlp_norm": init_norm(cfg, cfg.d_model, dev),
@@ -92,6 +101,18 @@ def _attn_block_decode(block, cfg, x, positions, layer_cache, cache_pos,
     return _mlp_residual(block, cfg, x + h)
 
 
+def _ssm_block_full(block, cfg, x, layer_cache=None):
+    """Residual Mamba2 block from the cache's (conv, ssm) state when
+    given (else zeros).  Returns (x, (conv, ssm))."""
+    conv = ssm = None
+    if layer_cache is not None:
+        conv, ssm = layer_cache["conv"].to(x.dtype), layer_cache["ssm"]
+    h, state = ssm_mod.mamba2_full(block["mamba"], cfg,
+                                   apply_norm(x, block["norm"], cfg),
+                                   conv_state=conv, ssm_state=ssm)
+    return x + h, state
+
+
 def _remat_layer(block, cfg, x, positions):
     return _attn_block_full(block, cfg, x, positions)[0]
 
@@ -101,7 +122,8 @@ def forward_full(params, cfg: ModelConfig, *, tokens, cache=None,
     """Train / prefill pass over a whole sequence. tokens: [B, S].
 
     With ``cache`` (a dense cache of :func:`init_cache`), each layer's
-    K/V are ring-written into it in place and ``pos`` advances by S.
+    K/V (SSM layers: the final conv and recurrent state) are written
+    into it in place and ``pos`` advances by S.
     ``last_only`` applies the LM head to the final position only.
     ``remat`` recomputes each layer in the backward pass instead of
     keeping its activations (``torch.utils.checkpoint``, the counterpart
@@ -111,10 +133,19 @@ def forward_full(params, cfg: ModelConfig, *, tokens, cache=None,
     if remat and cache is not None:
         raise ValueError("remat recomputes layers in the backward pass and "
                          "cannot write a cache")
+    if remat and cfg.ssm_layers:
+        raise NotImplementedError("training SSM layers (remat through the "
+                                  "SSD scan) is not ported: ROADMAP.md M10")
     x = embed_tokens(params, cfg, tokens)
     b, s = x.shape[0], x.shape[1]
     positions = _default_positions(cfg, b, s, 0, x.device)
-    for i, block in enumerate(params["layers"]):
+    for i, (kind, block) in enumerate(zip(cfg.layer_pattern,
+                                          params["layers"])):
+        if kind == SSM:
+            x, state = _ssm_block_full(block, cfg, x)
+            if cache is not None:
+                write_prefill(cache, i, state, cfg)
+            continue
         if remat:
             x = checkpoint(_remat_layer, block, cfg, x, positions,
                            use_reentrant=False)
@@ -137,17 +168,22 @@ def forward_decode(params, cfg: ModelConfig, *, tokens, cache, active=None):
 
     New K/V are ring-written in place; ``active`` ([B] bool, optional)
     limits the writes to those slots, so an inactive slot's rows keep
-    their values.  Returns (logits [B, 1, V], new_cache) where
-    ``new_cache`` shares the layer tensors and carries ``pos + 1`` for
-    every slot (the engine keeps the old ``pos`` of inactive slots, as
-    the JAX engine does)."""
+    their values (SSM layers: their conv and recurrent state, as the
+    JAX engine's ``where`` freeze keeps them).  Returns (logits [B, 1,
+    V], new_cache) where ``new_cache`` shares the layer tensors and
+    carries ``pos + 1`` for every slot (the engine keeps the old ``pos``
+    of inactive slots, as the JAX engine does)."""
     x = embed_tokens(params, cfg, tokens)
     b = x.shape[0]
     cache_pos = cache["pos"]
     positions = cache_pos[:, None]
     if cfg.mrope_sections:
         positions = positions[..., None].expand(b, 1, 3)
-    for block, layer_cache in zip(params["layers"], cache["layers"]):
+    for kind, block, layer_cache in zip(cfg.layer_pattern, params["layers"],
+                                        cache["layers"]):
+        if kind == SSM:
+            x = _ssm_block_decode(block, cfg, x, layer_cache, active)
+            continue
         x = _attn_block_decode(block, cfg, x, positions, layer_cache,
                                cache_pos, active)
     x = apply_norm(x, params["final_norm"], cfg)
@@ -155,12 +191,29 @@ def forward_decode(params, cfg: ModelConfig, *, tokens, cache, active=None):
                                      "layers": cache["layers"]}
 
 
+def _ssm_block_decode(block, cfg, x, layer_cache, active):
+    """Residual Mamba2 decode step; the new conv and recurrent state are
+    written in place, for the ``active`` slots only when given."""
+    h, conv, st = ssm_mod.mamba2_decode(block["mamba"], cfg,
+                                        apply_norm(x, block["norm"], cfg),
+                                        layer_cache["conv"],
+                                        layer_cache["ssm"])
+    for name, new in (("conv", conv), ("ssm", st)):
+        old = layer_cache[name]
+        if active is not None:
+            new = torch.where(active.reshape((-1,) + (1,) * (new.dim() - 1)),
+                              new.to(old.dtype), old)
+        old.copy_(new)
+    return x + h
+
+
 def forward_chunk(params, cfg: ModelConfig, *, tokens, cache):
     """Chunked-prefill step (Sarathi-style): a chunk of C tokens against
     a dense cache already holding ``cache["pos"]`` tokens (uniform across
-    the batch).  The chunk's K/V are ring-written in place and ``pos``
-    advances by C.  Returns (logits of the chunk's last position
-    [B,1,V], cache)."""
+    the batch).  The chunk's K/V are ring-written in place (SSM layers:
+    the chunk runs from the cache's conv and recurrent state, which it
+    replaces) and ``pos`` advances by C.  Returns (logits of the chunk's
+    last position [B,1,V], cache)."""
     x = embed_tokens(params, cfg, tokens)
     b, c = x.shape[0], x.shape[1]
     pos0 = cache["pos"][0].clone()
@@ -168,7 +221,12 @@ def forward_chunk(params, cfg: ModelConfig, *, tokens, cache):
                                      dtype=torch.int32))[None].expand(b, c)
     if cfg.mrope_sections:
         positions = positions[..., None].expand(b, c, 3)
-    for block, layer_cache in zip(params["layers"], cache["layers"]):
+    for i, (kind, block, layer_cache) in enumerate(zip(
+            cfg.layer_pattern, params["layers"], cache["layers"])):
+        if kind == SSM:
+            x, state = _ssm_block_full(block, cfg, x, layer_cache)
+            write_prefill(cache, i, state, cfg)
+            continue
         xin = apply_norm(x, block["attn_norm"], cfg)
         h, _ = attn.gqa_continue(block["attn"], cfg, xin, positions,
                                  layer_cache, pos0)

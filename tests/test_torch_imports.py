@@ -1,6 +1,6 @@
 """The port stands alone: importing ``repro_torch`` and every submodule
 loads neither ``jax`` nor the JAX package ``repro``, and no source file
-of the port imports them."""
+of the port, nor ``chip_smoke.py``, imports them."""
 import os
 import pathlib
 import re
@@ -23,8 +23,9 @@ sys.exit(1 if bad else 0)
 """
 
 # modules whose import must be covered by name (the dense layout, the
-# int8 caches, the decode kernels' wrappers, and training: the flash
-# backward, the loss and step, AdamW, checkpoints, the launcher)
+# int8 caches, the decode kernels' wrappers; training: the flash
+# backward, the loss and step, AdamW, checkpoints, the launcher; the
+# Mamba2 block and the SSD scan kernel's wrapper)
 NEW_MODULES = ("repro_torch.kernels.decode_attention",
                "repro_torch.kernels.decode_attention_q8",
                "repro_torch.kernels.decode_attention_paged",
@@ -35,7 +36,8 @@ NEW_MODULES = ("repro_torch.kernels.decode_attention",
                "repro_torch.train.train_step",
                "repro_torch.train.optimizer",
                "repro_torch.train.checkpoint",
-               "repro_torch.launch.train", "repro_torch.bridge")
+               "repro_torch.launch.train", "repro_torch.bridge",
+               "repro_torch.models.ssm", "repro_torch.kernels.ssd_scan")
 
 
 def test_import_loads_no_jax_and_no_reference():
@@ -61,3 +63,8 @@ def test_sources_import_no_jax_and_no_reference():
         for m in _IMPORT.finditer(path.read_text()):
             hits.append(f"{path.relative_to(SRC)}: {m.group(0).strip()}")
     assert not hits, hits
+
+
+def test_chip_smoke_imports_no_jax_and_no_reference():
+    text = (SRC.parent / "chip_smoke.py").read_text()
+    assert not [m.group(0) for m in _IMPORT.finditer(text)]

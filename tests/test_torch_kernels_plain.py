@@ -41,6 +41,7 @@ from repro_torch.kernels.decode_attention_paged import (
 from repro_torch.kernels.decode_attention_q8 import \
     decode_attention_q8_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.ssd_scan import ssd_scan_plain
 from repro_torch.models.cache import quantize_kv
 
 torch.set_num_threads(2)
@@ -224,8 +225,16 @@ def test_cpu_wrappers_run_plain_and_launch_nothing():
     got = ops.flash_attention(x, kv, kv, causal=True, window=8)
     assert torch.equal(got, flash_attention_plain(x, kv, kv, causal=True,
                                                   window=8))
+    g = torch.Generator().manual_seed(1)
+    sx, sb, sc = (torch.randn(1, 20, n, generator=g) for n in (64, 8, 8))
+    sx = sx.reshape(1, 20, 2, 32)
+    sdt = torch.rand(1, 20, 2, generator=g)
+    sa = -torch.rand(2, generator=g) - 0.5
+    got = ops.ssd_scan(sx, sdt, sa, sb, sc, chunk=8)
+    want = ssd_scan_plain(sx, sdt, sa, sb, sc, chunk=8)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert ops.launch_counts() == dict.fromkeys(
         ("decode_attention_paged", "decode_attention_paged_q8",
          "decode_attention", "decode_attention_q8", "flash_attention",
          "flash_attention_fwd_lse", "flash_attention_dq",
-         "flash_attention_dkv"), 0)
+         "flash_attention_dkv", "ssd_scan"), 0)
