@@ -8,13 +8,20 @@ PyTorch version.
 
 Phases (any failure exits non-zero before the last line):
   device   card name and power limit (nvidia-smi), torch/CUDA versions
-  build    nvcc builds every kernel source in src/repro_torch/kernels/csrc
+  build    nvcc builds every kernel source in src/repro_torch/kernels/csrc;
+           counts the tensor-core instructions (HGMMA, HMMA) in the flash
+           libraries' SASS (cuobjdump) and fails on none
   kernels  each kernel vs its plain version on the card, bf16 and f32,
-           at Qwen2.5-7B shapes; CUDA-event times (plain, kernel, kernel,
-           plain) at the serve path's shape and at one long shape; the
-           training kernels (forward + lse, dq, dk/dv) over causal and
-           windowed cases, GQA groups 1/2/7, S 16/128/2048, hd 64/128,
-           timed at the train shape (B4 S2048 H16 KV8 hd128 bf16) and at
+           at Qwen2.5-7B shapes and at head_dim 80 (h2o-danube's 32 q /
+           8 kv heads); the flash forward (K2) and the training forward
+           (K5a) over S 16/100/128/2048, GQA groups 1/2/4/7/12, hd
+           64/80/128, windows 0/32/64 and B up to 4 (the train shape),
+           each bitwise equal across two launches; CUDA-event times
+           (plain, kernel, kernel, plain) with achieved TFLOP/s at the
+           serve path's shape and at one long shape; the training
+           kernels (forward + lse, dq, dk/dv) over causal and windowed
+           cases, GQA groups 1/2/4/7, S 16/128/2048, hd 64/80/128, timed
+           at the train shape (B4 S2048 H16 KV8 hd128 bf16) and at
            S=128, and dq/dk/dv checked bitwise repeatable; the SSD scan
            at the Mamba2-780M widths (nh 48, hd 64, ds 128), B 1/4 x S
            16/100/256/2048, with and without an initial state, bitwise
@@ -24,7 +31,9 @@ Phases (any failure exits non-zero before the last line):
            seeded weights): latency-model fit, then run_policy under
            fcfs, slo-reanneal, slo-preempt + chunked:32, and a multi-turn
            fcfs run with prefix hits, on the paged engine; then the same
-           three policy runs on the dense engine (paged=False)
+           three policy runs on the dense engine (paged=False); then
+           h2o-danube-1.8b (24 layers, 32 q / 8 kv heads of head_dim 80,
+           bf16, random seeded weights) under fcfs on the paged engine
   ssm      Mamba2-780M at its published config (48 layers, d 1536, bf16,
            random seeded weights) on the dense engine: latency-model fit,
            then fcfs, slo-reanneal, slo-preempt + chunked:32; the SSD scan
@@ -45,8 +54,8 @@ Phases (any failure exits non-zero before the last line):
            Mamba2-780M at 2 layers in float32: the dense engine's tokens
            under fcfs and slo-preempt + chunked:32, and the logits of one
            prefill and 4 decode steps, bounded
-Each path (paged serve, dense serve, Mamba2 serve, int8, train) is
-driven with the
+Each path (paged serve, dense serve, h2o-danube serve, Mamba2 serve,
+int8, train) is driven with the
 launch counts set to 0 just before it and read just after; every kernel
 must launch on the path that runs it.  The line before the last is the
 kernels JSON; the last line is
@@ -137,6 +146,7 @@ TRAIN_KERNELS = ("flash_attention_fwd_lse", "flash_attention_dq",
 # the path each kernel must launch on (counts reset before, read after)
 PATHS = {"serve_paged": ("decode_attention_paged", "flash_attention"),
          "serve_dense": ("flash_attention", "decode_attention"),
+         "serve_hd80": ("decode_attention_paged", "flash_attention"),
          "serve_ssm": ("ssd_scan",),
          "int8": ("decode_attention_paged_q8", "decode_attention_q8"),
          "train": TRAIN_KERNELS}
@@ -163,6 +173,22 @@ def smi_line() -> str:
         timeout=60)
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() \
         else f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+def tensor_core_counts():
+    """Tensor-core instructions in the SASS of the flash libraries, by
+    ``cuobjdump -sass``: HGMMA (wgmma) and HMMA (mma.sync), per source."""
+    import re
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    counts = {}
+    for source in ("flash_attention", "flash_attention_bwd"):
+        sass = subprocess.run(
+            [tool, "-sass", str(_build.library_path(source))],
+            capture_output=True, text=True, timeout=300, check=True).stdout
+        counts[source] = {op: len(re.findall(rf"\b{op}\b", sass))
+                          for op in ("HGMMA", "HMMA")}
+    return counts
 
 
 # ------------------------------------------------------------------ timing
@@ -196,13 +222,14 @@ def bound(nbytes: float, flops: float, dtype: str):
 
 
 # ----------------------------------------------------------- kernel inputs
-def decode_inputs(b, lengths, pages_per_seq, dtype, window, gen, n_blocks=None):
+def decode_inputs(b, lengths, pages_per_seq, dtype, window, gen, n_blocks=None,
+                  h=H, kv=KV, hd=HD):
     import torch
     n_blocks = n_blocks or 1 + b * pages_per_seq
     kw = dict(device="cuda", dtype=dtype)
-    q = torch.randn((b, H, HD), generator=gen, **kw)
-    k = torch.randn((n_blocks, PAGE, KV, HD), generator=gen, **kw)
-    v = torch.randn((n_blocks, PAGE, KV, HD), generator=gen, **kw)
+    q = torch.randn((b, h, hd), generator=gen, **kw)
+    k = torch.randn((n_blocks, PAGE, kv, hd), generator=gen, **kw)
+    v = torch.randn((n_blocks, PAGE, kv, hd), generator=gen, **kw)
     # a shuffled, non-identity page assignment (page 0 stays the null page)
     perm = torch.randperm(n_blocks - 1, generator=gen, device="cuda")[
         :b * pages_per_seq] + 1
@@ -229,14 +256,14 @@ def decode_cost(args, window, dtype_name):
 
 
 def decode_q8_inputs(b, lengths, pages_per_seq, dtype, window, gen,
-                     n_blocks=None):
+                     n_blocks=None, **heads):
     """int8 pages quantized (by the port's quantize_kv) from float32
     pages; q in ``dtype``."""
     import torch
     from repro_torch.models.cache import quantize_kv
     (q, k, v, bt, ln), kw = decode_inputs(b, lengths, pages_per_seq,
                                           torch.float32, window, gen,
-                                          n_blocks)
+                                          n_blocks, **heads)
     kq, ks = quantize_kv(k)
     vq, vs = quantize_kv(v)
     return (q.to(dtype), kq, ks, vq, vs, bt, ln), kw
@@ -249,20 +276,21 @@ def decode_q8_cost(args, window, dtype_name):
                         (bt.numel() + ln.numel()) * 4, window, dtype_name)
 
 
-def dense_inputs(b, n_valid, L, dtype, gen):
+def dense_inputs(b, n_valid, L, dtype, gen, h=H, kv=KV, hd=HD):
     import torch
     kw = dict(device="cuda", dtype=dtype)
-    q = torch.randn((b, H, HD), generator=gen, **kw)
-    k = torch.randn((b, L, KV, HD), generator=gen, **kw)
-    v = torch.randn((b, L, KV, HD), generator=gen, **kw)
+    q = torch.randn((b, h, hd), generator=gen, **kw)
+    k = torch.randn((b, L, kv, hd), generator=gen, **kw)
+    v = torch.randn((b, L, kv, hd), generator=gen, **kw)
     nv = torch.tensor(n_valid, dtype=torch.int32, device="cuda")
     return (q, k, v, nv), {}
 
 
-def dense_q8_inputs(b, n_valid, L, dtype, gen):
+def dense_q8_inputs(b, n_valid, L, dtype, gen, **heads):
     import torch
     from repro_torch.models.cache import quantize_kv
-    (q, k, v, nv), _ = dense_inputs(b, n_valid, L, torch.float32, gen)
+    (q, k, v, nv), _ = dense_inputs(b, n_valid, L, torch.float32, gen,
+                                    **heads)
     kq, ks = quantize_kv(k)
     vq, vs = quantize_kv(v)
     return (q.to(dtype), kq, ks, vq, vs, nv), {}
@@ -314,13 +342,19 @@ def flash_inputs(b, s, dtype, window, gen):
     return (q, k, v), {"causal": True, "window": window}
 
 
+def attn_flops(q, window, per_pair=4):
+    """``per_pair`` flops per q head x hd x attended (q, key) pair of
+    causal attention over q [B,S,H,hd] (4 for a forward: QKᵀ and PV)."""
+    b, s, h, hd = q.shape
+    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
+    return float(per_pair) * b * h * hd * pairs
+
+
 def flash_cost(args, window, dtype_name):
     q, k, v = args
-    b, s = q.shape[:2]
-    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
     nbytes = 2 * q.numel() * q.element_size() + \
         2 * k.numel() * k.element_size()
-    return bound(nbytes, 4.0 * b * H * HD * pairs, dtype_name)
+    return bound(nbytes, attn_flops(q, window), dtype_name)
 
 
 def sdpa_fn(args):
@@ -361,30 +395,105 @@ def flash_train_inputs(b, s, h, kv, hd, dtype, gen):
             torch.randn((b, s, h, hd), generator=gen, **kw))
 
 
+# flops per q head x hd x attended pair: the forward (QKᵀ, PV), dq (QKᵀ,
+# dO·Vᵀ, dS·K) and dk/dv (QKᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q)
+TRAIN_PER_PAIR = {"flash_attention_fwd_lse": 4, "flash_attention_dq": 6,
+                  "flash_attention_dkv": 8}
+
+
 def flash_train_cost(name, q, k, window, dtype_name):
     """Bound of one training-kernel call: each input read once and each
     output written once (q-sized out/dout/dq, k-sized dk/dv, f32
-    [B,H,S] lse and delta); 4 / 6 / 8 flops per q head x hd x attended
-    pair for the forward (QKᵀ, PV), dq (QKᵀ, dO·Vᵀ, dS·K) and dk/dv
-    (QKᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q)."""
+    [B,H,S] lse and delta); TRAIN_PER_PAIR flops per q head x hd x
+    attended pair."""
     b, s, h, hd = q.shape
-    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
     qb, kb, rows = q.numel() * q.element_size(), \
         k.numel() * k.element_size(), b * h * s * 4
-    nbytes, per_pair = {
-        "flash_attention_fwd_lse": (2 * qb + 2 * kb + rows, 4),
-        "flash_attention_dq": (3 * qb + 2 * kb + 2 * rows, 6),
-        "flash_attention_dkv": (2 * qb + 4 * kb + 2 * rows, 8)}[name]
-    return bound(nbytes, per_pair * b * h * hd * pairs, dtype_name)
+    nbytes = {"flash_attention_fwd_lse": 2 * qb + 2 * kb + rows,
+              "flash_attention_dq": 3 * qb + 2 * kb + 2 * rows,
+              "flash_attention_dkv": 2 * qb + 4 * kb + 2 * rows}[name]
+    return bound(nbytes, attn_flops(q, window, TRAIN_PER_PAIR[name]),
+                 dtype_name)
 
 
-def check_train_kernels(results):
+# K2 and K5a cases (label, b, s, h, kv, hd, window): both q-tile sizes of
+# the bf16 block (64 rows where 128-row tiles would not fill the SMs, else
+# 128) with ragged last tiles; GQA groups 1/2/4/7/12 (starcoder2's 24
+# over 2); hd 64/80/128; windows 0/32/64; up to the train shape
+FLASH_CASES = [
+    ("S16 g7 hd128", 1, 16, 28, 4, 128, 0),
+    ("S16 g1 hd64", 1, 16, 4, 4, 64, 0),
+    ("B4 S16 g12 hd64 (128-row tiles)", 4, 16, 48, 4, 64, 0),
+    ("S100 g7 hd80", 1, 100, 14, 2, 80, 0),
+    ("B2 S100 g2 hd128 w32", 2, 100, 8, 4, 128, 32),
+    ("B4 S100 g12 hd128 w32 (128-row tiles)", 4, 100, 48, 4, 128, 32),
+    ("S128 g7 hd128 (serve)", 1, 128, 28, 4, 128, 0),
+    ("S128 g7 hd128 w32", 1, 128, 28, 4, 128, 32),
+    ("S128 g12 hd128 w64", 1, 128, 24, 2, 128, 64),
+    ("B2 S128 g4 hd80 w64", 2, 128, 32, 8, 80, 64),
+    ("S2048 g7 hd128", 1, 2048, 28, 4, 128, 0),
+    ("S2048 g2 hd64 w64", 1, 2048, 4, 2, 64, 64),
+    ("S2048 g4 hd80 w32", 1, 2048, 32, 8, 80, 32),
+    ("B4 S2048 g2 hd128 (train)", 4, 2048, 16, 8, 128, 0),
+]
+
+
+def check_flash_forward(results):
+    """K2 (forward only) and K5a (forward + lse) against their shared
+    plain version on FLASH_CASES in bf16 and f32 (TOL on out and lse),
+    and each bitwise equal across two launches.  Sets K2's result row;
+    returns K5a's worst errors by dtype."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    worst = {n: dict.fromkeys(dtypes, 0.0)
+             for n in ("flash_attention", "flash_attention_fwd_lse")}
+    for label, b, s, h, kv, hd, window in FLASH_CASES:
+        for dn, dt in dtypes.items():
+            q, k, v, _ = flash_train_inputs(b, s, h, kv, hd, dt, gen)
+            kw = {"causal": True, "window": window}
+            runs = {"flash_attention":
+                    [(fa.flash_attention_cuda(q, k, v, **kw),)
+                     for _ in range(2)],
+                    "flash_attention_fwd_lse":
+                    [fb.flash_attention_fwd_lse_cuda(q, k, v, **kw)
+                     for _ in range(2)]}
+            want = fa.flash_attention_fwd_lse_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            for name, (first, second) in runs.items():
+                same = all(torch.equal(x, y) for x, y in zip(first, second))
+                err = 0.0
+                ok = same
+                for got, ref in zip(first, want):
+                    e = (got.float() - ref.float()).abs()
+                    err = max(err, float(e.max()))
+                    ok = ok and bool((e <= TOL[dn] + TOL[dn]
+                                      * ref.float().abs()).all())
+                worst[name][dn] = max(worst[name][dn], err)
+                log(f"  {name:<24} {label:<38} {dn:<8} max_abs_err="
+                    f"{err:.3e} tol={TOL[dn]:g} bitwise_repeat={same} "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{name} {label} {dn} disagrees "
+                                         "or is not repeatable")
+    results["flash_attention"] = {
+        "name": "flash_attention", **KERNELS["flash_attention"],
+        "max_abs_err": max(worst["flash_attention"].values()),
+        "max_err": worst["flash_attention"], "tol": TOL,
+        "bitwise_repeatable": True, "cases": len(FLASH_CASES)}
+    return worst["flash_attention_fwd_lse"]
+
+
+def check_train_kernels(results, fwd_worst):
     """The training kernels against their plain versions: out and lse of
     the forward (TOL), dq/dk/dv of the backward from the same residuals
     (GRAD_TOL relative to max |plain|), on the cases below and at the
     shape the train phase gives them (B4 S2048 H16 KV8 hd128); then
     dq/dk/dv bitwise repeatable, and times at the train shape and at
-    S=128."""
+    S=128.  ``fwd_worst``: K5a's worst errors on FLASH_CASES."""
     import torch
     from repro_torch.kernels import flash_attention_bwd as fb
     gen = torch.Generator(device="cuda")
@@ -398,8 +507,11 @@ def check_train_kernels(results):
         ("S2048 rep2 hd128 causal", 1, 2048, 16, 8, 128, 0),
         ("S2048 rep2 hd64 window256", 1, 2048, 4, 2, 64, 256),
         ("B4 S2048 rep2 hd128 causal (train)", 4, 2048, 16, 8, 128, 0),
+        ("B2 S128 rep4 hd80 window64", 2, 128, 32, 8, 80, 64),
+        ("S2048 rep4 hd80 causal", 1, 2048, 32, 8, 80, 0),
     ]
     worst = {n: dict.fromkeys(dtypes, 0.0) for n in TRAIN_KERNELS}
+    worst[TRAIN_KERNELS[0]] = dict(fwd_worst)
     for label, b, s, h, kv, hd, window in cases:
         for dn, dt in dtypes.items():
             q, k, v, do = flash_train_inputs(b, s, h, kv, hd, dt, gen)
@@ -483,6 +595,8 @@ def check_train_kernels(results):
             b_ms, b_by = flash_train_cost(name, q, k, 0, "bfloat16")
             r = {"shape": shape, "ms": k_ms, "plain_ms": p_ms,
                  "bound_ms": b_ms, "bound_by": b_by,
+                 "achieved_tflops": attn_flops(q, 0, TRAIN_PER_PAIR[name])
+                 / k_ms / 1e9,
                  "library_ms": time_ms(lib, iters) if lib else lib_bwd}
             if name != TRAIN_KERNELS[0]:
                 r.update(plain_covers="dq, dk and dv together",
@@ -493,7 +607,8 @@ def check_train_kernels(results):
                 results[name].update(r)
             else:
                 results[name]["S128"] = r
-            log(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            log(f"  {name}: kernel {k_ms:.4f} ms "
+                f"({r['achieved_tflops']:.1f} TFLOP/s), plain {p_ms:.4f} ms, "
                 f"bound {b_ms:.4f} ms ({b_by}), library "
                 f"{r['library_ms']:.4f} ms at {shape}"
                 + (f"; delta+dq+dkv {pair:.4f} ms" if "pair_ms" in r
@@ -631,12 +746,9 @@ def phase_kernels(results):
             ("B4 window64",
              lambda dt: decode_inputs(4, [1, 13, 200, 300], 16, dt, 64,
                                       gen)),
-        ]),
-        "flash_attention": (fa.flash_attention_plain,
-                            fa.flash_attention_cuda, [
-            ("S16 causal", lambda dt: flash_inputs(1, 16, dt, 0, gen)),
-            ("S128 causal", lambda dt: flash_inputs(1, 128, dt, 0, gen)),
-            ("S128 window32", lambda dt: flash_inputs(1, 128, dt, 32, gen)),
+            ("B3 hd80 H32 KV8 window64",
+             lambda dt: decode_inputs(3, [1, 70, 300], 16, dt, 64, gen,
+                                      h=32, kv=8, hd=80)),
         ]),
         "decode_attention_paged_q8": (dap.decode_attention_paged_q8_plain,
                                       dap.decode_attention_paged_q8_cuda, [
@@ -647,6 +759,9 @@ def phase_kernels(results):
             ("B4 window64",
              lambda dt: decode_q8_inputs(4, [1, 13, 200, 300], 16, dt, 64,
                                          gen)),
+            ("B3 hd80 H32 KV8 window64",
+             lambda dt: decode_q8_inputs(3, [1, 70, 300], 16, dt, 64, gen,
+                                         h=32, kv=8, hd=80)),
         ]),
         "decode_attention": (da.decode_attention_plain,
                              da.decode_attention_cuda, [
@@ -654,6 +769,9 @@ def phase_kernels(results):
              lambda dt: dense_inputs(3, [1, 90, 256], 256, dt, gen)),
             ("L64 n_valid 1/33/64",
              lambda dt: dense_inputs(3, [1, 33, 64], 64, dt, gen)),
+            ("hd80 H32 KV8 L256 n_valid 1/90/256",
+             lambda dt: dense_inputs(3, [1, 90, 256], 256, dt, gen, h=32,
+                                     kv=8, hd=80)),
         ]),
         "decode_attention_q8": (dq8.decode_attention_q8_plain,
                                 dq8.decode_attention_q8_cuda, [
@@ -661,6 +779,9 @@ def phase_kernels(results):
              lambda dt: dense_q8_inputs(3, [1, 90, 256], 256, dt, gen)),
             ("L64 n_valid 1/33/64",
              lambda dt: dense_q8_inputs(3, [1, 33, 64], 64, dt, gen)),
+            ("hd80 H32 KV8 L256 n_valid 1/90/256",
+             lambda dt: dense_q8_inputs(3, [1, 90, 256], 256, dt, gen, h=32,
+                                        kv=8, hd=80)),
         ]),
     }
     for name, (plain, kernel, cases) in specs.items():
@@ -683,6 +804,7 @@ def phase_kernels(results):
         results[name] = {"name": name, **KERNELS[name],
                          "max_abs_err": max(worst.values()),
                          "max_err": worst, "tol": TOL}
+    fwd_worst = check_flash_forward(results)
 
     def timed(plain, kernel, args, kw, cost, lib, iters, dn):
         k_ms, p_ms = alternate(lambda: plain(*args, **kw),
@@ -707,6 +829,8 @@ def phase_kernels(results):
         **timed(fa.flash_attention_plain,
                 fa.flash_attention_cuda, a, kw, flash_cost, sdpa_fn(a), 50,
                 "bfloat16"))
+    results["flash_attention"]["achieved_tflops"] = \
+        attn_flops(a[0], 0) / results["flash_attention"]["ms"] / 1e9
     # one long shape each
     a, kw = decode_inputs(16, [2048] * 16, 128, bf, 0, gen)
     results["decode_attention_paged"]["long"] = dict(
@@ -715,11 +839,12 @@ def phase_kernels(results):
                 dap.decode_attention_paged_cuda, a, kw, decode_cost, None,
                 10, "bfloat16"))
     a, kw = flash_inputs(1, 2048, bf, 0, gen)
-    results["flash_attention"]["long"] = dict(
+    long = results["flash_attention"]["long"] = dict(
         shape="B1 S2048 H28 KV4 hd128 causal bf16",
         **timed(fa.flash_attention_plain,
                 fa.flash_attention_cuda, a, kw, flash_cost, sdpa_fn(a), 5,
                 "bfloat16"))
+    long["achieved_tflops"] = attn_flops(a[0], 0) / long["ms"] / 1e9
     # the int8 paged and the dense kernels at the same two shapes: the
     # serve path's 4 slots over a 256-token ring, and B16 x 2048
     for name, plain, kernel, make, cost, lib in (
@@ -754,7 +879,7 @@ def phase_kernels(results):
             f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
             f"{r['library_ms']} ms at {r['shape']}; long: "
             f"{json.dumps(r['long'])}")
-    check_train_kernels(results)
+    check_train_kernels(results, fwd_worst)
     check_ssd_kernel(results)
 
 
@@ -852,7 +977,9 @@ def phase_serve(ctx):
     from repro_torch.core.latency_model import PAPER_TABLE2
     from repro_torch.data.synthetic import (sample_multiturn_token_requests,
                                             sample_serve_workload)
+    from repro_torch.configs import get_config
     from repro_torch.launch.serve import fit_latency_model
+    from repro_torch.models.model import init_params
     card, results = ctx["card"], ctx["results"]
     cfg, params = full_model(ctx)
     policies = (("fcfs", "stall"), ("slo-reanneal", "stall"),
@@ -886,6 +1013,20 @@ def phase_serve(ctx):
                    sample_serve_workload(8, cfg.vocab_size, seed=1), policy,
                    disc, False) for policy, disc in policies])
     _log_runs(card, runs)
+    # head_dim 80 end to end: h2o-danube-1.8b at its published config on
+    # the paged engine under fcfs (which plans nothing with the latency
+    # model, so Qwen's fit serves)
+    dcfg = get_config("h2o-danube-1.8b")
+    dparams = init_params(dcfg, seed=0, device="cuda")
+    log(f"  {dcfg.name}: {dcfg.num_layers} layers d={dcfg.d_model} heads="
+        f"{dcfg.num_heads}/{dcfg.num_kv_heads} hd={dcfg.head_dim} window="
+        f"{dcfg.sliding_window} {dcfg.dtype}")
+    runs = count_path(results, "serve_hd80", lambda: [
+        _serve_run(dcfg, dparams, model,
+                   sample_serve_workload(8, dcfg.vocab_size, seed=1), "fcfs",
+                   "stall", True)])
+    _log_runs(card, runs)
+    del dparams
 
 
 def phase_ssm(ctx):
@@ -1372,6 +1513,13 @@ def main(argv=None) -> int:
     for source in dict.fromkeys(_build.SOURCES.values()):
         for line in _build.compiler_log(source):
             log(f"  {source}: {line}")
+    # the bf16 flash forward runs on the tensor cores, or the run fails
+    tc = tensor_core_counts()
+    for source, n in tc.items():
+        log(f"  {source}: tensor-core instructions in SASS (cuobjdump "
+            f"-sass): HGMMA {n['HGMMA']}, HMMA {n['HMMA']}")
+        if n["HGMMA"] + n["HMMA"] == 0:
+            raise AssertionError(f"{source}: no tensor-core instruction")
     for phase, fn in (("kernels", lambda: phase_kernels(ctx["results"])),
                       ("serve", lambda: phase_serve(ctx)),
                       ("ssm", lambda: phase_ssm(ctx)),
@@ -1392,6 +1540,9 @@ def main(argv=None) -> int:
              "bound_ms": None, "bound_by": None, "library_ms": None,
              **ctx["results"].get(name, {})}
         r["kernel_ms"] = r["ms"]
+        source = os.path.basename(r["source"])[:-len(".cu")]
+        if name in ("flash_attention", "flash_attention_fwd_lse"):
+            r["sass_tensor_core_instructions"] = tc[source]
         if name in NO_LIBRARY:
             r["library_none_because"] = NO_LIBRARY[name]
         kernels.append(r)

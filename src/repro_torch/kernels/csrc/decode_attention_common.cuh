@@ -96,6 +96,7 @@ decode_kernel(const T* __restrict__ q, const KT* __restrict__ k_rows,
               int pages_per_seq, int window, float scale) {
   constexpr bool kQuant = std::is_same<KT, int8_t>::value;
   constexpr int kAcc = kMaxGroup * HD / kThreads;  // outputs per thread
+  static_assert(kAcc * kThreads == kMaxGroup * HD, "accumulator split");
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
   const int g = num_heads / num_kv_heads;
@@ -132,44 +133,53 @@ decode_kernel(const T* __restrict__ q, const KT* __restrict__ k_rows,
     // 1. gather this step's K/V rows (through the block table when
     //    paged): 16-byte loads, all issued before any is used (slots past
     //    the frontier re-read the last live row and are zeroed, so no load
-    //    branches)
+    //    branches on the length).  The pieces need not divide evenly over
+    //    the threads (hd 80 bf16: 32 rows x 10 pieces over 128 threads):
+    //    the count rounds up and the last round is guarded.
+    static_assert(HD % kVec<KT> == 0, "rows are whole 16-byte pieces");
     constexpr int kRowVecs = HD / kVec<KT>;
-    constexpr int kLoads = kTile * kRowVecs / kThreads;
+    constexpr int kPieces = kTile * kRowVecs;
+    constexpr int kLoads = (kPieces + kThreads - 1) / kThreads;
     uint4 kr4[kLoads], vr4[kLoads];
     float ks[kLoads], vs[kLoads];
 #pragma unroll
     for (int j = 0; j < kLoads; ++j) {
       const int i = tid + j * kThreads;
-      const int slot = min(s0 + i / kRowVecs, n_valid - 1);
-      int page = b;
-      if constexpr (kPaged) {
-        page = bt[slot / page_size];
-        page = min(max(page, 0), num_blocks - 1);
-      }
-      const size_t row =
-          ((size_t)page * page_size + slot % page_size) * num_kv_heads + kvh;
-      const size_t off = row * HD + (i % kRowVecs) * kVec<KT>;
-      kr4[j] = *reinterpret_cast<const uint4*>(k_rows + off);
-      vr4[j] = *reinterpret_cast<const uint4*>(v_rows + off);
-      if constexpr (kQuant) {
-        ks[j] = __bfloat162float(k_scale[row]);
-        vs[j] = __bfloat162float(v_scale[row]);
-      } else {
-        ks[j] = vs[j] = 1.f;
+      if (i < kPieces) {
+        const int slot = min(s0 + i / kRowVecs, n_valid - 1);
+        int page = b;
+        if constexpr (kPaged) {
+          page = bt[slot / page_size];
+          page = min(max(page, 0), num_blocks - 1);
+        }
+        const size_t row =
+            ((size_t)page * page_size + slot % page_size) * num_kv_heads +
+            kvh;
+        const size_t off = row * HD + (i % kRowVecs) * kVec<KT>;
+        kr4[j] = *reinterpret_cast<const uint4*>(k_rows + off);
+        vr4[j] = *reinterpret_cast<const uint4*>(v_rows + off);
+        if constexpr (kQuant) {
+          ks[j] = __bfloat162float(k_scale[row]);
+          vs[j] = __bfloat162float(v_scale[row]);
+        } else {
+          ks[j] = vs[j] = 1.f;
+        }
       }
     }
 #pragma unroll
     for (int j = 0; j < kLoads; ++j) {
       const int i = tid + j * kThreads;
-      const int t = i / kRowVecs, d0 = (i % kRowVecs) * kVec<KT>;
-      const bool live = s0 + t < n_valid;
-      float kf[kVec<KT>], vf[kVec<KT>];
-      unpack<KT>(kr4[j], ks[j], kf);
-      unpack<KT>(vr4[j], vs[j], vf);
+      if (i < kPieces) {
+        const int t = i / kRowVecs, d0 = (i % kRowVecs) * kVec<KT>;
+        const bool live = s0 + t < n_valid;
+        float kf[kVec<KT>], vf[kVec<KT>];
+        unpack<KT>(kr4[j], ks[j], kf);
+        unpack<KT>(vr4[j], vs[j], vf);
 #pragma unroll
-      for (int e = 0; e < kVec<KT>; ++e) {
-        sK[t * (HD + 1) + d0 + e] = live ? kf[e] : 0.f;
-        sV[t * HD + d0 + e] = live ? vf[e] : 0.f;
+        for (int e = 0; e < kVec<KT>; ++e) {
+          sK[t * (HD + 1) + d0 + e] = live ? kf[e] : 0.f;
+          sV[t * HD + d0 + e] = live ? vf[e] : 0.f;
+        }
       }
     }
     __syncthreads();
@@ -271,8 +281,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// dtype (of q and out): 0 = float32, 1 = bfloat16.  K/V share it, or are
-// int8 when kQuant.  Returns cudaGetLastError() after the launch
+// dtype (of q and out): 0 = float32, 1 = bfloat16; head_dim 64, 80 or
+// 128.  K/V share the dtype, or are int8 when kQuant.  Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for shapes the kernel does not take).
 template <bool kPaged, bool kQuant>
 int dispatch(const void* q, const void* k, const void* v,
@@ -293,8 +303,10 @@ int dispatch(const void* q, const void* k, const void* v,
                                  num_kv_heads, num_blocks, page_size,         \
                                  pages_per_seq, window, s)
   if (dtype == 0 && head_dim == 64) REPRO_LAUNCH(float, 64);
+  if (dtype == 0 && head_dim == 80) REPRO_LAUNCH(float, 80);
   if (dtype == 0 && head_dim == 128) REPRO_LAUNCH(float, 128);
   if (dtype == 1 && head_dim == 64) REPRO_LAUNCH(__nv_bfloat16, 64);
+  if (dtype == 1 && head_dim == 80) REPRO_LAUNCH(__nv_bfloat16, 80);
   if (dtype == 1 && head_dim == 128) REPRO_LAUNCH(__nv_bfloat16, 128);
 #undef REPRO_LAUNCH
   return (int)cudaErrorInvalidValue;

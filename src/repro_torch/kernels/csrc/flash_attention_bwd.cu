@@ -15,11 +15,15 @@
 // with dP = dO·Vᵀ and Δ = rowsum(out ⊙ dO) (computed by the caller, as
 // the JAX backward does outside its kernels).
 //
-// What bounds them on the card: operations (6 and 8 flops per q head ×
-// hd × attended pair for dq and dk/dv, far above the byte bound at the
-// training shapes).  Like the forward, these first versions are simple
-// and exact rather than fast: scalar f32 FMAs from padded shared-memory
-// tiles, f32 accumulators, no tensor cores.  The TPU grids carried dq
+// The forward is the shared block: on the tensor cores for bf16
+// (flash_attention_fwd_sm90.cuh), the scalar block for float32
+// (flash_attention_fwd.cuh).
+//
+// What bounds the backward on the card: operations (6 and 8 flops per q
+// head × hd × attended pair for dq and dk/dv, far above the byte bound
+// at the training shapes).  These first versions are simple and exact
+// rather than fast: scalar f32 FMAs from padded shared-memory tiles, f32
+// accumulators, no tensor cores; hd 64, 80 or 128.  The TPU grids carried dq
 // (resp. dk/dv) in VMEM scratch over a sequential k (resp. q × group)
 // grid axis; here that axis is a loop inside the block:
 //   * dq: one block of 128 threads per (batch, q head, 64-row q tile),
@@ -31,9 +35,15 @@
 //     threads own one key row (a quarter of the columns and of dk/dv's
 //     dims).  Each block owns its dk/dv rows outright, so there are no
 //     atomics and the gradients are bitwise repeatable run to run.
-// Scores are recomputed exactly as the forward computed them (q pre-
-// scaled, the same FMA order over hd), so P matches the forward's lse.
+// Scores are recomputed in f32 from q pre-scaled by 1/sqrt(hd), and P =
+// exp(s - lse) uses the forward's lse.  For float32 that is the scalar
+// forward's own arithmetic (the same FMA order over hd), so P matches it
+// bit for bit.  For bf16 the forward's scores come from the tensor cores
+// (another f32 summation order over hd, the scale applied after the sum)
+// and its P·V rounds P to bf16, so the recomputed P differs from the
+// forward's by f32 rounding: relative ~1e-6, far inside GRAD_TOL.
 #include "flash_attention_fwd.cuh"
+#include "flash_attention_fwd_sm90.cuh"
 
 namespace {
 
@@ -322,15 +332,19 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Each returns cudaGetLastError()
-// after its launch (cudaErrorInvalidValue for shapes it does not take).
-#define REPRO_DISPATCH(CALL)                                  \
-  if (dtype == 0 && head_dim == 64) return (int)CALL(float, 64); \
-  if (dtype == 0 && head_dim == 128) return (int)CALL(float, 128); \
-  if (dtype == 1 && head_dim == 64)                               \
-    return (int)CALL(__nv_bfloat16, 64);                          \
-  if (dtype == 1 && head_dim == 128)                              \
-    return (int)CALL(__nv_bfloat16, 128);                         \
+// dtype: 0 = float32, 1 = bfloat16; head_dim 64, 80 or 128.  Each
+// returns cudaGetLastError() after its launch (cudaErrorInvalidValue for
+// shapes it does not take).
+#define REPRO_DISPATCH(CALL)                                          \
+  if (dtype == 0 && head_dim == 64) return (int)CALL(float, 64);      \
+  if (dtype == 0 && head_dim == 80) return (int)CALL(float, 80);      \
+  if (dtype == 0 && head_dim == 128) return (int)CALL(float, 128);    \
+  if (dtype == 1 && head_dim == 64)                                   \
+    return (int)CALL(__nv_bfloat16, 64);                              \
+  if (dtype == 1 && head_dim == 80)                                   \
+    return (int)CALL(__nv_bfloat16, 80);                              \
+  if (dtype == 1 && head_dim == 128)                                  \
+    return (int)CALL(__nv_bfloat16, 128);                             \
   return (int)cudaErrorInvalidValue
 
 extern "C" int flash_attention_fwd_lse(const void* q, const void* k,
@@ -342,12 +356,25 @@ extern "C" int flash_attention_fwd_lse(const void* q, const void* k,
   if (flash::bad_shape(batch, seq_len, num_heads, num_kv_heads))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_FWD(T, HD)                                                 \
-  flash::launch_fwd<T, HD, true>(q, k, v, out, static_cast<float*>(lse), \
-                                 batch, seq_len, num_heads, num_kv_heads, \
-                                 causal, window, s)
-  REPRO_DISPATCH(REPRO_FWD);
-#undef REPRO_FWD
+  float* l = static_cast<float*>(lse);
+  // bf16 on the tensor cores, float32 on the scalar parity block
+#define REPRO_F32(HD)                                                       \
+  return (int)flash::launch_fwd<float, HD, true>(                           \
+      q, k, v, out, l, batch, seq_len, num_heads, num_kv_heads, causal,     \
+      window, s)
+#define REPRO_BF16(HD)                                                      \
+  return (int)flash_tc::launch_fwd_tc<HD, true>(                            \
+      q, k, v, out, l, batch, seq_len, num_heads, num_kv_heads, causal,     \
+      window, s)
+  if (dtype == 0 && head_dim == 64) REPRO_F32(64);
+  if (dtype == 0 && head_dim == 80) REPRO_F32(80);
+  if (dtype == 0 && head_dim == 128) REPRO_F32(128);
+  if (dtype == 1 && head_dim == 64) REPRO_BF16(64);
+  if (dtype == 1 && head_dim == 80) REPRO_BF16(80);
+  if (dtype == 1 && head_dim == 128) REPRO_BF16(128);
+#undef REPRO_F32
+#undef REPRO_BF16
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int flash_attention_dq(const void* q, const void* k,

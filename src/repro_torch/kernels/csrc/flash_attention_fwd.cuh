@@ -1,17 +1,17 @@
-// Causal flash attention (prefill) for Hopper (sm_90a), with an optional
-// sliding window and grouped-query heads: the block shared by the
-// forward-only kernel (flash_attention.cu) and the forward that also
-// writes the per-row log-sum-exp for the backward (flash_attention_bwd.cu).
+// The float32 flash-attention forward for Hopper (sm_90a), and the
+// row staging that the backward kernels (flash_attention_bwd.cu) share:
+// the parity path of K2 (flash_attention.cu) and K5a (the training
+// forward that also writes the per-row log-sum-exp).  bf16 runs on the
+// tensor cores instead (flash_attention_fwd_sm90.cuh, whose header says
+// which TPU kernels the two replace and what bounds them).  float32
+// stays on this scalar block because it is held to 2e-5 against the
+// plain version, which TF32 tensor cores (10-bit mantissa) cannot meet.
 //
 // q [B,S,H,hd], k/v [B,S,KV,hd] -> out [B,S,H,hd] (and lse [B,H,S] f32),
 // q head h reading kv head h / (H/KV) in place (heads are never repeated
 // in memory), online softmax over key tiles, key tiles wholly outside
-// the causal/window band skipped.
-//
-// What bounds it on the card: operations.  Prefill attention does
-// O(S) flops per byte, far above Hopper's ~295 flops/byte balance point
-// at the prompt lengths the engine runs, so the limit is arithmetic.
-// This first version is simple and exact rather than fast:
+// the causal/window band skipped; hd 64, 80 or 128.  The design is
+// simple and exact rather than fast:
 //   * one block of 128 threads per (batch, q head, 64-row q tile); the
 //     TPU kernel's sequential k grid axis becomes a loop inside the block
 //     over 32-row K/V tiles staged in shared memory, stopping at the
@@ -19,9 +19,11 @@
 //   * each thread pair owns one q row: the pair splits the tile's score
 //     columns and the row's head_dim outputs, and combines max and sum
 //     with one warp shuffle; max, denominator and accumulator are f32;
-//   * scalar FMAs from shared memory (padded rows, no bank conflicts).
-// Later work: mma.sync / wgmma tensor-core tiles fed by TMA, which is
-// where the arithmetic bound can actually be approached.
+//   * scalar FMAs from shared memory (padded rows, no bank conflicts);
+//   * 16-byte loads whose count per thread rounds up, the last round
+//     guarded, so a tile whose 16-byte pieces do not divide evenly over
+//     the threads (hd 80: 32 rows x 10 pieces of bf16 over 128 threads)
+//     is still staged whole.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -57,36 +59,42 @@ __device__ __forceinline__ void unpack(const uint4& r, float* out) {
 
 // Stage rows [r0, r0 + kRows) of head `head` of a [B,S,heads,HD] tensor
 // into shared memory as f32 rows of stride `stride`, each element times
-// `mul`, by kNThreads threads with 16-byte loads
-// all issued before any is used; rows past the end re-read the last row
-// and are zeroed, so no load branches.
+// `mul`, by kNThreads threads with 16-byte loads all issued before any is
+// used; rows past the end re-read the last row and are zeroed, so no load
+// branches on S.  The pieces need not divide evenly over the threads: the
+// last round is guarded.
 template <typename T, int HD, int kRows, int kNThreads>
 __device__ __forceinline__ void stage_rows(const T* __restrict__ src,
                                            float* dst, int stride, int b,
                                            int r0, int S, int heads,
                                            int head, int tid, float mul) {
+  static_assert(HD % kVec<T> == 0, "rows are whole 16-byte pieces");
   constexpr int kRowVecs = HD / kVec<T>;
-  constexpr int kLoads = kRows * kRowVecs / kNThreads;
-  static_assert(kLoads * kNThreads == kRows * kRowVecs, "tile split");
+  constexpr int kPieces = kRows * kRowVecs;
+  constexpr int kLoads = (kPieces + kNThreads - 1) / kNThreads;
   uint4 r4[kLoads];
 #pragma unroll
   for (int j = 0; j < kLoads; ++j) {
     const int i = tid + j * kNThreads;
-    const int s = min(r0 + i / kRowVecs, S - 1);
-    r4[j] = *reinterpret_cast<const uint4*>(
-        src + (((size_t)b * S + s) * heads + head) * HD +
-        (i % kRowVecs) * kVec<T>);
+    if (i < kPieces) {
+      const int s = min(r0 + i / kRowVecs, S - 1);
+      r4[j] = *reinterpret_cast<const uint4*>(
+          src + (((size_t)b * S + s) * heads + head) * HD +
+          (i % kRowVecs) * kVec<T>);
+    }
   }
 #pragma unroll
   for (int j = 0; j < kLoads; ++j) {
     const int i = tid + j * kNThreads;
-    const int t = i / kRowVecs, d0 = (i % kRowVecs) * kVec<T>;
-    const bool live = r0 + t < S;
-    float f[kVec<T>];
-    unpack<T>(r4[j], f);
+    if (i < kPieces) {
+      const int t = i / kRowVecs, d0 = (i % kRowVecs) * kVec<T>;
+      const bool live = r0 + t < S;
+      float f[kVec<T>];
+      unpack<T>(r4[j], f);
 #pragma unroll
-    for (int e = 0; e < kVec<T>; ++e)
-      dst[t * stride + d0 + e] = live ? f[e] * mul : 0.f;
+      for (int e = 0; e < kVec<T>; ++e)
+        dst[t * stride + d0 + e] = live ? f[e] * mul : 0.f;
+    }
   }
 }
 
@@ -140,34 +148,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
 
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    // 16-byte loads, all issued before any is used (rows past the end
-    // re-read the last row and are zeroed, so no load branches)
-    constexpr int kRowVecs = HD / kVec<T>;
-    constexpr int kLoads = kBK * kRowVecs / kThreads;
-    uint4 kr4[kLoads], vr4[kLoads];
-#pragma unroll
-    for (int j = 0; j < kLoads; ++j) {
-      const int i = tid + j * kThreads;
-      const int s = min(k0 + i / kRowVecs, S - 1);
-      const size_t off = (((size_t)b * S + s) * num_kv_heads + kvh) * HD +
-                         (i % kRowVecs) * kVec<T>;
-      kr4[j] = *reinterpret_cast<const uint4*>(k + off);
-      vr4[j] = *reinterpret_cast<const uint4*>(v + off);
-    }
-#pragma unroll
-    for (int j = 0; j < kLoads; ++j) {
-      const int i = tid + j * kThreads;
-      const int t = i / kRowVecs, d0 = (i % kRowVecs) * kVec<T>;
-      const bool live = k0 + t < S;
-      float kf[kVec<T>], vf[kVec<T>];
-      unpack<T>(kr4[j], kf);
-      unpack<T>(vr4[j], vf);
-#pragma unroll
-      for (int e = 0; e < kVec<T>; ++e) {
-        sK[t * (HD + 1) + d0 + e] = live ? kf[e] : 0.f;
-        sV[t * HD + d0 + e] = live ? vf[e] : 0.f;
-      }
-    }
+    stage_rows<T, HD, kBK, kThreads>(k, sK, HD + 1, b, k0, S, num_kv_heads,
+                                     kvh, tid, 1.f);
+    stage_rows<T, HD, kBK, kThreads>(v, sV, HD, b, k0, S, num_kv_heads,
+                                     kvh, tid, 1.f);
     __syncthreads();
 
     // scores for this thread's interleaved columns c = 2j + half; the

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.models.cache import dequantize_kv
 
 NEG_INF = -1e30
@@ -112,8 +113,8 @@ def check_decode(name, q, k, v, k_scale=None, v_scale=None, **ints):
                                  f"{t.dtype} {tuple(t.shape)}")
     b, h, hd = q.shape
     kv, hd_k = k.shape[2], k.shape[3]
-    if hd not in (64, 128) or hd_k != hd:
-        raise ValueError(f"{name}: head_dim {hd}/{hd_k} not in (64, 128)")
+    if hd not in HEAD_DIMS or hd_k != hd:
+        raise ValueError(f"{name}: head_dim {hd}/{hd_k} not in {HEAD_DIMS}")
     if kv == 0 or h % kv or h // kv > 16:
         raise ValueError(f"{name}: {h} q heads over {kv} kv heads "
                          "(group must divide and be <= 16)")

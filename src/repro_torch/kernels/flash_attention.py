@@ -2,9 +2,11 @@
 
 Counterpart of the Pallas TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention``.  The hand-written
-CUDA kernel is ``csrc/flash_attention.cu`` over the block in
-``csrc/flash_attention_fwd.cuh`` (whose header says what bounds it on
-the card and how the design answers); this module holds its launch
+CUDA kernel is ``csrc/flash_attention.cu``: bf16 on the tensor-core
+block of ``csrc/flash_attention_fwd_sm90.cuh`` (whose header says what
+bounds it on the card and how the design answers), float32 on the
+scalar parity block of ``csrc/flash_attention_fwd.cuh``; this module
+holds its launch
 wrapper and the plain PyTorch version of the same function, which also
 gives the per-row log-sum-exp that the training forward (K5a in
 ``flash_attention_bwd``) saves.
@@ -18,6 +20,9 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 NAME = "flash_attention"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# head widths every attention kernel is compiled for (h2o-danube's 80
+# beside 64 and 128)
+HEAD_DIMS = (64, 80, 128)
 
 
 def masked_scores(q, k, causal: bool, window: int):
@@ -61,7 +66,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
 def check_inputs(name, q, k, v):
     """Raise unless the CUDA flash kernels take (q, k, v): one CUDA
     device, float32 or bfloat16, [B,S,H,hd] / [B,S,KV,hd] with hd in
-    (64, 128) and KV dividing H, contiguous, 16-byte aligned.  Returns
+    HEAD_DIMS and KV dividing H, contiguous, 16-byte aligned.  Returns
     (b, s, h, kv, hd, dtype code)."""
     dev = q.device
     if dev.type != "cuda":
@@ -79,8 +84,8 @@ def check_inputs(name, q, k, v):
     kb, ks, kv, khd = k.shape
     if (kb, ks, khd) != (b, s, hd):
         raise ValueError(f"{name}: k/v {tuple(k.shape)} vs q {tuple(q.shape)}")
-    if hd not in (64, 128):
-        raise ValueError(f"{name}: head_dim {hd} not in (64, 128)")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {hd} not in {HEAD_DIMS}")
     if kv == 0 or h % kv:
         raise ValueError(f"{name}: {h} q heads over {kv} kv heads")
     for n, t in (("q", q), ("k", k), ("v", v)):

@@ -8,7 +8,8 @@ tensors against autograd of ``flash_attention_plain``.
 Bounds are the reference's own (tests/test_kernels.py:190-213): 3e-5 for
 the forward's out and lse, 3e-4 for the gradients.  Shapes: the four of
 tests/test_kernels.py:184-189 (MHA, GQA, a window, a 3-head group with
-rectangular blocks) plus one hd=128 group of 7."""
+rectangular blocks) plus one hd=128 group of 7 and one windowed hd=80
+(h2o-danube-1.8b's width)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +35,7 @@ SHAPES = [  # b, s, h, kv, hd, window, block_q, block_k
     (1, 64, 4, 2, 32, 24, 32, 32),     # sliding window
     (1, 128, 6, 3, 64, 0, 64, 32),     # non-pow2 heads, rectangular blocks
     (1, 64, 7, 1, 128, 0, 32, 32),     # hd=128, a group of 7
+    (1, 64, 4, 2, 80, 16, 32, 32),     # hd=80 (h2o-danube), windowed
 ]
 
 

@@ -15,8 +15,9 @@ eagerly dequantized caches (``dequantize_kv`` rounds to bf16 outside
 
 Shapes: those of tests/test_paged.py and tests/test_kernels.py, plus a
 non-power-of-two GQA group (14 q heads over 2 kv heads), a wrapped ring,
-lengths shorter than one page, sliding windows, and dense lengths 1,
-partial and L.  On CPU tensors the call-site wrappers take the plain
+lengths shorter than one page, sliding windows, dense lengths 1,
+partial and L, and head_dim 80 (h2o-danube-1.8b's width, which every
+CUDA attention kernel takes beside 64 and 128).  On CPU tensors the call-site wrappers take the plain
 version and launch nothing."""
 import jax.numpy as jnp
 import numpy as np
@@ -69,6 +70,9 @@ def _paged_inputs(b, h, kv, hd, P, npg, lengths, seed=0):
     # non-power-of-two group, len < P, len == 1, ring wrap, window
     (4, 14, 2, 64, 16, 4, 0, [1, 5, 64, 100]),
     (3, 14, 2, 128, 16, 4, 40, [7, 64, 130]),
+    # head_dim 80 (h2o-danube-1.8b: 32 q over 8 kv heads), with a window
+    (3, 8, 2, 80, 16, 4, 0, [1, 37, 100]),
+    (2, 8, 2, 80, 16, 4, 24, [9, 80]),
 ])
 def test_paged_plain_matches_ref_and_pallas(b, h, kv, hd, P, npg, window,
                                             lengths):
@@ -93,6 +97,9 @@ def test_paged_plain_matches_ref_and_pallas(b, h, kv, hd, P, npg, window,
     # non-power-of-two group; the prefill bucket floor S = 16
     (1, 16, 14, 2, 64, 16, 16, 0),
     (1, 64, 14, 2, 128, 32, 32, 24),
+    # head_dim 80 (h2o-danube-1.8b), causal and windowed, ragged blocks
+    (2, 128, 8, 2, 80, 64, 32, 0),
+    (1, 96, 4, 1, 80, 32, 32, 24),
 ])
 def test_flash_plain_matches_ref_and_pallas(b, s, h, kv, hd, bq, bk,
                                             window):
@@ -131,6 +138,7 @@ def _bf16(q, s):
     (2, 8, 2, 64, 16, 4, 0, [17, 64]),          # tests/test_paged.py
     (4, 14, 2, 64, 16, 4, 0, [1, 5, 64, 100]),  # len 1, partial, wrap
     (3, 14, 2, 128, 16, 4, 40, [7, 64, 130]),   # window, wrap
+    (3, 8, 2, 80, 16, 4, 24, [1, 37, 100]),     # head_dim 80, window
 ])
 def test_paged_q8_plain_matches_ref_and_pallas(b, h, kv, hd, P, npg, window,
                                                lengths):
@@ -166,6 +174,8 @@ def _dense_inputs(b, h, kv, hd, L, n_valid, seed=3):
     # non-power-of-two group: n_valid 1 / partial / L at L = 256 and 64
     (3, 14, 2, 128, 256, 256, [1, 90, 256]),
     (3, 14, 2, 64, 64, 64, [1, 33, 64]),
+    # head_dim 80 (h2o-danube-1.8b)
+    (3, 8, 2, 80, 64, 64, [1, 33, 64]),
 ])
 def test_dense_decode_plain_matches_ref_and_pallas(b, h, kv, hd, L, bk,
                                                    n_valid):
@@ -185,6 +195,7 @@ def test_dense_decode_plain_matches_ref_and_pallas(b, h, kv, hd, L, bk,
     (1, 4, 4, 32, 128, 128, [64]),
     (3, 14, 2, 128, 256, 256, [1, 90, 256]),
     (3, 14, 2, 64, 64, 64, [1, 33, 64]),
+    (3, 8, 2, 80, 64, 64, [1, 33, 64]),          # head_dim 80
 ])
 def test_dense_q8_plain_matches_ref_and_pallas(b, h, kv, hd, L, bk,
                                                n_valid):
