@@ -8,9 +8,12 @@ PyTorch version.
 
 Phases (any failure exits non-zero before the last line):
   device   card name and power limit (nvidia-smi), torch/CUDA versions
-  build    nvcc builds every kernel source in src/repro_torch/kernels/csrc;
-           counts the tensor-core instructions (HGMMA, HMMA) in the flash
-           libraries' SASS (cuobjdump) and fails on none
+  build    nvcc builds every kernel source in src/repro_torch/kernels/csrc
+           (ptxas registers and spills per kernel function); counts the
+           tensor-core instructions (HGMMA, HMMA) per kernel function in
+           the flash libraries' SASS (cuobjdump) and fails unless every
+           bf16 instance of the forward, dq and dk/dv kernels issues
+           HGMMA at hd 64, 80 and 128 (float32 stays on the scalar blocks)
   kernels  each kernel vs its plain version on the card, bf16 and f32,
            at Qwen2.5-7B shapes and at head_dim 80 (h2o-danube's 32 q /
            8 kv heads); the flash forward (K2) and the training forward
@@ -20,7 +23,8 @@ Phases (any failure exits non-zero before the last line):
            (plain, kernel, kernel, plain) with achieved TFLOP/s at the
            serve path's shape and at one long shape; the training
            kernels (forward + lse, dq, dk/dv) over causal and windowed
-           cases, GQA groups 1/2/4/7, S 16/128/2048, hd 64/80/128, timed
+           cases, GQA groups 1/2/4/7/12, S 16/100/128/300/520/1000/2048
+           (ragged tiles, both dq block sizes), hd 64/80/128, timed
            at the train shape (B4 S2048 H16 KV8 hd128 bf16) and at
            S=128, and dq/dk/dv checked bitwise repeatable; the SSD scan
            at the Mamba2-780M widths (nh 48, hd 64, ds 128), B 1/4 x S
@@ -177,7 +181,9 @@ def smi_line() -> str:
 
 def tensor_core_counts():
     """Tensor-core instructions in the SASS of the flash libraries, by
-    ``cuobjdump -sass``: HGMMA (wgmma) and HMMA (mma.sync), per source."""
+    ``cuobjdump -sass``: HGMMA (wgmma) and HMMA (mma.sync) per kernel
+    function (the SASS split at its ``Function :`` headers), by source,
+    then by ``_build.kernel_label``."""
     import re
     from repro_torch.kernels import _build
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
@@ -186,9 +192,46 @@ def tensor_core_counts():
         sass = subprocess.run(
             [tool, "-sass", str(_build.library_path(source))],
             capture_output=True, text=True, timeout=300, check=True).stdout
-        counts[source] = {op: len(re.findall(rf"\b{op}\b", sass))
-                          for op in ("HGMMA", "HMMA")}
+        counts[source] = {
+            _build.kernel_label(fn.split(None, 1)[0]):
+            {op: len(re.findall(rf"\b{op}\b", fn)) for op in ("HGMMA", "HMMA")}
+            for fn in re.split(r"\bFunction : ", sass)[1:]}
     return counts
+
+
+# the tensor-core function family behind each flash kernel's bf16
+# instances, by (library, family); every head_dim must have instances and
+# each must issue wgmma
+TC_FAMILIES = {
+    "flash_attention": ("flash_attention", "flash_fwd_tc_kernel"),
+    "flash_attention_fwd_lse": ("flash_attention_bwd", "flash_fwd_tc_kernel"),
+    "flash_attention_dq": ("flash_attention_bwd", "flash_dq_tc_kernel"),
+    "flash_attention_dkv": ("flash_attention_bwd", "flash_dkv_tc_kernel")}
+# the scalar blocks, which only the float32 parity path may reach
+SCALAR_FAMILIES = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+
+
+def check_tensor_cores(tc):
+    """Fail unless every bf16 instance of each TC_FAMILIES entry (hd 64,
+    80 and 128) has HGMMA in its SASS and every scalar instance is
+    float32.  -> {kernel: {function: counts}} for the kernels JSON."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    per_kernel = {}
+    for name, (source, family) in TC_FAMILIES.items():
+        fns = {fn: n for fn, n in tc[source].items()
+               if fn.startswith(family + "<")}
+        hds = {int(fn[len(family) + 1:].split(",")[0].rstrip(">"))
+               for fn in fns}
+        if hds != set(HEAD_DIMS) or not all(n["HGMMA"] for n in fns.values()):
+            raise AssertionError(f"{name}: {family} instances {fns} need "
+                                 f"HGMMA at every head_dim {HEAD_DIMS}")
+        per_kernel[name] = fns
+    for source, fns in tc.items():
+        for fn in fns:
+            if fn.startswith(SCALAR_FAMILIES) and "<float," not in fn:
+                raise AssertionError(f"{source}: scalar instance {fn} is "
+                                     "not float32")
+    return per_kernel
 
 
 # ------------------------------------------------------------------ timing
@@ -509,6 +552,13 @@ def check_train_kernels(results, fwd_worst):
         ("B4 S2048 rep2 hd128 causal (train)", 4, 2048, 16, 8, 128, 0),
         ("B2 S128 rep4 hd80 window64", 2, 128, 32, 8, 80, 64),
         ("S2048 rep4 hd80 causal", 1, 2048, 32, 8, 80, 0),
+        # ragged S, and both block sizes of the bf16 dq kernel (128 q
+        # rows where that grid fills the SMs, else 64)
+        ("S100 rep2 hd128 causal (dq 64-row)", 1, 100, 8, 4, 128, 0),
+        ("B8 S100 rep12 hd64 causal (dq 128-row)", 8, 100, 24, 2, 64, 0),
+        ("B2 S300 rep4 hd80 window40 (dq 128-row)", 2, 300, 32, 8, 80, 40),
+        ("B5 S1000 rep2 hd64 window100", 5, 1000, 8, 4, 64, 100),
+        ("B4 S520 rep2 hd80 causal", 4, 520, 16, 8, 80, 0),
     ]
     worst = {n: dict.fromkeys(dtypes, 0.0) for n in TRAIN_KERNELS}
     worst[TRAIN_KERNELS[0]] = dict(fwd_worst)
@@ -541,7 +591,7 @@ def check_train_kernels(results, fwd_worst):
                                GRAD_TOL[dn] * scale))
             for name, err, ok, lim in checks:
                 worst[name][dn] = max(worst[name][dn], err)
-                log(f"  {name:<24} {label:<30} {dn:<8} max_abs_err="
+                log(f"  {name:<24} {label:<40} {dn:<8} max_abs_err="
                     f"{err:.3e} limit={lim:.3e} {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError(f"{name} {label} {dn} disagrees")
@@ -1513,13 +1563,13 @@ def main(argv=None) -> int:
     for source in dict.fromkeys(_build.SOURCES.values()):
         for line in _build.compiler_log(source):
             log(f"  {source}: {line}")
-    # the bf16 flash forward runs on the tensor cores, or the run fails
+    # every bf16 flash kernel runs on the tensor cores, or the run fails
     tc = tensor_core_counts()
-    for source, n in tc.items():
-        log(f"  {source}: tensor-core instructions in SASS (cuobjdump "
-            f"-sass): HGMMA {n['HGMMA']}, HMMA {n['HMMA']}")
-        if n["HGMMA"] + n["HMMA"] == 0:
-            raise AssertionError(f"{source}: no tensor-core instruction")
+    for source, fns in tc.items():
+        for fn, n in fns.items():
+            log(f"  {source}: {fn}: tensor-core instructions in SASS "
+                f"(cuobjdump -sass): HGMMA {n['HGMMA']}, HMMA {n['HMMA']}")
+    tc_rows = check_tensor_cores(tc)
     for phase, fn in (("kernels", lambda: phase_kernels(ctx["results"])),
                       ("serve", lambda: phase_serve(ctx)),
                       ("ssm", lambda: phase_ssm(ctx)),
@@ -1540,9 +1590,11 @@ def main(argv=None) -> int:
              "bound_ms": None, "bound_by": None, "library_ms": None,
              **ctx["results"].get(name, {})}
         r["kernel_ms"] = r["ms"]
-        source = os.path.basename(r["source"])[:-len(".cu")]
-        if name in ("flash_attention", "flash_attention_fwd_lse"):
-            r["sass_tensor_core_instructions"] = tc[source]
+        if name in tc_rows:
+            r["sass_tensor_core_instructions"] = tc_rows[name]
+            source, family = TC_FAMILIES[name]
+            r["ptxas"] = [ln for ln in _build.compiler_log(source)
+                          if ln.startswith(family + "<")]
         if name in NO_LIBRARY:
             r["library_none_because"] = NO_LIBRARY[name]
         kernels.append(r)

@@ -19,6 +19,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -130,13 +131,60 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     return {"seconds": time.perf_counter() - t0, "built": len(todo)}
 
 
+def kernel_label(mangled: str) -> str:
+    """A kernel's mangled name as ``flash_dq_tc_kernel<128, 2>``: its
+    last name component and its template arguments (integers, ``float``
+    or a named type such as ``__nv_bfloat16``); the name itself if it
+    does not parse."""
+    m = re.match(r"_ZN?", mangled)
+    if m is None:
+        return mangled
+    i, names, vals = m.end(), [], []
+
+    def length_prefixed(i):
+        n = re.match(r"\d+", mangled[i:]).group()
+        start = i + len(n)
+        return mangled[start:start + int(n)], start + int(n)
+
+    while i < len(mangled) and mangled[i].isdigit():
+        name, i = length_prefixed(i)
+        names.append(name)
+    if not names:
+        return mangled
+    if not mangled.startswith("I", i):
+        return names[-1]
+    i += 1
+    while i < len(mangled) and mangled[i] != "E":
+        m = re.match(r"L[a-z](-?\d+)E|f|\d", mangled[i:])
+        if m is None:
+            return names[-1]
+        if m.group().isdigit():
+            val, i = length_prefixed(i)
+        else:
+            val, i = m.group(1) or "float", i + m.end()
+        vals.append(val)
+    return f"{names[-1]}<{', '.join(vals)}>"
+
+
 def compiler_log(source: str) -> List[str]:
-    """The ptxas lines of the source's last build (registers, spills)."""
+    """One line per kernel function of the source's last build: its
+    ptxas registers, barriers and shared memory, then its stack and
+    spills."""
     log = library_path(source).with_suffix(".log")
     if not log.exists():
         return []
-    return [ln.strip() for ln in log.read_text().splitlines()
-            if "ptxas info" in ln and ("registers" in ln or "spill" in ln)]
+    lines, fn, spill = [], None, ""
+    for ln in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            fn, spill = kernel_label(m.group(1)), ""
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif fn and "Used" in ln and "registers" in ln:
+            used = ln[ln.index("Used"):].strip()
+            lines.append(f"{fn}: {used}; {spill}")
+            fn = None
+    return lines
 
 
 def load(name: str):

@@ -15,17 +15,18 @@
 // with dP = dO·Vᵀ and Δ = rowsum(out ⊙ dO) (computed by the caller, as
 // the JAX backward does outside its kernels).
 //
-// The forward is the shared block: on the tensor cores for bf16
-// (flash_attention_fwd_sm90.cuh), the scalar block for float32
-// (flash_attention_fwd.cuh).
+// bf16 runs on the tensor cores: the forward on the shared block of
+// flash_attention_fwd_sm90.cuh, dq and dk/dv on the wgmma + TMA kernels
+// of flash_attention_bwd_sm90.cuh (whose header says what bounds them
+// and how the design answers).  float32 runs the scalar parity kernels
+// below and the scalar forward block (flash_attention_fwd.cuh): they are
+// held to 5e-5 of max |plain|, which TF32 tensor cores (10-bit mantissa)
+// cannot meet.
 //
-// What bounds the backward on the card: operations (6 and 8 flops per q
-// head × hd × attended pair for dq and dk/dv, far above the byte bound
-// at the training shapes).  These first versions are simple and exact
-// rather than fast: scalar f32 FMAs from padded shared-memory tiles, f32
-// accumulators, no tensor cores; hd 64, 80 or 128.  The TPU grids carried dq
-// (resp. dk/dv) in VMEM scratch over a sequential k (resp. q × group)
-// grid axis; here that axis is a loop inside the block:
+// The float32 backward is simple and exact rather than fast: scalar f32
+// FMAs from padded shared-memory tiles; hd 64, 80 or 128.  The TPU grids
+// carried dq (resp. dk/dv) in VMEM scratch over a sequential k (resp.
+// q × group) grid axis; here that axis is a loop inside the block:
 //   * dq: one block of 128 threads per (batch, q head, 64-row q tile),
 //     looping over 32-row K/V tiles up to the causal limit, each thread
 //     pair owning one q row (half the columns, half of dq's dims);
@@ -36,14 +37,10 @@
 //     dims).  Each block owns its dk/dv rows outright, so there are no
 //     atomics and the gradients are bitwise repeatable run to run.
 // Scores are recomputed in f32 from q pre-scaled by 1/sqrt(hd), and P =
-// exp(s - lse) uses the forward's lse.  For float32 that is the scalar
-// forward's own arithmetic (the same FMA order over hd), so P matches it
-// bit for bit.  For bf16 the forward's scores come from the tensor cores
-// (another f32 summation order over hd, the scale applied after the sum)
-// and its P·V rounds P to bf16, so the recomputed P differs from the
-// forward's by f32 rounding: relative ~1e-6, far inside GRAD_TOL.
+// exp(s - lse) uses the forward's lse: the scalar forward's own
+// arithmetic (the same FMA order over hd), so P matches it bit for bit.
 #include "flash_attention_fwd.cuh"
-#include "flash_attention_fwd_sm90.cuh"
+#include "flash_attention_bwd_sm90.cuh"
 
 namespace {
 
@@ -52,18 +49,11 @@ using flash::kBQ;
 using flash::kThreads;
 using flash::stage_rows;
 using flash::store;
+using flash_tc::live;
 
 constexpr int kDkvThreads = 256;
 constexpr int kBKV = 64;  // key rows per dk/dv block (four threads per row)
 constexpr int kBQV = 32;  // q rows per dk/dv step
-
-__device__ __forceinline__ bool live(int qpos, int kpos, int S, int causal,
-                                     int window) {
-  bool ok = kpos < S && qpos < S;
-  if (causal) ok = ok && kpos <= qpos;
-  if (window > 0) ok = ok && kpos > qpos - window;
-  return ok;
-}
 
 template <int HD>
 constexpr size_t dq_smem_bytes() {
@@ -283,15 +273,6 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename Kernel>
-cudaError_t raise_smem(Kernel kernel, size_t smem, bool* done) {
-  if (*done) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess) *done = true;
-  return e;
-}
-
 template <typename T, int HD>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
@@ -299,9 +280,10 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       int window, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<HD>();
   static bool attr_set = false;
-  cudaError_t e = raise_smem(flash_dq_kernel<T, HD>, smem, &attr_set);
+  cudaError_t e =
+      flash_tc::raise_smem_once(flash_dq_kernel<T, HD>, smem, &attr_set);
   if (e != cudaSuccess) return e;
-  const float scale = (float)(1.0 / sqrt((double)HD));
+  const float scale = flash_tc::bwd_scale(HD);
   dim3 grid((S + kBQ - 1) / kBQ, H, batch);
   flash_dq_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -318,9 +300,10 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<HD>();
   static bool attr_set = false;
-  cudaError_t e = raise_smem(flash_dkv_kernel<T, HD>, smem, &attr_set);
+  cudaError_t e =
+      flash_tc::raise_smem_once(flash_dkv_kernel<T, HD>, smem, &attr_set);
   if (e != cudaSuccess) return e;
-  const float scale = (float)(1.0 / sqrt((double)HD));
+  const float scale = flash_tc::bwd_scale(HD);
   dim3 grid((S + kBKV - 1) / kBKV, KV, batch);
   flash_dkv_kernel<T, HD><<<grid, kDkvThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -332,19 +315,16 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim 64, 80 or 128.  Each
-// returns cudaGetLastError() after its launch (cudaErrorInvalidValue for
-// shapes it does not take).
-#define REPRO_DISPATCH(CALL)                                          \
-  if (dtype == 0 && head_dim == 64) return (int)CALL(float, 64);      \
-  if (dtype == 0 && head_dim == 80) return (int)CALL(float, 80);      \
-  if (dtype == 0 && head_dim == 128) return (int)CALL(float, 128);    \
-  if (dtype == 1 && head_dim == 64)                                   \
-    return (int)CALL(__nv_bfloat16, 64);                              \
-  if (dtype == 1 && head_dim == 80)                                   \
-    return (int)CALL(__nv_bfloat16, 80);                              \
-  if (dtype == 1 && head_dim == 128)                                  \
-    return (int)CALL(__nv_bfloat16, 128);                             \
+// dtype: 0 = float32 (the scalar kernels), 1 = bfloat16 (the tensor
+// cores); head_dim 64, 80 or 128.  Each returns cudaGetLastError() after
+// its launch (cudaErrorInvalidValue for shapes it does not take).
+#define REPRO_DISPATCH(F32, BF16)                                     \
+  if (dtype == 0 && head_dim == 64) return (int)F32(64);              \
+  if (dtype == 0 && head_dim == 80) return (int)F32(80);              \
+  if (dtype == 0 && head_dim == 128) return (int)F32(128);            \
+  if (dtype == 1 && head_dim == 64) return (int)BF16(64);             \
+  if (dtype == 1 && head_dim == 80) return (int)BF16(80);             \
+  if (dtype == 1 && head_dim == 128) return (int)BF16(128);           \
   return (int)cudaErrorInvalidValue
 
 extern "C" int flash_attention_fwd_lse(const void* q, const void* k,
@@ -357,24 +337,17 @@ extern "C" int flash_attention_fwd_lse(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  // bf16 on the tensor cores, float32 on the scalar parity block
 #define REPRO_F32(HD)                                                       \
-  return (int)flash::launch_fwd<float, HD, true>(                           \
-      q, k, v, out, l, batch, seq_len, num_heads, num_kv_heads, causal,     \
-      window, s)
+  flash::launch_fwd<float, HD, true>(q, k, v, out, l, batch, seq_len,       \
+                                     num_heads, num_kv_heads, causal,       \
+                                     window, s)
 #define REPRO_BF16(HD)                                                      \
-  return (int)flash_tc::launch_fwd_tc<HD, true>(                            \
-      q, k, v, out, l, batch, seq_len, num_heads, num_kv_heads, causal,     \
-      window, s)
-  if (dtype == 0 && head_dim == 64) REPRO_F32(64);
-  if (dtype == 0 && head_dim == 80) REPRO_F32(80);
-  if (dtype == 0 && head_dim == 128) REPRO_F32(128);
-  if (dtype == 1 && head_dim == 64) REPRO_BF16(64);
-  if (dtype == 1 && head_dim == 80) REPRO_BF16(80);
-  if (dtype == 1 && head_dim == 128) REPRO_BF16(128);
+  flash_tc::launch_fwd_tc<HD, true>(q, k, v, out, l, batch, seq_len,        \
+                                    num_heads, num_kv_heads, causal,        \
+                                    window, s)
+  REPRO_DISPATCH(REPRO_F32, REPRO_BF16);
 #undef REPRO_F32
 #undef REPRO_BF16
-  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int flash_attention_dq(const void* q, const void* k,
@@ -387,12 +360,17 @@ extern "C" int flash_attention_dq(const void* q, const void* k,
   if (flash::bad_shape(batch, seq_len, num_heads, num_kv_heads))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_DQ(T, HD)                                                   \
-  launch_dq<T, HD>(q, k, v, dout, static_cast<const float*>(lse),         \
-                   static_cast<const float*>(delta), dq, batch, seq_len,  \
-                   num_heads, num_kv_heads, causal, window, s)
-  REPRO_DISPATCH(REPRO_DQ);
-#undef REPRO_DQ
+  const float* l = static_cast<const float*>(lse);
+  const float* d = static_cast<const float*>(delta);
+#define REPRO_F32(HD)                                                     \
+  launch_dq<float, HD>(q, k, v, dout, l, d, dq, batch, seq_len,           \
+                       num_heads, num_kv_heads, causal, window, s)
+#define REPRO_BF16(HD)                                                    \
+  flash_tc::launch_dq_tc<HD>(q, k, v, dout, l, d, dq, batch, seq_len,     \
+                             num_heads, num_kv_heads, causal, window, s)
+  REPRO_DISPATCH(REPRO_F32, REPRO_BF16);
+#undef REPRO_F32
+#undef REPRO_BF16
 }
 
 extern "C" int flash_attention_dkv(const void* q, const void* k,
@@ -407,11 +385,17 @@ extern "C" int flash_attention_dkv(const void* q, const void* k,
       num_kv_heads > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_DKV(T, HD)                                                  \
-  launch_dkv<T, HD>(q, k, v, dout, static_cast<const float*>(lse),        \
-                    static_cast<const float*>(delta), dk, dv, batch,      \
-                    seq_len, num_heads, num_kv_heads, causal, window, s)
-  REPRO_DISPATCH(REPRO_DKV);
-#undef REPRO_DKV
+  const float* l = static_cast<const float*>(lse);
+  const float* d = static_cast<const float*>(delta);
+#define REPRO_F32(HD)                                                     \
+  launch_dkv<float, HD>(q, k, v, dout, l, d, dk, dv, batch, seq_len,      \
+                        num_heads, num_kv_heads, causal, window, s)
+#define REPRO_BF16(HD)                                                    \
+  flash_tc::launch_dkv_tc<HD>(q, k, v, dout, l, d, dk, dv, batch,         \
+                              seq_len, num_heads, num_kv_heads, causal,   \
+                              window, s)
+  REPRO_DISPATCH(REPRO_F32, REPRO_BF16);
+#undef REPRO_F32
+#undef REPRO_BF16
 }
 #undef REPRO_DISPATCH

@@ -128,3 +128,63 @@ def test_dispatch_without_grad_and_no_cpu_launch():
     out, lse = flash_attention_fwd_lse_plain(q, k, v)
     with pytest.raises(ValueError, match="CUDA kernel got a cpu tensor"):
         flash_attention_bwd_cuda(q, k, v, out, lse, ct)
+
+
+# The card's bound for the bf16 gradient kernels, as a share of max
+# |plain| over each tensor (chip_smoke.py GRAD_TOL["bfloat16"])
+GRAD_TOL_BF16 = 1e-2
+
+
+def _bwd_tensor_core_roundings(q, k, v, out, lse, dout, *, window=0):
+    """The plain backward with the roundings the bf16 tensor-core
+    kernels make (csrc/flash_attention_bwd_sm90.cuh): the scale applied
+    to the f32 scores; P and dS rounded to bf16 before the three
+    products dq = dS·K, dk = dSᵀ·Q and dv = Pᵀ·dO; f32 accumulation;
+    one rounding of each gradient to bf16."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    rep = h // kv
+    scale = hd ** -0.5
+    qf, dof = q.float(), dout.float()
+    kf = k.float().repeat_interleave(rep, dim=2)
+    vf = v.float().repeat_interleave(rep, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    pos = torch.arange(s)
+    mask = pos[None, :] <= pos[:, None]
+    if window > 0:
+        mask &= pos[None, :] > pos[:, None] - window
+    p = torch.where(mask, torch.exp(scores - lse[..., None]), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = (out.float() * dof).sum(-1).transpose(1, 2)
+    ds = p * (dp - delta[..., None]) * scale
+    p16, ds16 = (t.to(torch.bfloat16).float() for t in (p, ds))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds16, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds16, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p16, dof)
+    dk = dk.reshape(b, s, kv, rep, hd).sum(3)
+    dv = dv.reshape(b, s, kv, rep, hd).sum(3)
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,window", [
+    (1, 64, 2, 2, 64, 0),        # group 1
+    (2, 100, 4, 2, 80, 24),      # group 2, hd 80, windowed, ragged S
+    (1, 256, 7, 1, 128, 0),      # group 7, hd 128
+    (1, 128, 14, 2, 128, 32),    # group 7, windowed
+    (1, 200, 4, 4, 64, 48),      # group 1, windowed, ragged S
+])
+def test_bf16_tensor_core_roundings_stay_within_card_bound(b, s, h, kv, hd,
+                                                           window):
+    """Before any chip run: rounding P and dS to bf16 ahead of the
+    tensor-core products (the TPU kernels' default-precision dots round
+    them too) keeps dq, dk and dv within GRAD_TOL_BF16 of max |plain|,
+    the bound chip_smoke.py holds the bf16 kernels to."""
+    q, k, v, ct = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _inputs(b, s, h, kv, hd, seed=3))
+    out, lse = flash_attention_fwd_lse_plain(q, k, v, window=window)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, ct, window=window)
+    got = _bwd_tensor_core_roundings(q, k, v, out, lse, ct, window=window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype == torch.bfloat16, name
+        err = float((g.float() - w.float()).abs().max())
+        assert 0 < err <= GRAD_TOL_BF16 * float(w.float().abs().max()), name
