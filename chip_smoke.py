@@ -11,12 +11,20 @@ Phases (any failure exits non-zero before the last line):
   build    nvcc builds every kernel source in src/repro_torch/kernels/csrc
            (ptxas registers and spills per kernel function); counts the
            tensor-core instructions (HGMMA, HMMA) per kernel function in
-           the flash libraries' SASS (cuobjdump) and fails unless every
-           bf16 instance of the forward, dq and dk/dv kernels issues
-           HGMMA at hd 64, 80 and 128 (float32 stays on the scalar blocks)
+           the attention libraries' SASS (cuobjdump) and fails unless
+           every bf16 instance of the forward, dq and dk/dv kernels
+           issues HGMMA and every bf16 split-KV decode instance (dense and
+           paged) HMMA, at hd 64, 80 and 128 (float32 stays on the scalar
+           blocks, and no scalar decode instance takes bf16 q and K/V)
   kernels  each kernel vs its plain version on the card, bf16 and f32,
            at Qwen2.5-7B shapes and at head_dim 80 (h2o-danube's 32 q /
-           8 kv heads); the flash forward (K2) and the training forward
+           8 kv heads); the bf16 paged and dense decode (split-KV) also
+           on 2048-slot rings split many ways (lengths 1 to 2048, a
+           wrapped ring under a window of 1024, group 12, hd 80, the
+           timed B16 x 2048), each bitwise equal across two launches and
+           its split plan printed; decode times also as device time from
+           CUDA-graph replays, beside SDPA's; the flash forward (K2) and
+           the training forward
            (K5a) over S 16/100/128/2048, GQA groups 1/2/4/7/12, hd
            64/80/128, windows 0/32/64 and B up to 4 (the train shape),
            each bitwise equal across two launches; CUDA-event times
@@ -180,15 +188,16 @@ def smi_line() -> str:
 
 
 def tensor_core_counts():
-    """Tensor-core instructions in the SASS of the flash libraries, by
-    ``cuobjdump -sass``: HGMMA (wgmma) and HMMA (mma.sync) per kernel
+    """Tensor-core instructions in the SASS of the attention libraries,
+    by ``cuobjdump -sass``: HGMMA (wgmma) and HMMA (mma.sync) per kernel
     function (the SASS split at its ``Function :`` headers), by source,
     then by ``_build.kernel_label``."""
     import re
     from repro_torch.kernels import _build
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     counts = {}
-    for source in ("flash_attention", "flash_attention_bwd"):
+    for source in ("flash_attention", "flash_attention_bwd",
+                   "decode_attention", "decode_attention_paged"):
         sass = subprocess.run(
             [tool, "-sass", str(_build.library_path(source))],
             capture_output=True, text=True, timeout=300, check=True).stdout
@@ -199,38 +208,52 @@ def tensor_core_counts():
     return counts
 
 
-# the tensor-core function family behind each flash kernel's bf16
-# instances, by (library, family); every head_dim must have instances and
-# each must issue wgmma
+# the tensor-core function family behind each attention kernel's bf16
+# instances, by (library, family, instruction); every head_dim must have
+# instances and each must issue the instruction (wgmma for the flash
+# kernels, mma.sync for the split-KV decode)
 TC_FAMILIES = {
-    "flash_attention": ("flash_attention", "flash_fwd_tc_kernel"),
-    "flash_attention_fwd_lse": ("flash_attention_bwd", "flash_fwd_tc_kernel"),
-    "flash_attention_dq": ("flash_attention_bwd", "flash_dq_tc_kernel"),
-    "flash_attention_dkv": ("flash_attention_bwd", "flash_dkv_tc_kernel")}
-# the scalar blocks, which only the float32 parity path may reach
+    "flash_attention": ("flash_attention", "flash_fwd_tc_kernel", "HGMMA"),
+    "flash_attention_fwd_lse": ("flash_attention_bwd", "flash_fwd_tc_kernel",
+                                "HGMMA"),
+    "flash_attention_dq": ("flash_attention_bwd", "flash_dq_tc_kernel",
+                           "HGMMA"),
+    "flash_attention_dkv": ("flash_attention_bwd", "flash_dkv_tc_kernel",
+                            "HGMMA"),
+    "decode_attention": ("decode_attention", "decode_split_kernel", "HMMA"),
+    "decode_attention_paged": ("decode_attention_paged",
+                               "decode_split_kernel", "HMMA")}
+# the scalar flash blocks, which only the float32 parity path may reach
 SCALAR_FAMILIES = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+# the scalar decode block keeps float32 and int8-KV instances only
+SCALAR_DECODE_BF16 = "decode_kernel<__nv_bfloat16, __nv_bfloat16,"
 
 
 def check_tensor_cores(tc):
     """Fail unless every bf16 instance of each TC_FAMILIES entry (hd 64,
-    80 and 128) has HGMMA in its SASS and every scalar instance is
-    float32.  -> {kernel: {function: counts}} for the kernels JSON."""
+    80 and 128) has its tensor-core instruction in its SASS, every scalar
+    flash instance is float32 and no scalar decode instance takes bf16 q
+    with bf16 K/V.  -> {kernel: {function: counts}} for the kernels
+    JSON."""
     from repro_torch.kernels.flash_attention import HEAD_DIMS
     per_kernel = {}
-    for name, (source, family) in TC_FAMILIES.items():
+    for name, (source, family, op) in TC_FAMILIES.items():
         fns = {fn: n for fn, n in tc[source].items()
                if fn.startswith(family + "<")}
         hds = {int(fn[len(family) + 1:].split(",")[0].rstrip(">"))
                for fn in fns}
-        if hds != set(HEAD_DIMS) or not all(n["HGMMA"] for n in fns.values()):
+        if hds != set(HEAD_DIMS) or not all(n[op] for n in fns.values()):
             raise AssertionError(f"{name}: {family} instances {fns} need "
-                                 f"HGMMA at every head_dim {HEAD_DIMS}")
+                                 f"{op} at every head_dim {HEAD_DIMS}")
         per_kernel[name] = fns
     for source, fns in tc.items():
         for fn in fns:
             if fn.startswith(SCALAR_FAMILIES) and "<float," not in fn:
                 raise AssertionError(f"{source}: scalar instance {fn} is "
                                      "not float32")
+            if fn.startswith(SCALAR_DECODE_BF16):
+                raise AssertionError(f"{source}: scalar instance {fn} takes "
+                                     "bf16 q and bf16 K/V")
     return per_kernel
 
 
@@ -247,6 +270,33 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int, replays: int = 5) -> float:
+    """Device time per call: ``iters`` calls captured into one CUDA graph,
+    replayed ``replays`` times between CUDA events, so no host dispatch
+    lands on the clock (back-to-back eager calls of a small kernel time
+    the host).  Capture fails on a call that syncs the host."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def alternate(plain, kernel, iters):
@@ -374,6 +424,22 @@ def sdpa_decode_fn(args):
         ve = vs.repeat_interleave(rep, dim=1)
         return lambda: F.scaled_dot_product_attention(qs, ke, ve,
                                                       attn_mask=mask)
+
+
+# the bf16 decode kernels on the split-KV tensor-core block
+SPLIT_KERNELS = ("decode_attention_paged", "decode_attention")
+
+
+def decode_split_plan(args, sms):
+    """The (splits, split_len) the bf16 wrapper of a paged (q, k, v,
+    block_tables, lengths) or dense (q, k, v, n_valid) decode call
+    picks on a card of ``sms`` SMs."""
+    from repro_torch.kernels.decode_attention_paged import split_plan
+    q, k = args[0], args[1]
+    if len(args) == 5:
+        return split_plan(q.shape[0], k.shape[2], args[3].shape[1]
+                          * k.shape[1], page=k.shape[1], sms=sms)
+    return split_plan(q.shape[0], k.shape[2], k.shape[1], sms=sms)
 
 
 def flash_inputs(b, s, dtype, window, gen):
@@ -799,6 +865,26 @@ def phase_kernels(results):
             ("B3 hd80 H32 KV8 window64",
              lambda dt: decode_inputs(3, [1, 70, 300], 16, dt, 64, gen,
                                       h=32, kv=8, hd=80)),
+            ("B4 serve len40/90/150/220",
+             lambda dt: decode_inputs(4, [40, 90, 150, 220], 16, dt, 0, gen,
+                                      n_blocks=65)),
+            # a 128-page (2048-token) ring: many splits, some wholly past
+            # the length, a wrapped ring under a window, group 12 (the
+            # starcoder2-3b 24 q / 2 kv heads), hd 80, the timed shape
+            ("B4 L2048 len1/100/1000/2048",
+             lambda dt: decode_inputs(4, [1, 100, 1000, 2048], 128, dt, 0,
+                                      gen)),
+            ("B4 L2048 wrapped window1024",
+             lambda dt: decode_inputs(4, [2049, 2100, 3000, 4113], 128, dt,
+                                      1024, gen)),
+            ("B4 L2048 g12 H24 KV2",
+             lambda dt: decode_inputs(4, [1, 100, 1000, 2048], 128, dt, 0,
+                                      gen, h=24, kv=2)),
+            ("B4 L2048 hd80 H32 KV8",
+             lambda dt: decode_inputs(4, [1, 100, 1000, 2048], 128, dt, 0,
+                                      gen, h=32, kv=8, hd=80)),
+            ("B16 len2048 (timed)",
+             lambda dt: decode_inputs(16, [2048] * 16, 128, dt, 0, gen)),
         ]),
         "decode_attention_paged_q8": (dap.decode_attention_paged_q8_plain,
                                       dap.decode_attention_paged_q8_cuda, [
@@ -822,6 +908,17 @@ def phase_kernels(results):
             ("hd80 H32 KV8 L256 n_valid 1/90/256",
              lambda dt: dense_inputs(3, [1, 90, 256], 256, dt, gen, h=32,
                                      kv=8, hd=80)),
+            ("B4 serve L256 n_valid 40/90/150/220",
+             lambda dt: dense_inputs(4, [40, 90, 150, 220], 256, dt, gen)),
+            ("L256 n_valid 1/300 (> L keeps all L)",
+             lambda dt: dense_inputs(2, [1, 300], 256, dt, gen)),
+            ("L2048 n_valid 1/33/1000/2048",
+             lambda dt: dense_inputs(4, [1, 33, 1000, 2048], 2048, dt, gen)),
+            ("L2048 g12 H24 KV2 n_valid 1/33/1000/2048",
+             lambda dt: dense_inputs(4, [1, 33, 1000, 2048], 2048, dt, gen,
+                                     h=24, kv=2)),
+            ("B16 L2048 n_valid 2048 (timed)",
+             lambda dt: dense_inputs(16, [2048] * 16, 2048, dt, gen)),
         ]),
         "decode_attention_q8": (dq8.decode_attention_q8_plain,
                                 dq8.decode_attention_q8_cuda, [
@@ -834,35 +931,63 @@ def phase_kernels(results):
                                         kv=8, hd=80)),
         ]),
     }
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, (plain, kernel, cases) in specs.items():
+        split = name in SPLIT_KERNELS
         worst = dict.fromkeys(dtypes, 0.0)
         for label, make in cases:
             for dn, dt in dtypes.items():
                 args, kw = make(dt)
-                got = kernel(*args, **kw)
+                if split and dn == "bfloat16":
+                    splits, split_len = decode_split_plan(args, sms)
+                    b, kv = args[0].shape[0], args[1].shape[2]
+                    log(f"  {name:<24} {label:<38} split plan: {splits} x "
+                        f"{split_len} slots ({splits * b * kv} blocks of "
+                        f"pass 1 on {sms} SMs, "
+                        f"{2 if splits > 1 else 1} launches)")
+                runs = [kernel(*args, **kw) for _ in range(1 + split)]
                 want = plain(*args, **kw)
                 torch.cuda.synchronize()
+                got = runs[0]
+                same = all(torch.equal(got, r) for r in runs[1:])
                 err = (got.float() - want.float()).abs()
-                ok = bool((err <= TOL[dn] + TOL[dn]
-                           * want.float().abs()).all())
+                ok = same and bool((err <= TOL[dn] + TOL[dn]
+                                    * want.float().abs()).all())
                 worst[dn] = max(worst[dn], float(err.max()))
-                log(f"  {name:<24} {label:<30} {dn:<8} "
+                log(f"  {name:<24} {label:<38} {dn:<8} "
                     f"max_abs_err={float(err.max()):.3e} tol={TOL[dn]:g} "
-                    f"{'ok' if ok else 'FAIL'}")
+                    + (f"bitwise_repeat={same} " if split else "")
+                    + ("ok" if ok else "FAIL"))
                 if not ok:
-                    raise AssertionError(f"{name} {label} {dn} disagrees")
+                    raise AssertionError(f"{name} {label} {dn} disagrees"
+                                         + ("" if same else
+                                            " or is not repeatable"))
         results[name] = {"name": name, **KERNELS[name],
                          "max_abs_err": max(worst.values()),
                          "max_err": worst, "tol": TOL}
+        if split:
+            results[name].update(bitwise_repeatable=True, cases=len(cases))
     fwd_worst = check_flash_forward(results)
 
-    def timed(plain, kernel, args, kw, cost, lib, iters, dn):
+    def timed(plain, kernel, args, kw, cost, lib, iters, dn, graph=False):
+        """Eager CUDA-event times (plain, kernel, kernel, plain; the
+        library call); with ``graph`` also the device times of the kernel
+        and the library call from CUDA-graph replays."""
         k_ms, p_ms = alternate(lambda: plain(*args, **kw),
                                lambda: kernel(*args, **kw), iters)
         b_ms, b_by = cost(args, kw.get("window", 0), dn)
         lib_ms = time_ms(lib, iters) if lib else None
-        return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": lib_ms}
+        row = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": lib_ms}
+        if graph:
+            row["device_ms"] = graph_ms(lambda: kernel(*args, **kw), 50)
+            row["library_device_ms"] = graph_ms(lib, 50) if lib else None
+        if b_by == "bytes":   # the bytes the bound counts, over the time
+            row["achieved_gbps"] = b_ms * PEAK_BYTES / 1e9 / k_ms
+            if graph:
+                row["device_gbps"] = \
+                    b_ms * PEAK_BYTES / 1e9 / row["device_ms"]
+        return row
 
     bf = torch.bfloat16
     # the serve path's shapes: 4 slots over a 256-token ring (65 pages,
@@ -872,7 +997,7 @@ def phase_kernels(results):
         shape="B4 H28 KV4 hd128 P16 L256 len[40,90,150,220] bf16",
         **timed(dap.decode_attention_paged_plain,
                 dap.decode_attention_paged_cuda, a, kw, decode_cost, None,
-                50, "bfloat16"))
+                50, "bfloat16", graph=True))
     a, kw = flash_inputs(1, 128, bf, 0, gen)
     results["flash_attention"].update(
         shape="B1 S128 H28 KV4 hd128 causal bf16",
@@ -887,7 +1012,7 @@ def phase_kernels(results):
         shape="B16 len2048 H28 KV4 hd128 P16 bf16",
         **timed(dap.decode_attention_paged_plain,
                 dap.decode_attention_paged_cuda, a, kw, decode_cost, None,
-                10, "bfloat16"))
+                10, "bfloat16", graph=True))
     a, kw = flash_inputs(1, 2048, bf, 0, gen)
     long = results["flash_attention"]["long"] = dict(
         shape="B1 S2048 H28 KV4 hd128 causal bf16",
@@ -918,12 +1043,19 @@ def phase_kernels(results):
             shape=f"B4 H28 KV4 hd128 L256 len[40,90,150,220] {kv_type} KV, "
                   "bf16 q",
             **timed(plain, kernel, a, kw, cost, lib and lib(a), 50,
-                    "bfloat16"))
+                    "bfloat16", graph=True))
         a, kw = make(16, [2048] * 16, 2048)
         results[name]["long"] = dict(
             shape=f"B16 len2048 H28 KV4 hd128 {kv_type} KV, bf16 q",
             **timed(plain, kernel, a, kw, cost, lib and lib(a), 10,
-                    "bfloat16"))
+                    "bfloat16", graph=True))
+    for shape, r in (("serve", results["decode_attention"]),
+                     ("B16x2048", results["decode_attention"]["long"])):
+        verdict = "no slower" if r["device_ms"] <= r["library_device_ms"] \
+            else "SLOWER"
+        log(f"  decode_attention {shape}: device {r['device_ms']:.4f} ms "
+            f"against SDPA's {r['library_device_ms']:.4f} ms ({verdict}; "
+            "CUDA-graph replays, same run)")
     for name, r in results.items():
         log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
             f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
@@ -1592,7 +1724,7 @@ def main(argv=None) -> int:
         r["kernel_ms"] = r["ms"]
         if name in tc_rows:
             r["sass_tensor_core_instructions"] = tc_rows[name]
-            source, family = TC_FAMILIES[name]
+            source, family, _ = TC_FAMILIES[name]
             r["ptxas"] = [ln for ln in _build.compiler_log(source)
                           if ln.startswith(family + "<")]
         if name in NO_LIBRARY:

@@ -49,9 +49,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # argtypes: every pointer and the stream as c_void_p, so ctypes never cuts
 # a 64-bit address to a 32-bit int
 SIGNATURES = {
-    "decode_attention_paged": [_P] * 6 + [_I] * 9 + [_P],
+    # bf16: + the split partials (acc, m, l) and num_splits, split_len
+    "decode_attention_paged": [_P] * 9 + [_I] * 11 + [_P],
     "decode_attention_paged_q8": [_P] * 8 + [_I] * 9 + [_P],
-    "decode_attention": [_P] * 5 + [_I] * 6 + [_P],
+    "decode_attention": [_P] * 8 + [_I] * 8 + [_P],
     "decode_attention_q8": [_P] * 7 + [_I] * 6 + [_P],
     "flash_attention": [_P] * 4 + [_I] * 8 + [_P],
     "flash_attention_fwd_lse": [_P] * 5 + [_I] * 8 + [_P],
@@ -133,9 +134,9 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
 
 def kernel_label(mangled: str) -> str:
     """A kernel's mangled name as ``flash_dq_tc_kernel<128, 2>``: its
-    last name component and its template arguments (integers, ``float``
-    or a named type such as ``__nv_bfloat16``); the name itself if it
-    does not parse."""
+    last name component and its template arguments (integers, ``float``,
+    ``int8_t`` or a named type such as ``__nv_bfloat16``); the name
+    itself if it does not parse."""
     m = re.match(r"_ZN?", mangled)
     if m is None:
         return mangled
@@ -155,13 +156,14 @@ def kernel_label(mangled: str) -> str:
         return names[-1]
     i += 1
     while i < len(mangled) and mangled[i] != "E":
-        m = re.match(r"L[a-z](-?\d+)E|f|\d", mangled[i:])
+        m = re.match(r"L[a-z](-?\d+)E|f|a|\d", mangled[i:])
         if m is None:
             return names[-1]
         if m.group().isdigit():
             val, i = length_prefixed(i)
         else:
-            val, i = m.group(1) or "float", i + m.end()
+            val = m.group(1) or {"f": "float", "a": "int8_t"}[m.group()]
+            i += m.end()
         vals.append(val)
     return f"{names[-1]}<{', '.join(vals)}>"
 

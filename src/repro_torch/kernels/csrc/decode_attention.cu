@@ -10,18 +10,31 @@
 // the TPU kernels (L % block_k == 0), any L is taken, and rows at or past
 // n_valid are never loaded.
 //
-// The block itself (what bounds it, and the design) is
-// decode_attention_common.cuh, shared with the paged decode kernels: the
-// dense cache is its pool with one page of L rows per sequence.
+// The blocks themselves (what bounds them, and the designs) are shared
+// with the paged decode kernels, the dense cache being their pool with one
+// page of L rows per sequence: bf16 q and caches run the split-KV
+// tensor-core block of decode_attention_split_sm90.cuh (two launches when
+// the ring is split, pass 1 and the combine), float32 and int8 caches the
+// scalar block of decode_attention_common.cuh.
 #include "decode_attention_common.cuh"
+#include "decode_attention_split_sm90.cuh"
 
 // dtype (of q and out): 0 = float32, 1 = bfloat16; caches share it.
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// shapes the kernel does not take).
+// bf16 takes num_splits ranges of split_len ring slots, with the f32
+// partials part_acc [B, H, splits, hd], part_m / part_l [B, H, splits]
+// when num_splits > 1; float32 ignores them.  Returns cudaGetLastError()
+// after the launches (cudaErrorInvalidValue for shapes the kernel does
+// not take).
 extern "C" int decode_attention(
     const void* q, const void* k_cache, const void* v_cache,
-    const void* n_valid, void* out, int batch, int num_heads,
-    int num_kv_heads, int head_dim, int cache_len, int dtype, void* stream) {
+    const void* n_valid, void* out, void* part_acc, void* part_m,
+    void* part_l, int batch, int num_heads, int num_kv_heads, int head_dim,
+    int cache_len, int num_splits, int split_len, int dtype, void* stream) {
+  if (dtype == 1)
+    return repro_decode_split::dispatch<false>(
+        q, k_cache, v_cache, nullptr, n_valid, out, part_acc, part_m,
+        part_l, batch, num_heads, num_kv_heads, head_dim, batch, cache_len,
+        1, 0, num_splits, split_len, stream);
   return repro_decode::dispatch<false, false>(
       q, k_cache, v_cache, nullptr, nullptr, nullptr, n_valid, out, batch,
       num_heads, num_kv_heads, head_dim, batch, cache_len, 1, 0, dtype,

@@ -1,7 +1,10 @@
 // Flash-decode block shared by the paged (decode_attention_paged.cu) and
-// dense (decode_attention.cu) decode kernels, in float, bfloat16 and int8
-// KV.  One new query token per sequence attends to its cache: an online
-// softmax over the sequence's live ring slots under the token-id mask
+// dense (decode_attention.cu) decode kernels, for float32 q/KV and for
+// int8 KV (float32 or bfloat16 q).  bf16 q with bf16 KV never reaches it:
+// those instances are the split-KV tensor-core block of
+// decode_attention_split_sm90.cuh.  One new query token per sequence
+// attends to its cache: an online softmax over the sequence's live ring
+// slots under the token-id mask
 //   t_s = len-1 - floor_mod(len-1-s, L)      (L = pages_per_seq * page_size)
 // that hides slots not yet written and, with a window, evicted tokens.
 //
@@ -21,10 +24,10 @@
 //
 // What bounds it on the card: bytes.  Each (slot, kv head) reads its live
 // K/V once and does 4*g flops per element read (g = q heads per kv head,
-// 7 for Qwen2.5-7B), far below the ~295 flops/byte where Hopper's tensor
-// cores would become the limit; int8 halves the bytes of bf16.  The
-// design therefore spends nothing on tensor cores and aims at reading each
-// live byte once:
+// 7 for Qwen2.5-7B): far below the ~295 flops/byte where Hopper's tensor
+// cores become the limit, but at 1-2 bytes an element (int8, bf16) it is
+// 14-28 flops per byte at g = 7, which f32 FMAs on shared-memory operands
+// can barely sustain at 3.35 TB/s.  This block reads each live byte once:
 //   * one block per (sequence, kv head); the block holds all g query rows
 //     of its group (any g <= 16, not only powers of two), so every K/V row
 //     is loaded from device memory once and reused by the g rows;
@@ -35,9 +38,11 @@
 //   * 16-byte loads, all issued before any is used;
 //   * max, denominator and accumulator stay in float32 (registers and
 //     shared memory).
-// Later work: the walk is sequential inside one block, so a small batch
-// fills only batch*kv_heads of the 132 SMs.  Splitting the walk across
-// blocks with a second reduction pass (flash-decoding) is the next step.
+// What it leaves on the table, and the split block answers for bf16: one
+// block per (sequence, kv head) fills only batch*kv_heads of the 132 SMs,
+// no load is in flight while a tile is computed, and the arithmetic is
+// scalar f32.  The int8 kernels (K3, K7) can take the split block next:
+// they share its addressing.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -281,9 +286,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// dtype (of q and out): 0 = float32, 1 = bfloat16; head_dim 64, 80 or
-// 128.  K/V share the dtype, or are int8 when kQuant.  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for shapes the kernel does not take).
+// dtype (of q and out): 0 = float32, 1 = bfloat16 (int8 K/V only: bf16
+// K/V is the split block's); head_dim 64, 80 or 128.  K/V share the
+// dtype, or are int8 when kQuant.  Returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for shapes the kernel does not take).
 template <bool kPaged, bool kQuant>
 int dispatch(const void* q, const void* k, const void* v,
              const void* k_scale, const void* v_scale,
@@ -305,9 +311,11 @@ int dispatch(const void* q, const void* k, const void* v,
   if (dtype == 0 && head_dim == 64) REPRO_LAUNCH(float, 64);
   if (dtype == 0 && head_dim == 80) REPRO_LAUNCH(float, 80);
   if (dtype == 0 && head_dim == 128) REPRO_LAUNCH(float, 128);
-  if (dtype == 1 && head_dim == 64) REPRO_LAUNCH(__nv_bfloat16, 64);
-  if (dtype == 1 && head_dim == 80) REPRO_LAUNCH(__nv_bfloat16, 80);
-  if (dtype == 1 && head_dim == 128) REPRO_LAUNCH(__nv_bfloat16, 128);
+  if constexpr (kQuant) {
+    if (dtype == 1 && head_dim == 64) REPRO_LAUNCH(__nv_bfloat16, 64);
+    if (dtype == 1 && head_dim == 80) REPRO_LAUNCH(__nv_bfloat16, 80);
+    if (dtype == 1 && head_dim == 128) REPRO_LAUNCH(__nv_bfloat16, 128);
+  }
 #undef REPRO_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

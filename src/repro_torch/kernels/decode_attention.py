@@ -3,12 +3,14 @@
 
 Counterpart of the Pallas TPU kernel
 ``repro/kernels/decode_attention.py::decode_attention``.  The
-hand-written CUDA kernel is ``csrc/decode_attention.cu`` (the block it
-shares with the paged decode kernels, what bounds it on the card and how
-the design answers, is ``csrc/decode_attention_common.cuh``); this
-module holds its launch wrapper and the plain PyTorch version of the
-same function.  Keys at positions ``< n_valid[b]`` are attended; unlike
-the TPU kernel any ``L`` is taken.
+hand-written CUDA kernel is ``csrc/decode_attention.cu``: bf16 runs the
+split-KV tensor-core block ``csrc/decode_attention_split_sm90.cuh``,
+float32 the scalar block ``csrc/decode_attention_common.cuh`` (both
+shared with the paged decode kernels; each header says what bounds it
+on the card and how the design answers).  This module holds its launch
+wrapper and the plain PyTorch version of the same function.  Keys at
+positions ``< n_valid[b]`` are attended; unlike the TPU kernel any
+``L`` is taken.
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention_paged import (DTYPE_CODES,
-                                                        check_decode)
+                                                        check_decode,
+                                                        split_args)
 
 NEG_INF = -1e30
 NAME = "decode_attention"
@@ -47,15 +50,22 @@ def check_dense(name, b, k_cache, n_valid):
 
 
 def decode_attention_cuda(q, k_cache, v_cache, n_valid):
-    """Launch the CUDA kernel on the current stream.  Raises on anything
-    the kernel does not take; never falls back."""
+    """Launch the CUDA kernel on the current stream: bf16 the split-KV
+    kernel (pass 1, then the combine when ``split_plan`` splits the
+    ring: one counted call, two launches), float32 the scalar one.
+    Reads nothing back to the host, so it can be captured in a CUDA
+    graph.  Raises on anything the kernel does not take; never falls
+    back."""
     b, h, kv, hd = check_decode(NAME, q, k_cache, v_cache, n_valid=n_valid)
     check_dense(NAME, b, k_cache, n_valid)
+    L = k_cache.shape[1]
     out = torch.empty_like(q)
+    splits, split_len, acc, m, l, _ws = split_args(q, kv, L)
     err = _build.load(NAME)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        n_valid.data_ptr(), out.data_ptr(), b, h, kv, hd, k_cache.shape[1],
-        DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        n_valid.data_ptr(), out.data_ptr(), acc, m, l, b, h, kv, hd, L,
+        splits, split_len, DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(NAME, err)
     _build.LAUNCHES[NAME] += 1
     return out

@@ -19,6 +19,12 @@ F32_DKV = ("_ZN12_GLOBAL__N_116flash_dkv_kernelIfLi80EEEvPKT_S3_S3_S3_PKfS5_"
      "S1_P13__nv_bfloat16Pfiiiiiif", "flash_fwd_tc_kernel<80, 1, 1>"),
     ("_ZN12_GLOBAL__N_113decode_kernelI13__nv_bfloat16Li64EEEvPKT_",
      "decode_kernel<__nv_bfloat16, 64>"),
+    ("_ZN12repro_decode13decode_kernelI13__nv_bfloat16aLi128ELb1EEEvPKT_"
+     "PKS3_S6_PKS1_S8_PKiSA_PS2_iiiiiif",
+     "decode_kernel<__nv_bfloat16, int8_t, 128, 1>"),
+    ("_ZN18repro_decode_split19decode_split_kernelILi80ELb0EEEvPK13__nv_"
+     "bfloat16S3_S3_PKiS5_PS1_PfS7_S7_iiiiiiif",
+     "decode_split_kernel<80, 0>"),
     ("_Z8ssd_scanPKf", "ssd_scan"),
     ("not_mangled", "not_mangled"),
 ])
