@@ -11,11 +11,13 @@ Phases (any failure exits non-zero before the last line):
   build    nvcc builds every kernel source in src/repro_torch/kernels/csrc
            (ptxas registers and spills per kernel function); counts the
            tensor-core instructions (HGMMA, HMMA) per kernel function in
-           the attention libraries' SASS (cuobjdump) and fails unless
-           every bf16 instance of the forward, dq and dk/dv kernels
+           the attention and SSD libraries' SASS (cuobjdump) and fails
+           unless every bf16 instance of the forward, dq and dk/dv kernels
            issues HGMMA and every bf16 split-KV decode instance (dense and
            paged) HMMA, at hd 64, 80 and 128 (float32 stays on the scalar
-           blocks, and no scalar decode instance takes bf16 q and K/V)
+           blocks, and no scalar decode instance takes bf16 q and K/V),
+           and every SSD scan kernel function (C·Bᵀ and scan, f32 and
+           bf16) issues HMMA (3xTF32 mma.sync) with 0 bytes spilled
   kernels  each kernel vs its plain version on the card, bf16 and f32,
            at Qwen2.5-7B shapes and at head_dim 80 (h2o-danube's 32 q /
            8 kv heads); the bf16 paged and dense decode (split-KV) also
@@ -36,9 +38,13 @@ Phases (any failure exits non-zero before the last line):
            at the train shape (B4 S2048 H16 KV8 hd128 bf16) and at
            S=128, and dq/dk/dv checked bitwise repeatable; the SSD scan
            at the Mamba2-780M widths (nh 48, hd 64, ds 128), B 1/4 x S
-           16/100/256/2048, with and without an initial state, bitwise
-           repeatable, timed at the serve shapes (B1 S96; B1 S32 from a
-           state) and at B4 S2048
+           16/100/256/2048, and at the edges of its decomposition (S 1,
+           63, 64, 65; B 3; nh 7; hd 64 with ds 64, hd 32, hd 48 with ds
+           80; rows of no whole 16-byte pieces, hd 20 with ds 36 and hd
+           33 with ds 37), each with and without an initial state and bitwise
+           equal across two launches, timed at the serve shapes (B1 S96;
+           B1 S32 from a state) and at B4 S2048, eager and as device
+           time from CUDA-graph replays
   serve    Qwen2.5-7B at its published config (28 layers, bf16, random
            seeded weights): latency-model fit, then run_policy under
            fcfs, slo-reanneal, slo-preempt + chunked:32, and a multi-turn
@@ -49,7 +55,9 @@ Phases (any failure exits non-zero before the last line):
   ssm      Mamba2-780M at its published config (48 layers, d 1536, bf16,
            random seeded weights) on the dense engine: latency-model fit,
            then fcfs, slo-reanneal, slo-preempt + chunked:32; the SSD scan
-           launches once per layer per prefill pass
+           launches once per layer per prefill pass; then one prefill of
+           a 2048-token prompt at full depth (B1), timed, with the SSD
+           scan's launches and share of it (launches x device time)
   int8     the same model: one 128-token prompt and 32 greedy decode
            steps through an int8 paged cache and an int8 dense cache,
            each against the same run on a bf16 cache
@@ -112,9 +120,14 @@ GRAD_TOL = {"bfloat16": 1e-2, "float32": 5e-5}
 SSD_TOL = {"float32": (5e-5, 2e-3, 0.0), "bfloat16": (5e-5, 5e-2, 2 ** -7)}
 # Qwen2.5-7B attention shapes and the serve engine's page geometry
 H, KV, HD, PAGE = 28, 4, 128, 16
-# Mamba2-780M's SSD widths (configs/mamba2_780m.py) and the scan kernel's
-# own chunk (csrc/ssd_scan.cu)
-SSM_NH, SSM_HD, SSM_DS, SSD_Q = 48, 64, 128, 64
+# Mamba2-780M's SSD widths (configs/mamba2_780m.py); the chunk whose
+# flops the f32 CUDA-core bound counts (64 rows: PR 15's yardstick, kept
+# so that it compares across kernel versions), and the kernel's own chunk
+# (csrc/ssd_scan.cu kQ), whose flops the 3xTF32 bound and the achieved
+# rate count
+SSM_NH, SSM_HD, SSM_DS, SSD_Q, SSD_KQ = 48, 64, 128, 64, 32
+# f32-accurate tensor-core products (3xTF32: three TF32 products each)
+PEAK_3XTF32 = 495e12 / 3
 KERNELS = {
     "decode_attention_paged": {
         "route": "cuda",
@@ -188,16 +201,17 @@ def smi_line() -> str:
 
 
 def tensor_core_counts():
-    """Tensor-core instructions in the SASS of the attention libraries,
-    by ``cuobjdump -sass``: HGMMA (wgmma) and HMMA (mma.sync) per kernel
-    function (the SASS split at its ``Function :`` headers), by source,
-    then by ``_build.kernel_label``."""
+    """Tensor-core instructions in the SASS of the attention and SSD
+    libraries, by ``cuobjdump -sass``: HGMMA (wgmma) and HMMA (mma.sync)
+    per kernel function (the SASS split at its ``Function :`` headers),
+    by source, then by ``_build.kernel_label``."""
     import re
     from repro_torch.kernels import _build
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     counts = {}
     for source in ("flash_attention", "flash_attention_bwd",
-                   "decode_attention", "decode_attention_paged"):
+                   "decode_attention", "decode_attention_paged",
+                   "ssd_scan"):
         sass = subprocess.run(
             [tool, "-sass", str(_build.library_path(source))],
             capture_output=True, text=True, timeout=300, check=True).stdout
@@ -255,6 +269,39 @@ def check_tensor_cores(tc):
                 raise AssertionError(f"{source}: scalar instance {fn} takes "
                                      "bf16 q and bf16 K/V")
     return per_kernel
+
+
+# the SSD scan's kernel functions: C·Bᵀ per chunk, and the scan
+SSD_FAMILIES = ("ssd_cb_kernel", "ssd_scan_tc_kernel")
+
+
+def check_ssd_build(tc):
+    """Fail unless every kernel function of the SSD scan library is one
+    of SSD_FAMILIES, each family has float32 and bf16 instances, every
+    function issues HMMA (its 3xTF32 mma.sync) and ptxas spilled nothing
+    in any (no stack frame either: no register array in local memory).
+    -> ({function: counts}, ptxas lines) for the kernels JSON."""
+    import re
+    from repro_torch.kernels import _build
+    fns = tc["ssd_scan"]
+    ptxas = _build.compiler_log("ssd_scan")
+    for family in SSD_FAMILIES:
+        mine = [fn for fn in fns if fn.startswith(family + "<")]
+        if not any("<float" in fn for fn in mine) \
+                or not any("<__nv_bfloat16" in fn for fn in mine):
+            raise AssertionError(f"ssd_scan: {family} needs float32 and "
+                                 f"bf16 instances, has {mine}")
+    bad = [fn for fn, n in fns.items()
+           if not n["HMMA"] or not fn.startswith(SSD_FAMILIES)]
+    if bad:
+        raise AssertionError(f"ssd_scan: functions without HMMA: {bad}")
+    spills = [ln for ln in ptxas if not re.search(
+        r"\b0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        r"loads", ln)]
+    if len(ptxas) != len(fns) or spills:
+        raise AssertionError(f"ssd_scan: ptxas lines {ptxas} (spills: "
+                             f"{spills})")
+    return fns, ptxas
 
 
 # ------------------------------------------------------------------ timing
@@ -731,113 +778,159 @@ def check_train_kernels(results, fwd_worst):
                    else ""))
 
 
-def ssd_inputs(b, s, dtype, with_state, gen):
-    """The scan's inputs at the Mamba2-780M widths: x, B, C normal of std
-    0.5 in ``dtype``, dt = softplus(N(0,1) - 1) and A = -(1..16) (the
-    model's A_log init) in float32, a N(0,1) initial state or None."""
+def ssd_inputs(b, s, dtype, with_state, gen, nh=SSM_NH, hd=SSM_HD,
+               ds=SSM_DS):
+    """The scan's inputs (by default at the Mamba2-780M widths): x, B, C
+    normal of std 0.5 in ``dtype``, dt = softplus(N(0,1) - 1) and A =
+    -(1..16) (the model's A_log init) in float32, a N(0,1) initial state
+    or None."""
     import torch
     import torch.nn.functional as F
     kw = dict(device="cuda", generator=gen)
-    x = (0.5 * torch.randn((b, s, SSM_NH, SSM_HD), **kw)).to(dtype)
-    dt = F.softplus(torch.randn((b, s, SSM_NH), **kw) - 1.0)
-    A = -torch.linspace(1.0, 16.0, SSM_NH, device="cuda")
-    B = (0.5 * torch.randn((b, s, SSM_DS), **kw)).to(dtype)
-    C = (0.5 * torch.randn((b, s, SSM_DS), **kw)).to(dtype)
-    st = torch.randn((b, SSM_NH, SSM_HD, SSM_DS), **kw) if with_state \
-        else None
+    x = (0.5 * torch.randn((b, s, nh, hd), **kw)).to(dtype)
+    dt = F.softplus(torch.randn((b, s, nh), **kw) - 1.0)
+    A = -torch.linspace(1.0, 16.0, nh, device="cuda")
+    B = (0.5 * torch.randn((b, s, ds), **kw)).to(dtype)
+    C = (0.5 * torch.randn((b, s, ds), **kw)).to(dtype)
+    st = torch.randn((b, nh, hd, ds), **kw) if with_state else None
     return x, dt, A, B, C, st
 
 
-def ssd_cost(x, st, dtype_name):
-    """Bound of one scan: x, dt, A, B, C (and the initial state) read
-    once, y and the final state written once; per batch row and 64-row
-    chunk of n rows, 2n²·ds flops for C·Bᵀ, once (B and C are shared by
-    every head), and per head 2n²·hd (with x·dt) + 2n·hd·ds (the
+def ssd_flops(b, s, nh, hd, ds, q):
+    """The flops of the chunked SSD over chunks of ``q`` rows: per batch
+    row and chunk of n rows, 2n²·ds for C·Bᵀ, once (B and C are shared
+    by every head), and per head 2n²·hd (with x·dt) + 2n·hd·ds (the
     inter-chunk term) + 2n·hd·ds (the state update)."""
+    rows = [min(q, s - r) for r in range(0, s, q)]
+    return b * sum(2 * n * n * ds + nh * (2 * n * n * hd + 4 * n * hd * ds)
+                   for n in rows)
+
+
+def ssd_cost(x, B, st, dtype_name):
+    """Bounds of one scan: x, dt, A, B, C (and the initial state) read
+    once, y and the final state written once.  -> ((bound ms, bound_by)
+    at the f32 CUDA-core peak over 64-row chunks, PR 15's yardstick),
+    ((bound ms, bound_by) at the rate of the f32-accurate 3xTF32
+    tensor-core products the kernel issues, 495/3 TFLOP/s, over the
+    kernel's own 32-row chunks), and those chunks' flops."""
     b, s, nh, hd = x.shape
+    ds = B.shape[-1]
     el = x.element_size()
     nbytes = (2 * x.numel() * el + b * s * nh * 4 + nh * 4
-              + 2 * b * s * SSM_DS * el
-              + b * nh * hd * SSM_DS * 4 * (1 if st is None else 2))
-    rows = [min(SSD_Q, s - r) for r in range(0, s, SSD_Q)]
-    flops = b * sum(2 * n * n * SSM_DS
-                    + nh * (2 * n * n * hd + 4 * n * hd * SSM_DS)
-                    for n in rows)
-    return bound(nbytes, flops, dtype_name)
+              + 2 * b * s * ds * el
+              + b * nh * hd * ds * 4 * (1 if st is None else 2))
+    flops = ssd_flops(b, s, nh, hd, ds, SSD_KQ)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_tc = flops / PEAK_3XTF32 * 1e3
+    tc = (t_bytes, "bytes") if t_bytes >= t_tc else (t_tc, "operations")
+    return (bound(nbytes, ssd_flops(b, s, nh, hd, ds, SSD_Q), dtype_name),
+            tc, flops)
+
+
+# (label, b, s, nh, hd, ds): the model's widths over batch and length,
+# then the edges of the kernel's decomposition: one row, a 32-row chunk
+# boundary on either side of 64, a batch of 3, 7 heads (fewer blocks than
+# SMs), Zamba2-1.2B's hd 64 / ds 64 (configs/zamba2_1_2b.py), hd 32,
+# widths below the tiles (hd 48: a masked column tile; ds 80), and rows
+# that are no whole number of 16-byte pieces, which the kernel stages by
+# plain loads (hd 20 / ds 36 in bf16; hd 33 / ds 37 in both dtypes)
+SSD_CASES = [(f"B{b} S{s}", b, s, SSM_NH, SSM_HD, SSM_DS)
+             for b in (1, 4) for s in (16, 100, 256, 2048)] + [
+    ("B1 S1", 1, 1, SSM_NH, SSM_HD, SSM_DS),
+    ("B1 S63", 1, 63, SSM_NH, SSM_HD, SSM_DS),
+    ("B1 S64", 1, 64, SSM_NH, SSM_HD, SSM_DS),
+    ("B1 S65", 1, 65, SSM_NH, SSM_HD, SSM_DS),
+    ("B3 S100", 3, 100, SSM_NH, SSM_HD, SSM_DS),
+    ("B1 S100 nh7", 1, 100, 7, SSM_HD, SSM_DS),
+    ("B2 S100 hd64 ds64", 2, 100, 64, 64, 64),
+    ("B1 S100 hd32", 1, 100, SSM_NH, 32, SSM_DS),
+    ("B1 S100 hd48 ds80", 1, 100, SSM_NH, 48, 80),
+    ("B1 S100 hd20 ds36", 1, 100, SSM_NH, 20, 36),
+    ("B1 S100 hd33 ds37", 1, 100, SSM_NH, 33, 37),
+]
 
 
 def check_ssd_kernel(results):
     """The SSD scan against its plain version (SSD_TOL) on y and the
-    final state, bf16 and f32, B 1/4 x S 16/100 (ragged)/256/2048 (8 of
-    the model's 256-token chunks), with and without an initial state;
-    bitwise repeatable; timed in float32, the dtype the model hands it,
-    at the serve path's shapes and at B4 S2048."""
+    final state, bf16 and f32, over SSD_CASES with and without an initial
+    state, each bitwise equal across two launches; timed in float32, the
+    dtype the model hands it, at the serve path's shapes and at B4 S2048:
+    eager (plain, kernel, kernel, plain) and as device time from
+    CUDA-graph replays."""
     import torch
     from repro_torch.kernels import ssd_scan as ss
     gen = torch.Generator(device="cuda")
     gen.manual_seed(11)
     dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
     worst = dict.fromkeys(dtypes, 0.0)
-    for b in (1, 4):
-        for s in (16, 100, 256, 2048):
-            for with_state in (False, True):
-                for dn, dt in dtypes.items():
-                    x, d, A, B, C, st = ssd_inputs(b, s, dt, with_state, gen)
-                    y, fin = ss.ssd_scan_cuda(x, d, A, B, C, init_state=st)
-                    yp, fp = ss.ssd_scan_plain(x, d, A, B, C, chunk=256,
-                                               init_state=st)
-                    torch.cuda.synchronize()
-                    label = f"B{b} S{s}{' +state' if with_state else ''}"
-                    for what, got, want, tn in (("y", y, yp, dn),
-                                                ("state", fin, fp,
-                                                 "float32")):
-                        share, cap, rel = SSD_TOL[tn]
-                        want = want.float()
-                        err = (got.float() - want).abs()
-                        lim = min(share * float(want.abs().max()), cap)
-                        ok = bool((err <= lim + rel * want.abs()).all())
-                        worst[dn] = max(worst[dn], float(err.max()))
-                        log(f"  ssd_scan {label:<14} {dn:<8} {what:<5} "
-                            f"max_abs_err={float(err.max()):.3e} "
-                            f"limit={lim:.3e}+{rel:.2e}|plain| "
-                            f"{'ok' if ok else 'FAIL'}")
-                        if not ok:
-                            raise AssertionError(f"ssd_scan {label} {dn} "
-                                                 f"{what} disagrees")
-    x, d, A, B, C, st = ssd_inputs(4, 2048, torch.bfloat16, True, gen)
-    runs = [ss.ssd_scan_cuda(x, d, A, B, C, init_state=st)
-            for _ in range(2)]
-    same = all(torch.equal(p, q) for p, q in zip(*runs))
-    log(f"  ssd_scan y/state bitwise equal across two runs at B4 S2048 "
-        f"bf16 +state: {same}")
-    if not same:
-        raise AssertionError("ssd_scan differs between two runs")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, b, s, nh, hd, ds in SSD_CASES:
+        slices = ss.scan_plan(hd)
+        log(f"  ssd_scan {label:<18} plan: {slices} slices of "
+            f"{ss.SLICE} columns, {b * nh * slices} scan blocks on {sms} "
+            "SMs")
+        for with_state in (False, True):
+            for dn, dt in dtypes.items():
+                x, d, A, B, C, st = ssd_inputs(b, s, dt, with_state, gen,
+                                               nh=nh, hd=hd, ds=ds)
+                runs = [ss.ssd_scan_cuda(x, d, A, B, C, init_state=st)
+                        for _ in range(2)]
+                yp, fp = ss.ssd_scan_plain(x, d, A, B, C, chunk=256,
+                                           init_state=st)
+                torch.cuda.synchronize()
+                same = all(torch.equal(p, q) for p, q in zip(*runs))
+                y, fin = runs[0]
+                tag = f"{label}{' +state' if with_state else ''}"
+                for what, got, want, tn in (("y", y, yp, dn),
+                                            ("state", fin, fp, "float32")):
+                    share, cap, rel = SSD_TOL[tn]
+                    want = want.float()
+                    err = (got.float() - want).abs()
+                    lim = min(share * float(want.abs().max()), cap)
+                    ok = same and bool((err <= lim + rel * want.abs()).all())
+                    worst[dn] = max(worst[dn], float(err.max()))
+                    log(f"  ssd_scan {tag:<25} {dn:<8} {what:<5} "
+                        f"max_abs_err={float(err.max()):.3e} "
+                        f"limit={lim:.3e}+{rel:.2e}|plain| "
+                        f"bitwise_repeat={same} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"ssd_scan {tag} {dn} {what} "
+                                             "disagrees or is not "
+                                             "repeatable")
     r = results["ssd_scan"] = {
         "name": "ssd_scan", **KERNELS["ssd_scan"],
         "max_abs_err": max(worst.values()), "max_err": worst,
         "tol": {"share_of_max_cap_share_of_element": SSD_TOL},
-        "bitwise_repeatable": same}
+        "bitwise_repeatable": True, "cases": 2 * len(SSD_CASES)}
     f32 = torch.float32
     for key, b, s, with_state, iters in (("serve", 1, 96, False, 50),
                                          ("chunk", 1, 32, True, 50),
                                          ("long", 4, 2048, False, 5)):
         x, d, A, B, C, st = ssd_inputs(b, s, f32, with_state, gen)
+
+        def kernel():
+            return ss.ssd_scan_cuda(x, d, A, B, C, init_state=st)
         k_ms, p_ms = alternate(
             lambda: ss.ssd_scan_plain(x, d, A, B, C, chunk=256,
-                                      init_state=st),
-            lambda: ss.ssd_scan_cuda(x, d, A, B, C, init_state=st),
-            iters)
-        b_ms, b_by = ssd_cost(x, st, "float32")
+                                      init_state=st), kernel, iters)
+        dev_ms = graph_ms(kernel, iters)
+        (b_ms, b_by), (tc_ms, tc_by), flops = ssd_cost(x, B, st, "float32")
         row = {"shape": f"B{b} S{s} nh48 hd64 ds128 f32"
                         + (" from a state" if with_state else ""),
-               "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-               "bound_by": b_by, "library_ms": None}
+               "ms": k_ms, "device_ms": dev_ms, "plain_ms": p_ms,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "bound_3xtf32_ms": tc_ms, "bound_3xtf32_by": tc_by,
+               "gflop": flops / 1e9, "device_tflops": flops / dev_ms / 1e9,
+               "library_ms": None}
         if key == "serve":
             r.update(row)
         else:
             r[key] = row
-        log(f"  ssd_scan: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}) at {row['shape']}")
+        log(f"  ssd_scan: kernel {k_ms:.4f} ms eager, {dev_ms:.4f} ms "
+            f"device ({row['device_tflops']:.1f} TFLOP/s), plain "
+            f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, f32 CUDA cores, "
+            f"64-row chunks) / {tc_ms:.4f} ms ({tc_by}, 3xTF32, "
+            f"{flops / 1e9:.3f} GFLOP over 32-row chunks) at {row['shape']}")
 
 
 # ------------------------------------------------------------------ phases
@@ -1273,8 +1366,69 @@ def phase_ssm(ctx):
             raise AssertionError(f"ssm run {r['policy']} {r['discipline']}: "
                                  f"{r}")
     ctx["ssm"] = runs
+    ctx["ssm_prefill"] = long_prefill(cfg, params, results)
     del params
     torch.cuda.empty_cache()
+
+
+def long_prefill(cfg, params, results, s=2048, runs=3):
+    """One prefill of an ``s``-token prompt at full depth (B1, into a
+    dense cache, the LM head on the last position, as the engine
+    prefills): the host clock around each synchronized pass, median of
+    ``runs`` after one warm-up; the SSD scan's launches in one pass, its
+    device time at that shape (float32 x, B, C as the model hands it,
+    CUDA-graph replays) and its share of the pass (launches x device
+    time over the pass)."""
+    import statistics
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models.cache import init_cache
+    from repro_torch.models.model import forward_full
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (1, s), generator=gen,
+                           device="cuda")
+
+    def prefill():
+        cache = init_cache(cfg, 1, s, device="cuda")
+        with torch.inference_mode():
+            logits, _, _ = forward_full(params, cfg, tokens=tokens,
+                                        cache=cache, last_only=True)
+        torch.cuda.synchronize()
+        return logits
+
+    logits = prefill()
+    if not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError("long prefill: non-finite logits")
+    ops.reset_launch_counts()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        prefill()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = {k: n for k, n in ops.launch_counts().items() if n}
+    k4 = counts.get("ssd_scan", 0) // runs
+    if k4 != cfg.num_layers or set(counts) != {"ssd_scan"}:
+        raise AssertionError(f"long prefill: {k4} ssd_scan launches per "
+                             f"pass, counts {counts}")
+    nh, hd, ds = (cfg.ssm.n_heads(cfg.d_model), cfg.ssm.head_dim,
+                  cfg.ssm.d_state)
+    x, d, A, B, C, _ = ssd_inputs(1, s, torch.float32, False, gen, nh=nh,
+                                  hd=hd, ds=ds)
+    dev = graph_ms(lambda: ss.ssd_scan_cuda(x, d, A, B, C), 10)
+    ms = statistics.median(times)
+    out = {"prompt": s, "batch": 1, "layers": cfg.num_layers,
+           "prefill_ms": ms, "prefill_ms_runs": times,
+           "ssd_scan_launches": k4, "ssd_scan_device_ms": dev,
+           "ssd_scan_share": k4 * dev / ms}
+    results.setdefault("ssd_scan", {"name": "ssd_scan",
+                                    **KERNELS["ssd_scan"]})["prefill"] = out
+    log(f"  ssm prefill B1 S{s} x {cfg.num_layers} layers: {ms:.2f} ms "
+        f"(median of {runs}: {', '.join(f'{t:.2f}' for t in times)}); "
+        f"ssd_scan {k4} launches x {dev:.4f} ms device = "
+        f"{k4 * dev:.2f} ms, {100 * out['ssd_scan_share']:.1f}% of it")
+    return out
 
 
 def _decode_run(cfg, params, prompt, steps, quantized, layout,
@@ -1702,6 +1856,7 @@ def main(argv=None) -> int:
             log(f"  {source}: {fn}: tensor-core instructions in SASS "
                 f"(cuobjdump -sass): HGMMA {n['HGMMA']}, HMMA {n['HMMA']}")
     tc_rows = check_tensor_cores(tc)
+    ssd_sass, ssd_ptxas = check_ssd_build(tc)
     for phase, fn in (("kernels", lambda: phase_kernels(ctx["results"])),
                       ("serve", lambda: phase_serve(ctx)),
                       ("ssm", lambda: phase_ssm(ctx)),
@@ -1727,6 +1882,9 @@ def main(argv=None) -> int:
             source, family, _ = TC_FAMILIES[name]
             r["ptxas"] = [ln for ln in _build.compiler_log(source)
                           if ln.startswith(family + "<")]
+        if name == "ssd_scan":
+            r["sass_tensor_core_instructions"] = ssd_sass
+            r["ptxas"] = ssd_ptxas
         if name in NO_LIBRARY:
             r["library_none_because"] = NO_LIBRARY[name]
         kernels.append(r)

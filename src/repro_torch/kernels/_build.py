@@ -58,7 +58,8 @@ SIGNATURES = {
     "flash_attention_fwd_lse": [_P] * 5 + [_I] * 8 + [_P],
     "flash_attention_dq": [_P] * 7 + [_I] * 8 + [_P],
     "flash_attention_dkv": [_P] * 8 + [_I] * 8 + [_P],
-    "ssd_scan": [_P] * 8 + [_I] * 6 + [_P],
+    # + the C·Bᵀ workspace, and the plan's slices
+    "ssd_scan": [_P] * 9 + [_I] * 7 + [_P],
 }
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()

@@ -16,6 +16,12 @@ float32.  Returns ``y [b,s,nh,hd]`` in x's dtype and the final state in
 float32; every sum and exponential is taken in float32.  The SSD algebra
 is exact for any split of the sequence into chunks, so the kernel's own
 chunk and the caller's ``chunk`` differ only in summation order.
+
+The kernel is two launches per call, counted as one: ``C·Bᵀ`` once per
+(batch, 32-row chunk) into a float32 workspace, then the scan, whose
+blocks each own (batch, head, 32 columns of head_dim) as
+:func:`scan_plan` says; all four products are 3xTF32 tensor-core
+products (``csrc/ssd_scan.cu``).
 """
 from __future__ import annotations
 
@@ -27,8 +33,23 @@ from repro_torch.kernels import _build
 
 NAME = "ssd_scan"
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the widest head and state the kernel is built for (csrc/ssd_scan.cu)
+# the widest head and state the kernel is built for, its own chunk and
+# the columns of head_dim a scan block owns (csrc/ssd_scan.cu: kHD, kDS,
+# kQ, kP)
 MAX_HEAD_DIM, MAX_D_STATE = 64, 128
+CHUNK = 32
+SLICE = 32
+
+
+def scan_plan(head_dim: int) -> int:
+    """The scan launch's slices, from static shapes only: block (slice,
+    head, batch) owns columns ``[slice*SLICE, (slice+1)*SLICE)`` of the
+    head's ``head_dim`` (the last may run past it, masked).  32 columns
+    a block at every shape: on the card (``tools/ssd_variants.py``,
+    PERF.md) 16-column blocks, 192 at B1 x 48 heads and so a full wave
+    on 132 SMs, are within 3% of 32 columns at batch 1 and ~20% slower
+    at B4 x 2048; 64-column blocks are ~45% slower at batch 1."""
+    return -(-head_dim // SLICE)
 
 
 def _ssd_chunked(x, dt, A, B, C, chunk: int, init_state):
@@ -133,17 +154,22 @@ def check_inputs(x, dt, A, B, C, init_state):
 def ssd_scan_cuda(x, dt, A, B, C, *,
                   init_state: Optional[torch.Tensor] = None):
     """Launch the CUDA kernel on the current stream.  The kernel walks
-    its own 64-row chunks (the algebra is exact for any split), so it
-    takes no ``chunk``.  Raises on anything the kernel does not take;
-    never falls back."""
+    its own 32-row chunks (the algebra is exact for any split), so it
+    takes no ``chunk``.  The plan comes from static shapes and the
+    workspace from ``torch.empty``; nothing is read back to the host, so
+    a call can be captured in a CUDA graph.  Raises on anything the
+    kernel does not take; never falls back."""
     b, s, nh, hd, ds, code = check_inputs(x, dt, A, B, C, init_state)
     y = torch.empty_like(x)
     final = torch.empty((b, nh, hd, ds), dtype=torch.float32,
                         device=x.device)
+    cb = torch.empty((b, -(-s // CHUNK), CHUNK, CHUNK), dtype=torch.float32,
+                     device=x.device)
     err = _build.load(NAME)(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
         C.data_ptr(), 0 if init_state is None else init_state.data_ptr(),
-        y.data_ptr(), final.data_ptr(), b, s, nh, hd, ds, code,
+        y.data_ptr(), final.data_ptr(), cb.data_ptr(), b, s, nh, hd, ds,
+        code, scan_plan(hd),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(NAME, err)
     _build.LAUNCHES[NAME] += 1

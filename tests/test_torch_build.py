@@ -26,6 +26,12 @@ F32_DKV = ("_ZN12_GLOBAL__N_116flash_dkv_kernelIfLi80EEEvPKT_S3_S3_S3_PKfS5_"
      "bfloat16S3_S3_PKiS5_PS1_PfS7_S7_iiiiiiif",
      "decode_split_kernel<80, 0>"),
     ("_Z8ssd_scanPKf", "ssd_scan"),
+    # the SSD scan's kernel functions, as chip_smoke.SSD_FAMILIES reads them
+    ("_ZN44_GLOBAL__N__70402df9_11_ssd_scan_cu_ssd_scan18ssd_scan_tc_kernel"
+     "IfLi128EEEvPKT_PKfS5_S3_S3_S5_S5_PS1_Pfiiiii",
+     "ssd_scan_tc_kernel<float, 128>"),
+    ("_ZN44_GLOBAL__N__70402df9_11_ssd_scan_cu_ssd_scan13ssd_cb_kernelI13__"
+     "nv_bfloat16EEvPKT_S4_Pfiii", "ssd_cb_kernel<__nv_bfloat16>"),
     ("not_mangled", "not_mangled"),
 ])
 def test_kernel_label(mangled, label):

@@ -1,32 +1,47 @@
 #!/usr/bin/env python3
-"""A/B device times of the bf16 decode kernels between two checkouts of
-this repository, on one NVIDIA GPU.
+"""A/B times of the port's kernels between two checkouts of this
+repository, on one NVIDIA GPU: the bf16 decode kernels (default) or the
+SSD chunk scan (``--kernels ssd``).
 
     git archive <commit> | tar -x -C build/other
-    python3 tools/decode_ab.py build/other [--out ab.json]
+    python3 tools/decode_ab.py build/other [--kernels ssd] [--out ab.json]
 
-Times the paged decode (``decode_attention_paged``, K1) and the dense
-decode (``decode_attention``, K6) of each checkout at the serve shape
-(Qwen2.5-7B heads: B4 H28 KV4 hd128, lengths 40/90/150/220 over a
-256-slot ring of 16-slot pages) and at B16 x 2048, through the port's
-own wrappers, each checkout building its kernels in its own ``build/``.
-Runs in turns: the other checkout, this one, this one, the other, each
-in a process of its own.  Every run gives two times per kernel and
-shape: ``eager_ms``, CUDA events around back-to-back calls (the host's
+``decode``: the paged decode (``decode_attention_paged``, K1) and the
+dense decode (``decode_attention``, K6) at the serve shape (Qwen2.5-7B
+heads: B4 H28 KV4 hd128, lengths 40/90/150/220 over a 256-slot ring of
+16-slot pages) and at B16 x 2048.  ``ssd``: ``ssd_scan`` (K4) at the
+three shapes ``chip_smoke.py`` times (Mamba2-780M widths, nh 48, hd 64,
+ds 128, float32 x, B and C as the model hands them: B1 S96; B1 S32 from
+a state; B4 S2048), and one full-depth Mamba2-780M prefill of a
+2048-token prompt (B1, 48 layers, bf16 random weights from seed 0, into
+a dense cache, the LM head on the last position).  Through each
+checkout's own wrappers, each building its kernels in its own
+``build/``.  Runs in turns: the other checkout, this one, this one, the
+other, each in a process of its own.  Every kernel time is given twice:
+``eager_ms``, CUDA events around back-to-back calls (the host's
 dispatch lands on the clock when it is slower than the card), and
 ``device_ms``, CUDA events around replays of a CUDA graph of captured
-calls.  Prints the card's name and power limit, one JSON line per run
-and, last, the means per checkout.  Imports nothing of JAX."""
+calls; the prefill as ``prefill_ms``, the host clock around a
+synchronized prefill, median of three after a warm-up.  Prints the
+card's name and power limit, one JSON line per run and, last, the
+means per checkout.  Imports nothing of JAX."""
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CALLS, REPLAYS = 50, 5
+# the SSD scan's shapes: (label, batch, seq, from a state, calls)
+SSD_SHAPES = (("B1 S96", 1, 96, False, 50),
+              ("B1 S32 +state", 1, 32, True, 50),
+              ("B4 S2048", 4, 2048, False, 5))
+PROMPT = 2048
 
 
 def _inputs(paged: bool, b: int, lengths, L: int):
@@ -49,21 +64,21 @@ def _inputs(paged: bool, b: int, lengths, L: int):
     return q, k, v, bt, ln
 
 
-def _eager_ms(fn) -> float:
+def eager_ms(fn, calls: int = CALLS) -> float:
     import torch
     for _ in range(3):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(CALLS):
+    for _ in range(calls):
         fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / CALLS
+    return start.elapsed_time(end) / calls
 
 
-def _device_ms(fn) -> float:
+def device_ms(fn, calls: int = CALLS) -> float:
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -73,7 +88,7 @@ def _device_ms(fn) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(CALLS):
+        for _ in range(calls):
             fn()
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
@@ -83,10 +98,10 @@ def _device_ms(fn) -> float:
         graph.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / (CALLS * REPLAYS)
+    return start.elapsed_time(end) / (calls * REPLAYS)
 
 
-def worker(tree: str) -> dict:
+def decode_worker(tree: str) -> dict:
     sys.path.insert(0, os.path.join(tree, "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as da
@@ -101,14 +116,74 @@ def worker(tree: str) -> dict:
                                      ("B16x2048", 16, [2048] * 16, 2048)):
             args = _inputs(paged, b, lengths, L)
             out[f"{name} {shape}"] = {
-                "eager_ms": _eager_ms(lambda: fn(*args)),
-                "device_ms": _device_ms(lambda: fn(*args))}
+                "eager_ms": eager_ms(lambda: fn(*args)),
+                "device_ms": device_ms(lambda: fn(*args))}
     return out
+
+
+def _ssd_inputs(b, s, with_state):
+    """``chip_smoke.py``'s SSD inputs in float32, from seed 11."""
+    import torch
+    sys.path.insert(0, HERE)
+    from chip_smoke import ssd_inputs
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    return ssd_inputs(b, s, torch.float32, with_state, gen)
+
+
+def _prefill_ms(runs=3):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.cache import init_cache
+    from repro_torch.models.model import forward_full, init_params
+    cfg = get_config("mamba2-780m")
+    params = init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (1, PROMPT), generator=gen,
+                           device="cuda")
+
+    def prefill():
+        cache = init_cache(cfg, 1, PROMPT, device="cuda")
+        with torch.inference_mode():
+            forward_full(params, cfg, tokens=tokens, cache=cache,
+                         last_only=True)
+        torch.cuda.synchronize()
+
+    prefill()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        prefill()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def ssd_worker(tree: str) -> dict:
+    sys.path.insert(0, os.path.join(tree, "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ssd_scan as ss
+    _build.build(["ssd_scan"])
+    out = {"tree": tree}
+    for label, b, s, with_state, calls in SSD_SHAPES:
+        x, dt, A, B, C, st = _ssd_inputs(b, s, with_state)
+
+        def fn():
+            return ss.ssd_scan_cuda(x, dt, A, B, C, init_state=st)
+        out[f"ssd_scan {label}"] = {"eager_ms": eager_ms(fn, calls),
+                                    "device_ms": device_ms(fn, calls)}
+    out[f"prefill B1 S{PROMPT}"] = {"prefill_ms": _prefill_ms()}
+    return out
+
+
+WORKERS = {"decode": decode_worker, "ssd": ssd_worker}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("other", help="the other checkout's root")
+    ap.add_argument("--kernels", choices=sorted(WORKERS), default="decode",
+                    help="which kernels to time")
     ap.add_argument("--worker", action="store_true",
                     help="time the checkout given as `other` and exit")
     ap.add_argument("--out", default=None, help="write the runs here")
@@ -118,7 +193,8 @@ def main(argv=None) -> int:
         print("decode_ab: no CUDA device is available", file=sys.stderr)
         return 2
     if args.worker:
-        print(json.dumps(worker(os.path.abspath(args.other))), flush=True)
+        out = WORKERS[args.kernels](os.path.abspath(args.other))
+        print(json.dumps(out), flush=True)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -128,7 +204,8 @@ def main(argv=None) -> int:
     runs = []
     for tree in (other, HERE, HERE, other):
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), tree, "--worker"],
+            [sys.executable, os.path.abspath(__file__), tree, "--worker",
+             "--kernels", args.kernels],
             capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)
@@ -139,7 +216,7 @@ def main(argv=None) -> int:
     for tree, label in ((other, "other"), (HERE, "this")):
         mine = [r for r in runs if r["tree"] == tree]
         means[label] = {key: {t: sum(r[key][t] for r in mine) / len(mine)
-                              for t in ("eager_ms", "device_ms")}
+                              for t in mine[0][key]}
                         for key in mine[0] if key != "tree"}
     if args.out:
         with open(args.out, "w") as f:
