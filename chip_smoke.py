@@ -13,19 +13,24 @@ Phases (any failure exits non-zero before the last line):
            tensor-core instructions (HGMMA, HMMA) per kernel function in
            the attention and SSD libraries' SASS (cuobjdump) and fails
            unless every bf16 instance of the forward, dq and dk/dv kernels
-           issues HGMMA and every bf16 split-KV decode instance (dense and
-           paged) HMMA, at hd 64, 80 and 128 (float32 stays on the scalar
-           blocks, and no scalar decode instance takes bf16 q and K/V),
-           and every SSD scan kernel function (C·Bᵀ and scan, f32 and
-           bf16) issues HMMA (3xTF32 mma.sync) with 0 bytes spilled
+           issues HGMMA and every bf16-q split-KV decode instance (dense
+           and paged, over bf16 and over int8 K/V) HMMA, at hd 64, 80 and
+           128 (float32 stays on the scalar blocks, and no scalar decode
+           instance takes bf16 q), the int8 split instances with a 0-byte
+           stack frame and 0 spills, and every SSD scan kernel function
+           (C·Bᵀ and scan, f32 and bf16) issues HMMA (3xTF32 mma.sync)
+           with 0 bytes spilled
   kernels  each kernel vs its plain version on the card, bf16 and f32,
            at Qwen2.5-7B shapes and at head_dim 80 (h2o-danube's 32 q /
-           8 kv heads); the bf16 paged and dense decode (split-KV) also
-           on 2048-slot rings split many ways (lengths 1 to 2048, a
-           wrapped ring under a window of 1024, group 12, hd 80, the
-           timed B16 x 2048), each bitwise equal across two launches and
-           its split plan printed; decode times also as device time from
-           CUDA-graph replays, beside SDPA's; the flash forward (K2) and
+           8 kv heads); the bf16-q paged and dense decode (split-KV, over
+           bf16 and int8 K/V) also on 2048-slot rings split many ways
+           (lengths 1 to 2048, a wrapped ring under a window of 1024,
+           group 12, hd 80, int8 also hd 64, the timed B16 x 2048), each
+           bitwise equal across two launches and its split plan printed;
+           int8 with NaN scales and random values in every pool row past
+           each length, bitwise equal to those rows zeroed; decode times
+           also as device time from CUDA-graph replays, beside SDPA's,
+           int8 beside bf16; the flash forward (K2) and
            the training forward
            (K5a) over S 16/100/128/2048, GQA groups 1/2/4/7/12, hd
            64/80/128, windows 0/32/64 and B up to 4 (the train shape),
@@ -60,7 +65,8 @@ Phases (any failure exits non-zero before the last line):
            scan's launches and share of it (launches x device time)
   int8     the same model: one 128-token prompt and 32 greedy decode
            steps through an int8 paged cache and an int8 dense cache,
-           each against the same run on a bf16 cache
+           each against the same run on a bf16 cache, with the
+           synchronized host time of a decode step on each cache
   train    Qwen3-1.7B at its published config (28 layers, bf16, random
            seeded weights): AdamW lr 3e-4, B=4, S=2048, per-layer remat;
            one warm-up step (attention-weight gradients checked finite
@@ -223,38 +229,47 @@ def tensor_core_counts():
 
 
 # the tensor-core function family behind each attention kernel's bf16
-# instances, by (library, family, instruction); every head_dim must have
-# instances and each must issue the instruction (wgmma for the flash
-# kernels, mma.sync for the split-KV decode)
+# instances, by (library, function name prefix up to the head_dim,
+# instruction); every head_dim must have instances and each must issue
+# the instruction (wgmma for the flash kernels, mma.sync for the split-KV
+# decode over bf16 and over int8 K/V)
+SPLIT_BF16, SPLIT_Q8 = ("decode_split_kernel<__nv_bfloat16, ",
+                        "decode_split_kernel<int8_t, ")
 TC_FAMILIES = {
-    "flash_attention": ("flash_attention", "flash_fwd_tc_kernel", "HGMMA"),
-    "flash_attention_fwd_lse": ("flash_attention_bwd", "flash_fwd_tc_kernel",
+    "flash_attention": ("flash_attention", "flash_fwd_tc_kernel<", "HGMMA"),
+    "flash_attention_fwd_lse": ("flash_attention_bwd", "flash_fwd_tc_kernel<",
                                 "HGMMA"),
-    "flash_attention_dq": ("flash_attention_bwd", "flash_dq_tc_kernel",
+    "flash_attention_dq": ("flash_attention_bwd", "flash_dq_tc_kernel<",
                            "HGMMA"),
-    "flash_attention_dkv": ("flash_attention_bwd", "flash_dkv_tc_kernel",
+    "flash_attention_dkv": ("flash_attention_bwd", "flash_dkv_tc_kernel<",
                             "HGMMA"),
-    "decode_attention": ("decode_attention", "decode_split_kernel", "HMMA"),
-    "decode_attention_paged": ("decode_attention_paged",
-                               "decode_split_kernel", "HMMA")}
+    "decode_attention": ("decode_attention", SPLIT_BF16, "HMMA"),
+    "decode_attention_q8": ("decode_attention", SPLIT_Q8, "HMMA"),
+    "decode_attention_paged": ("decode_attention_paged", SPLIT_BF16, "HMMA"),
+    "decode_attention_paged_q8": ("decode_attention_paged", SPLIT_Q8,
+                                  "HMMA")}
 # the scalar flash blocks, which only the float32 parity path may reach
 SCALAR_FAMILIES = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
-# the scalar decode block keeps float32 and int8-KV instances only
-SCALAR_DECODE_BF16 = "decode_kernel<__nv_bfloat16, __nv_bfloat16,"
+# the scalar decode block keeps float32-q instances only (over float32 or
+# int8 K/V): bf16 q, over bf16 or int8 K/V, is the split block's
+SCALAR_DECODE_BF16 = "decode_kernel<__nv_bfloat16,"
 
 
 def check_tensor_cores(tc):
     """Fail unless every bf16 instance of each TC_FAMILIES entry (hd 64,
     80 and 128) has its tensor-core instruction in its SASS, every scalar
-    flash instance is float32 and no scalar decode instance takes bf16 q
-    with bf16 K/V.  -> {kernel: {function: counts}} for the kernels
-    JSON."""
+    flash instance is float32, no scalar decode instance takes bf16 q
+    (over bf16 or int8 K/V) and ptxas reports a 0-byte stack frame and 0
+    spills for every int8 split-KV decode instance.  -> {kernel:
+    {function: counts}} for the kernels JSON."""
+    import re
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import HEAD_DIMS
     per_kernel = {}
     for name, (source, family, op) in TC_FAMILIES.items():
         fns = {fn: n for fn, n in tc[source].items()
-               if fn.startswith(family + "<")}
-        hds = {int(fn[len(family) + 1:].split(",")[0].rstrip(">"))
+               if fn.startswith(family)}
+        hds = {int(fn[len(family):].split(",")[0].rstrip(">"))
                for fn in fns}
         if hds != set(HEAD_DIMS) or not all(n[op] for n in fns.values()):
             raise AssertionError(f"{name}: {family} instances {fns} need "
@@ -267,7 +282,16 @@ def check_tensor_cores(tc):
                                      "not float32")
             if fn.startswith(SCALAR_DECODE_BF16):
                 raise AssertionError(f"{source}: scalar instance {fn} takes "
-                                     "bf16 q and bf16 K/V")
+                                     "bf16 q")
+    for source in ("decode_attention", "decode_attention_paged"):
+        lines = [ln for ln in _build.compiler_log(source)
+                 if ln.startswith(SPLIT_Q8)]
+        bad = [ln for ln in lines if not re.search(
+            r"\b0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+            r"loads", ln)]
+        if len(lines) != len(HEAD_DIMS) or bad:
+            raise AssertionError(f"{source}: int8 split-KV ptxas lines "
+                                 f"{lines} (stack or spills: {bad})")
     return per_kernel
 
 
@@ -473,20 +497,61 @@ def sdpa_decode_fn(args):
                                                       attn_mask=mask)
 
 
-# the bf16 decode kernels on the split-KV tensor-core block
-SPLIT_KERNELS = ("decode_attention_paged", "decode_attention")
+# the decode kernels whose bf16-q instances run the split-KV tensor-core
+# block (bf16 K/V: K1, K6; int8 K/V: K3, K7)
+SPLIT_KERNELS = ("decode_attention_paged", "decode_attention",
+                 "decode_attention_paged_q8", "decode_attention_q8")
 
 
 def decode_split_plan(args, sms):
-    """The (splits, split_len) the bf16 wrapper of a paged (q, k, v,
-    block_tables, lengths) or dense (q, k, v, n_valid) decode call
-    picks on a card of ``sms`` SMs."""
-    from repro_torch.kernels.decode_attention_paged import split_plan
+    """The (splits, split_len) the bf16-q wrapper of a paged (q, k, v,
+    block_tables, lengths; int8: q, k, k_scale, v, v_scale,
+    block_tables, lengths) or dense (q, k, v, n_valid; int8: q, k,
+    k_scale, v, v_scale, n_valid) decode call picks on a card of ``sms``
+    SMs."""
+    from repro_torch.kernels import decode_attention_paged as dap
     q, k = args[0], args[1]
-    if len(args) == 5:
-        return split_plan(q.shape[0], k.shape[2], args[3].shape[1]
-                          * k.shape[1], page=k.shape[1], sms=sms)
-    return split_plan(q.shape[0], k.shape[2], k.shape[1], sms=sms)
+    per_sm = dap.BLOCKS_PER_SM_Q8 if len(args) in (6, 7) \
+        else dap.BLOCKS_PER_SM
+    if len(args) in (5, 7):
+        return dap.split_plan(q.shape[0], k.shape[2], args[-2].shape[1]
+                              * k.shape[1], page=k.shape[1], sms=sms,
+                              blocks_per_sm=per_sm)
+    return dap.split_plan(q.shape[0], k.shape[2], k.shape[1], sms=sms,
+                          blocks_per_sm=per_sm)
+
+
+def nan_past_length(args, paged):
+    """int8 decode inputs (q, k, k_scale, v, v_scale, tables..., lengths)
+    twice: every pool row past each sequence's length (and, paged, every
+    page no table holds) with NaN scale bits and random int8 values, and
+    the same rows zeroed.  A kernel that reads no such row gives the same
+    bits on both."""
+    import torch
+    q, k, ks, v, vs = args[:5]
+    ln = args[-1].long()
+    if paged:
+        bt = args[5].long()
+        P, L = k.shape[1], bt.shape[1] * k.shape[1]
+        dead = torch.ones(k.shape[:2], dtype=torch.bool, device=k.device)
+        s = torch.arange(L, device=k.device)
+        live = s[None, :] < ln[:, None]
+        pages = bt[:, s // P]
+        dead[pages[live], (s % P).expand_as(live)[live]] = False
+    else:
+        L = k.shape[1]
+        dead = (torch.arange(L, device=k.device)[None, :]
+                >= ln[:, None])
+    out = []
+    for fill in ("nan", "zero"):
+        kk, vv, kss, vss = k.clone(), v.clone(), ks.clone(), vs.clone()
+        for t in (kk, vv):
+            t[dead] = torch.randint(-127, 128, t[dead].shape, dtype=t.dtype,
+                                    device=t.device) if fill == "nan" else 0
+        for t in (kss, vss):
+            t[dead] = float("nan") if fill == "nan" else 0.
+        out.append((q, kk, kss, vv, vss) + tuple(args[5:]))
+    return out
 
 
 def flash_inputs(b, s, dtype, window, gen):
@@ -991,6 +1056,27 @@ def phase_kernels(results):
             ("B3 hd80 H32 KV8 window64",
              lambda dt: decode_q8_inputs(3, [1, 70, 300], 16, dt, 64, gen,
                                          h=32, kv=8, hd=80)),
+            ("B4 serve len40/90/150/220",
+             lambda dt: decode_q8_inputs(4, [40, 90, 150, 220], 16, dt, 0,
+                                         gen, n_blocks=65)),
+            # the 2048-slot ring of K1's list, split the same ways
+            ("B4 L2048 len1/100/1000/2048",
+             lambda dt: decode_q8_inputs(4, [1, 100, 1000, 2048], 128, dt,
+                                         0, gen)),
+            ("B4 L2048 wrapped window1024",
+             lambda dt: decode_q8_inputs(4, [2049, 2100, 3000, 4113], 128,
+                                         dt, 1024, gen)),
+            ("B4 L2048 g12 H24 KV2",
+             lambda dt: decode_q8_inputs(4, [1, 100, 1000, 2048], 128, dt,
+                                         0, gen, h=24, kv=2)),
+            ("B4 L2048 hd80 H32 KV8",
+             lambda dt: decode_q8_inputs(4, [1, 100, 1000, 2048], 128, dt,
+                                         0, gen, h=32, kv=8, hd=80)),
+            ("B4 L2048 hd64 H16 KV2 window512",
+             lambda dt: decode_q8_inputs(4, [1, 100, 1000, 3000], 128, dt,
+                                         512, gen, h=16, kv=2, hd=64)),
+            ("B16 len2048 (timed)",
+             lambda dt: decode_q8_inputs(16, [2048] * 16, 128, dt, 0, gen)),
         ]),
         "decode_attention": (da.decode_attention_plain,
                              da.decode_attention_cuda, [
@@ -1022,6 +1108,25 @@ def phase_kernels(results):
             ("hd80 H32 KV8 L256 n_valid 1/90/256",
              lambda dt: dense_q8_inputs(3, [1, 90, 256], 256, dt, gen, h=32,
                                         kv=8, hd=80)),
+            ("B4 serve L256 n_valid 40/90/150/220",
+             lambda dt: dense_q8_inputs(4, [40, 90, 150, 220], 256, dt,
+                                        gen)),
+            ("L256 n_valid 1/300 (> L keeps all L)",
+             lambda dt: dense_q8_inputs(2, [1, 300], 256, dt, gen)),
+            ("L2048 n_valid 1/33/1000/2048",
+             lambda dt: dense_q8_inputs(4, [1, 33, 1000, 2048], 2048, dt,
+                                        gen)),
+            ("L2048 g12 H24 KV2 n_valid 1/33/1000/2048",
+             lambda dt: dense_q8_inputs(4, [1, 33, 1000, 2048], 2048, dt,
+                                        gen, h=24, kv=2)),
+            ("L2048 hd80 H32 KV8 n_valid 1/33/1000/2048",
+             lambda dt: dense_q8_inputs(4, [1, 33, 1000, 2048], 2048, dt,
+                                        gen, h=32, kv=8, hd=80)),
+            ("L2048 hd64 H16 KV2 n_valid 1/33/1000/2048",
+             lambda dt: dense_q8_inputs(4, [1, 33, 1000, 2048], 2048, dt,
+                                        gen, h=16, kv=2, hd=64)),
+            ("B16 L2048 n_valid 2048 (timed)",
+             lambda dt: dense_q8_inputs(16, [2048] * 16, 2048, dt, gen)),
         ]),
     }
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1060,6 +1165,25 @@ def phase_kernels(results):
                          "max_err": worst, "tol": TOL}
         if split:
             results[name].update(bitwise_repeatable=True, cases=len(cases))
+    # int8: NaN scale bits (and random values) in every pool row past each
+    # length change no bit of the output
+    for name, kernel, make, paged in (
+            ("decode_attention_paged_q8", dap.decode_attention_paged_q8_cuda,
+             lambda dt: decode_q8_inputs(4, [1, 100, 1000, 2047], 128, dt, 0,
+                                         gen), True),
+            ("decode_attention_q8", dq8.decode_attention_q8_cuda,
+             lambda dt: dense_q8_inputs(4, [1, 33, 1000, 2047], 2048, dt,
+                                        gen), False)):
+        for dn, dt in dtypes.items():
+            args, kw = make(dt)
+            nan, zero = (kernel(*a, **kw) for a in nan_past_length(args, paged))
+            torch.cuda.synchronize()
+            ok = bool(torch.isfinite(nan).all()) and torch.equal(nan, zero)
+            log(f"  {name:<24} NaN scales past each length {dn:<8} finite and "
+                f"bitwise equal to zeroed rows: {ok}")
+            if not ok:
+                raise AssertionError(f"{name} {dn} reads rows past the length")
+        results[name]["nan_past_length_ok"] = True
     fwd_worst = check_flash_forward(results)
 
     def timed(plain, kernel, args, kw, cost, lib, iters, dn, graph=False):
@@ -1149,6 +1273,21 @@ def phase_kernels(results):
         log(f"  decode_attention {shape}: device {r['device_ms']:.4f} ms "
             f"against SDPA's {r['library_device_ms']:.4f} ms ({verdict}; "
             "CUDA-graph replays, same run)")
+    # the int8 kernels beside the bf16 ones at the same shapes (device
+    # time from CUDA-graph replays, same run): the share of the byte bound
+    # at B16 x 2048, and the ratio to the bf16 kernel at both shapes
+    for q8, bf16 in (("decode_attention_paged_q8", "decode_attention_paged"),
+                     ("decode_attention_q8", "decode_attention")):
+        for shape, key in (("serve", None), ("B16x2048", "long")):
+            r8, rb = results[q8], results[bf16]
+            if key:
+                r8, rb = r8[key], rb[key]
+            r8["bound_share"] = r8["bound_ms"] / r8["device_ms"]
+            r8["vs_bf16"] = r8["device_ms"] / rb["device_ms"]
+            log(f"  {q8} {shape}: device {r8['device_ms']:.4f} ms, "
+                f"{100 * r8['bound_share']:.1f}% of its byte bound "
+                f"{r8['bound_ms']:.4f} ms, {r8['vs_bf16']:.2f}x {bf16}'s "
+                f"{rb['device_ms']:.4f} ms")
     for name, r in results.items():
         log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
             f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
@@ -1432,11 +1571,13 @@ def long_prefill(cfg, params, results, s=2048, runs=3):
 
 
 def _decode_run(cfg, params, prompt, steps, quantized, layout,
-                tokens=None):
+                tokens=None, step_ms=None):
     """Prefill ``prompt`` then ``steps`` decode steps through a paged or
     a dense cache (int8 when ``quantized``).  Decode inputs are
-    ``tokens`` when given (teacher forcing), else greedy.  Returns
-    (logits [steps+1, V] float32 on the CPU, greedy tokens)."""
+    ``tokens`` when given (teacher forcing), else greedy.  With a list
+    ``step_ms``, appends the host time of each decode step, synchronized
+    before and after.  Returns (logits [steps+1, V] float32 on the CPU,
+    greedy tokens)."""
     import torch
     from repro_torch.models.cache import init_cache, init_paged_cache
     from repro_torch.models.model import (forward_decode,
@@ -1462,15 +1603,24 @@ def _decode_run(cfg, params, prompt, steps, quantized, layout,
     for i in range(steps):
         greedy.append(int(torch.argmax(rows[-1])))
         nxt = greedy[-1] if tokens is None else tokens[i]
-        lg, cache = step(params, cfg, tokens=torch.tensor(
-            [[nxt]], dtype=torch.int32, device=dev), cache=cache)
+        tok = torch.tensor([[nxt]], dtype=torch.int32, device=dev)
+        if step_ms is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        lg, cache = step(params, cfg, tokens=tok, cache=cache)
+        if step_ms is not None:
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
         rows.append(lg[0, -1].float())
     return torch.stack(rows).cpu(), greedy
 
 
 def phase_int8(ctx):
     """int8 KV at full width: K3 (paged) and K7 (dense) on the path, each
-    held against the same run on a bf16 cache fed the same tokens."""
+    held against the same run on a bf16 cache fed the same tokens; the
+    synchronized host time of a decode step (median of the 32) on each
+    cache."""
+    import statistics
     import torch
     cfg, params = full_model(ctx)
     gen = torch.Generator(device="cuda")
@@ -1479,12 +1629,16 @@ def phase_int8(ctx):
                            device="cuda", dtype=torch.int32)
     steps = 32
     layouts = ("paged", "dense")
+    step_ms = {(layout, kv): [] for layout in layouts
+               for kv in ("bf16", "int8")}
     with torch.no_grad():
-        ref = {layout: _decode_run(cfg, params, prompt, steps, False, layout)
+        ref = {layout: _decode_run(cfg, params, prompt, steps, False, layout,
+                                   step_ms=step_ms[layout, "bf16"])
                for layout in layouts}
         q8 = count_path(ctx["results"], "int8", lambda: {
             layout: _decode_run(cfg, params, prompt, steps, True, layout,
-                                tokens=ref[layout][1])
+                                tokens=ref[layout][1],
+                                step_ms=step_ms[layout, "int8"])
             for layout in layouts})
     report = {}
     for layout in ("paged", "dense"):
@@ -1494,11 +1648,18 @@ def phase_int8(ctx):
         agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
         diff = float((got - want).abs().max())
         scale = float(want.abs().max())
+        ms = {kv: statistics.median(step_ms[layout, kv])
+              for kv in ("bf16", "int8")}
         report[layout] = {"max_abs_logit_diff": diff,
-                          "max_abs_logit": scale, "top1_agreement": agree}
+                          "max_abs_logit": scale, "top1_agreement": agree,
+                          "step_ms_bf16": ms["bf16"],
+                          "step_ms_int8": ms["int8"]}
         log(f"  int8 {layout:<5} {cfg.name} 128-token prompt + {steps} "
             f"decode steps vs bf16 cache: max |logit diff|={diff:.4f} "
             f"(max |logit| {scale:.3f}), top-1 agreement={agree:.3f}")
+        log(f"  int8 {layout:<5} {cfg.name} decode step, host time "
+            f"synchronized (median of {steps}): int8 cache "
+            f"{ms['int8']:.3f} ms, bf16 cache {ms['bf16']:.3f} ms")
     ctx["int8"] = report
 
 
@@ -1881,7 +2042,7 @@ def main(argv=None) -> int:
             r["sass_tensor_core_instructions"] = tc_rows[name]
             source, family, _ = TC_FAMILIES[name]
             r["ptxas"] = [ln for ln in _build.compiler_log(source)
-                          if ln.startswith(family + "<")]
+                          if ln.startswith(family)]
         if name == "ssd_scan":
             r["sass_tensor_core_instructions"] = ssd_sass
             r["ptxas"] = ssd_ptxas

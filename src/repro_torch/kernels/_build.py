@@ -49,11 +49,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # argtypes: every pointer and the stream as c_void_p, so ctypes never cuts
 # a 64-bit address to a 32-bit int
 SIGNATURES = {
-    # bf16: + the split partials (acc, m, l) and num_splits, split_len
+    # bf16 q: + the split partials (acc, m, l) and num_splits, split_len
     "decode_attention_paged": [_P] * 9 + [_I] * 11 + [_P],
-    "decode_attention_paged_q8": [_P] * 8 + [_I] * 9 + [_P],
+    "decode_attention_paged_q8": [_P] * 11 + [_I] * 11 + [_P],
     "decode_attention": [_P] * 8 + [_I] * 8 + [_P],
-    "decode_attention_q8": [_P] * 7 + [_I] * 6 + [_P],
+    "decode_attention_q8": [_P] * 10 + [_I] * 8 + [_P],
     "flash_attention": [_P] * 4 + [_I] * 8 + [_P],
     "flash_attention_fwd_lse": [_P] * 5 + [_I] * 8 + [_P],
     "flash_attention_dq": [_P] * 7 + [_I] * 8 + [_P],

@@ -1,7 +1,7 @@
 // Flash-decode block shared by the paged (decode_attention_paged.cu) and
-// dense (decode_attention.cu) decode kernels, for float32 q/KV and for
-// int8 KV (float32 or bfloat16 q).  bf16 q with bf16 KV never reaches it:
-// those instances are the split-KV tensor-core block of
+// dense (decode_attention.cu) decode kernels, for float32 q: float32 K/V
+// and int8 K/V (the parity path).  bf16 q never reaches it: over bf16 or
+// int8 K/V those instances are the split-KV tensor-core block of
 // decode_attention_split_sm90.cuh.  One new query token per sequence
 // attends to its cache: an online softmax over the sequence's live ring
 // slots under the token-id mask
@@ -38,11 +38,11 @@
 //   * 16-byte loads, all issued before any is used;
 //   * max, denominator and accumulator stay in float32 (registers and
 //     shared memory).
-// What it leaves on the table, and the split block answers for bf16: one
-// block per (sequence, kv head) fills only batch*kv_heads of the 132 SMs,
-// no load is in flight while a tile is computed, and the arithmetic is
-// scalar f32.  The int8 kernels (K3, K7) can take the split block next:
-// they share its addressing.
+// What it leaves on the table, and the split block answers for bf16 q:
+// one block per (sequence, kv head) fills only batch*kv_heads of the 132
+// SMs, no load is in flight while a tile is computed, and the arithmetic
+// is scalar f32.  float32 q keeps it because the split block rounds q
+// and P to bf16, which the parity path's 1e-5 bounds do not allow.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -60,14 +60,8 @@ constexpr int kTile = 32;       // ring slots per step: one per lane
 constexpr int kMaxGroup = 16;   // q heads per kv head
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ float to_float(int8_t x) { return (float)x; }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // one 16-byte load holds kVec<T> consecutive elements
 template <typename T>
@@ -87,7 +81,7 @@ __device__ __forceinline__ void unpack(const uint4& r, float scale,
   }
 }
 
-// T: q/out element (float or bf16); KT: K/V element (T, or int8_t with
+// T: q/out element (float); KT: K/V element (T, or int8_t with
 // bf16 scales).  kPaged: rows through block_tables, else page = b.
 template <typename T, typename KT, int HD, bool kPaged>
 __global__ void __launch_bounds__(kThreads)
@@ -286,9 +280,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// dtype (of q and out): 0 = float32, 1 = bfloat16 (int8 K/V only: bf16
-// K/V is the split block's); head_dim 64, 80 or 128.  K/V share the
-// dtype, or are int8 when kQuant.  Returns cudaGetLastError() after the
+// dtype (of q and out): 0 = float32 only (bf16 q is the split block's);
+// head_dim 64, 80 or 128.  K/V are float32, or int8 when kQuant.  Returns cudaGetLastError() after the
 // launch (cudaErrorInvalidValue for shapes the kernel does not take).
 template <bool kPaged, bool kQuant>
 int dispatch(const void* q, const void* k, const void* v,
@@ -311,11 +304,6 @@ int dispatch(const void* q, const void* k, const void* v,
   if (dtype == 0 && head_dim == 64) REPRO_LAUNCH(float, 64);
   if (dtype == 0 && head_dim == 80) REPRO_LAUNCH(float, 80);
   if (dtype == 0 && head_dim == 128) REPRO_LAUNCH(float, 128);
-  if constexpr (kQuant) {
-    if (dtype == 1 && head_dim == 64) REPRO_LAUNCH(__nv_bfloat16, 64);
-    if (dtype == 1 && head_dim == 80) REPRO_LAUNCH(__nv_bfloat16, 80);
-    if (dtype == 1 && head_dim == 128) REPRO_LAUNCH(__nv_bfloat16, 128);
-  }
 #undef REPRO_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

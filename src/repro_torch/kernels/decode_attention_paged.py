@@ -4,14 +4,15 @@ float or int8 pages.
 Counterpart of the Pallas TPU kernels
 ``repro/kernels/decode_attention_paged.py::decode_attention_paged`` and
 ``::decode_attention_paged_q8``.  The hand-written CUDA kernels are in
-``csrc/decode_attention_paged.cu``: bf16 q and pages run the split-KV
-tensor-core block ``csrc/decode_attention_split_sm90.cuh``, float32 and
-int8 pages the scalar block ``csrc/decode_attention_common.cuh`` (both
-shared with the dense decode kernels; each header says what bounds it
-on the card and how the design answers).  This module holds their
-launch wrappers, the split plan of the bf16 kernels
-(:func:`split_plan`), and the plain PyTorch versions of the same
-functions, which the CPU path runs and the card is held to.
+``csrc/decode_attention_paged.cu``: bf16 q, over bf16 or int8 pages,
+runs the split-KV tensor-core block
+``csrc/decode_attention_split_sm90.cuh``, float32 q the scalar block
+``csrc/decode_attention_common.cuh`` (both shared with the dense decode
+kernels; each header says what bounds it on the card and how the design
+answers).  This module holds their launch wrappers, the split plan of
+the bf16-q kernels (:func:`split_plan`), and the plain PyTorch versions
+of the same functions, which the CPU path runs and the card is held
+to.
 
 Masking is by token id on the slot's logical ring of length
 ``pages_per_seq * page_size``: ring slot ``s`` holds token
@@ -19,9 +20,11 @@ Masking is by token id on the slot's logical ring of length
 never ``fmod``), masked when negative (not yet written) or, with a
 window, evicted.
 
-int8 pages are dequantized in float32 (int8 x bf16 scale is exact
-there): in registers in the CUDA kernel, as in the TPU kernel's VMEM,
-and before the float math in the plain version.
+int8 pages are dequantized exactly: the plain version multiplies int8 x
+bf16 scale in float32 before the float math, as the TPU kernel does in
+VMEM; the bf16-q CUDA kernel feeds the int8 values (exact in bf16) to
+the tensor cores and applies the K scale to the scores and the V scale
+to the probabilities, the float32-q kernel dequantizes in registers.
 """
 from __future__ import annotations
 
@@ -41,27 +44,29 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the split kernel's key tile (csrc/decode_attention_split_sm90.cuh:
 # kKeys, 16 ring slots for each of 4 warps), the engine's page size, the
 # SMs of an H100, and the blocks of the split kernel one SM holds at once
-# (two at hd 128: 104 KB of K/V ring each)
+# over bf16 K/V (two at hd 128: 104 KB of K/V ring each) and over int8
+# K/V (three: kMinBlocks, 67 KB each at hd 128)
 KEY_TILE = 64
 PAGE = 16
 SMS = 132
 BLOCKS_PER_SM = 2
+BLOCKS_PER_SM_Q8 = 3
 
 
 def split_plan(batch: int, kv_heads: int, L: int, *, page: int = PAGE,
-               sms: int = SMS):
-    """(splits, split_len) of the bf16 split-KV decode over a ring of
+               sms: int = SMS, blocks_per_sm: int = BLOCKS_PER_SM):
+    """(splits, split_len) of the bf16-q split-KV decode over a ring of
     ``L`` slots: split ``i`` walks slots ``[i*split_len, min((i+1)*
     split_len, L))``.  From static shapes only, never from the lengths
     (reading them would sync the host).  ``split_len`` is a multiple of
     ``page`` and of :data:`KEY_TILE`; the splits cover ``[0, L)`` once,
     none empty.  As many splits as fit one wave of
-    ``BLOCKS_PER_SM * sms`` blocks over the ``batch * kv_heads``
+    ``blocks_per_sm * sms`` blocks over the ``batch * kv_heads``
     (sequence, kv head) pairs, at most one per granule; one split (a
     single launch) when the pairs fill the wave alone."""
     granule = KEY_TILE * page // math.gcd(KEY_TILE, page)
     n_gran = -(-L // granule)
-    want = max(1, BLOCKS_PER_SM * sms // max(1, batch * kv_heads))
+    want = max(1, blocks_per_sm * sms // max(1, batch * kv_heads))
     split_len = -(-n_gran // min(n_gran, want)) * granule
     return -(-L // split_len), split_len
 
@@ -71,18 +76,21 @@ def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def split_args(q, kv_heads: int, L: int, page: int = PAGE):
+def split_args(q, kv_heads: int, L: int, page: int = PAGE,
+               blocks_per_sm: int = BLOCKS_PER_SM):
     """The launch's split arguments for q: (num_splits, split_len,
-    acc_ptr, m_ptr, l_ptr, workspace).  bf16 gets :func:`split_plan` on
+    acc_ptr, m_ptr, l_ptr, workspace).  bf16 q (over bf16 K/V, or int8
+    with ``blocks_per_sm=BLOCKS_PER_SM_Q8``) gets :func:`split_plan` on
     q's card and, with more than one split, one f32 workspace for the
-    partials acc [B, H, splits, hd], m and l [B, H, splits]
-    (torch.empty; the caller keeps it until the launch is queued).
-    float32 runs the scalar block: one split, no partials."""
+    partials acc [B, H, splits, hd], m and l [B, H, splits] (torch.empty;
+    the caller keeps it until the launch is queued).  float32 runs the
+    scalar block: one split, no partials."""
     if q.dtype != torch.bfloat16:
         return 1, L, 0, 0, 0, None
     b, h, hd = q.shape
     splits, split_len = split_plan(b, kv_heads, L, page=page,
-                                   sms=_sms(q.device))
+                                   sms=_sms(q.device),
+                                   blocks_per_sm=blocks_per_sm)
     if splits == 1:
         return 1, split_len, 0, 0, 0, None
     n = b * h * splits
@@ -219,19 +227,25 @@ def decode_attention_paged_q8_cuda(q, k_pages, k_scale, v_pages, v_scale,
                                    block_tables, lengths, *,
                                    window: int = 0):
     """Launch the int8 CUDA kernel on the current stream (q/out float32
-    or bf16).  Raises on anything the kernel does not take; never falls
-    back."""
+    or bf16): bf16 q the split-KV kernel, split as
+    :func:`decode_attention_paged_cuda` splits it, float32 q the scalar
+    one.  Reads nothing back to the host.  Raises on anything the kernel
+    does not take; never falls back."""
     b, h, kv, hd = check_decode(NAME_Q8, q, k_pages, v_pages, k_scale,
                                 v_scale, block_tables=block_tables,
                                 lengths=lengths)
     _check_tables(NAME_Q8, b, block_tables, lengths)
     n_blocks, P = k_pages.shape[:2]
+    pages_per_seq = block_tables.shape[1]
     out = torch.empty_like(q)
+    splits, split_len, acc, m, l, _ws = split_args(
+        q, kv, pages_per_seq * P, P, blocks_per_sm=BLOCKS_PER_SM_Q8)
     err = _build.load(NAME_Q8)(
         q.data_ptr(), k_pages.data_ptr(), k_scale.data_ptr(),
         v_pages.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), b, h, kv, hd, n_blocks, P,
-        block_tables.shape[1], int(window), DTYPE_CODES[q.dtype],
+        lengths.data_ptr(), out.data_ptr(), acc, m, l, b, h, kv, hd,
+        n_blocks, P, pages_per_seq, int(window), splits, split_len,
+        DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(NAME_Q8, err)
     _build.LAUNCHES[NAME_Q8] += 1

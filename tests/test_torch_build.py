@@ -25,6 +25,13 @@ F32_DKV = ("_ZN12_GLOBAL__N_116flash_dkv_kernelIfLi80EEEvPKT_S3_S3_S3_PKfS5_"
     ("_ZN18repro_decode_split19decode_split_kernelILi80ELb0EEEvPK13__nv_"
      "bfloat16S3_S3_PKiS5_PS1_PfS7_S7_iiiiiiif",
      "decode_split_kernel<80, 0>"),
+    # the split block's element type of K/V: bf16, and int8 (K3, K7)
+    ("_ZN18repro_decode_split19decode_split_kernelI13__nv_bfloat16Li80ELb0E"
+     "EEvPKS1_PKT_S6_S3_S3_PKiS8_PS1_PfSA_SA_iiiiiiif",
+     "decode_split_kernel<__nv_bfloat16, 80, 0>"),
+    ("_ZN18repro_decode_split19decode_split_kernelIaLi128ELb1EEEvPK13__nv_"
+     "bfloat16PKT_S6_S3_S3_PKiS8_PS1_PfSA_SA_iiiiiiif",
+     "decode_split_kernel<int8_t, 128, 1>"),
     ("_Z8ssd_scanPKf", "ssd_scan"),
     # the SSD scan's kernel functions, as chip_smoke.SSD_FAMILIES reads them
     ("_ZN44_GLOBAL__N__70402df9_11_ssd_scan_cu_ssd_scan18ssd_scan_tc_kernel"

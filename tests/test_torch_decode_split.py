@@ -30,6 +30,7 @@ from repro.kernels.decode_attention_paged import \
     decode_attention_paged as pallas_paged
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import decode_attention_paged as dap
+from repro_torch.kernels import decode_attention_q8 as dq8
 
 torch.set_num_threads(2)
 TOL = dict(atol=3e-5, rtol=3e-5)
@@ -38,6 +39,25 @@ TOL = dict(atol=3e-5, rtol=3e-5)
 def _ranges(splits, split_len, L):
     return [(i * split_len, min((i + 1) * split_len, L))
             for i in range(splits)]
+
+
+def _check_plan(batch, kv, L, page, sms, per_sm):
+    splits, split_len = dap.split_plan(batch, kv, L, page=page, sms=sms,
+                                       blocks_per_sm=per_sm)
+    assert splits >= 1
+    assert split_len % page == 0 and split_len % dap.KEY_TILE == 0
+    covered = np.zeros(L, np.int64)
+    for lo, hi in _ranges(splits, split_len, L):
+        assert lo < hi                      # no split is empty
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    # one wave of pass-1 blocks; a second split whenever the pairs leave
+    # half the wave idle and the ring holds more than one granule
+    pairs, wave = batch * kv, per_sm * sms
+    assert splits * pairs <= max(pairs, wave)
+    granule = np.lcm(page, dap.KEY_TILE)
+    if 2 * pairs <= wave and L > granule:
+        assert splits > 1
 
 
 @pytest.mark.parametrize("batch,kv,L,page,sms", [
@@ -52,26 +72,26 @@ def _ranges(splits, split_len, L):
     (2, 4, 4096, 32, 114),      # 32-slot pages, another SM count
 ])
 def test_split_plan_covers_the_ring(batch, kv, L, page, sms):
-    splits, split_len = dap.split_plan(batch, kv, L, page=page, sms=sms)
-    assert splits >= 1
-    assert split_len % page == 0 and split_len % dap.KEY_TILE == 0
-    covered = np.zeros(L, np.int64)
-    for lo, hi in _ranges(splits, split_len, L):
-        assert lo < hi                      # no split is empty
-        covered[lo:hi] += 1
-    assert (covered == 1).all()
-    # one wave of pass-1 blocks; a second split whenever the pairs leave
-    # half the wave idle and the ring holds more than one granule
-    pairs, wave = batch * kv, dap.BLOCKS_PER_SM * sms
-    assert splits * pairs <= max(pairs, wave)
-    granule = np.lcm(page, dap.KEY_TILE)
-    if 2 * pairs <= wave and L > granule:
-        assert splits > 1
+    _check_plan(batch, kv, L, page, sms, dap.BLOCKS_PER_SM)
+
+
+@pytest.mark.parametrize("batch,kv,L,page,sms", [
+    (4, 4, 256, 16, 132),       # the serve shape
+    (16, 4, 2048, 16, 132),     # B16 x 2048: six splits
+    (4, 2, 2048, 16, 132),      # group 12
+    (99, 4, 2048, 16, 132),     # the pairs fill the card: one split
+    (3, 8, 80, 16, 132),        # a short last split
+])
+def test_split_plan_covers_the_ring_int8(batch, kv, L, page, sms):
+    """The int8 kernels' plan: three blocks an SM (kMinBlocks)."""
+    _check_plan(batch, kv, L, page, sms, dap.BLOCKS_PER_SM_Q8)
 
 
 @pytest.mark.parametrize("fn", [dap.decode_attention_paged_cuda,
                                 da.decode_attention_cuda, dap.split_args,
-                                dap.split_plan])
+                                dap.split_plan,
+                                dap.decode_attention_paged_q8_cuda,
+                                dq8.decode_attention_q8_cuda])
 def test_cuda_wrappers_read_nothing_to_the_host(fn):
     """The plan comes from static shapes: no wrapper reads lengths (a
     device tensor) back, so a decode round stays free of syncs and can be

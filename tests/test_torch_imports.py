@@ -1,11 +1,14 @@
 """The port stands alone: importing ``repro_torch`` and every submodule
 loads neither ``jax`` nor the JAX package ``repro``, and no source file
-of the port, nor ``chip_smoke.py``, imports them."""
+of the port, nor ``chip_smoke.py`` or a tool under ``tools/``, imports
+them."""
 import os
 import pathlib
 import re
 import subprocess
 import sys
+
+import pytest
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 
@@ -67,4 +70,14 @@ def test_sources_import_no_jax_and_no_reference():
 
 def test_chip_smoke_imports_no_jax_and_no_reference():
     text = (SRC.parent / "chip_smoke.py").read_text()
+    assert not [m.group(0) for m in _IMPORT.finditer(text)]
+
+
+@pytest.mark.parametrize("tool", sorted(
+    p.name for p in (SRC.parent / "tools").glob("*.py")))
+def test_tools_import_no_jax_and_no_reference(tool):
+    """The scripts in tools/ (A/B and build variants) run on the GPU beside the
+    port: like ``chip_smoke.py`` they import neither JAX nor the
+    reference."""
+    text = (SRC.parent / "tools" / tool).read_text()
     assert not [m.group(0) for m in _IMPORT.finditer(text)]

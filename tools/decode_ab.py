@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """A/B times of the port's kernels between two checkouts of this
-repository, on one NVIDIA GPU: the bf16 decode kernels (default) or the
-SSD chunk scan (``--kernels ssd``).
+repository, on one NVIDIA GPU: the bf16 decode kernels (default), the
+int8 decode kernels (``--kernels q8``) or the SSD chunk scan
+(``--kernels ssd``).
 
     git archive <commit> | tar -x -C build/other
-    python3 tools/decode_ab.py build/other [--kernels ssd] [--out ab.json]
+    python3 tools/decode_ab.py build/other [--kernels q8|ssd] [--out ab.json]
 
 ``decode``: the paged decode (``decode_attention_paged``, K1) and the
 dense decode (``decode_attention``, K6) at the serve shape (Qwen2.5-7B
 heads: B4 H28 KV4 hd128, lengths 40/90/150/220 over a 256-slot ring of
-16-slot pages) and at B16 x 2048.  ``ssd``: ``ssd_scan`` (K4) at the
+16-slot pages) and at B16 x 2048.  ``q8``: the same two shapes through
+the int8 paged (``decode_attention_paged_q8``, K3) and dense
+(``decode_attention_q8``, K7) decode, bf16 q, K/V quantized by each
+checkout's own ``quantize_kv``.  ``ssd``: ``ssd_scan`` (K4) at the
 three shapes ``chip_smoke.py`` times (Mamba2-780M widths, nh 48, hd 64,
 ds 128, float32 x, B and C as the model hands them: B1 S96; B1 S32 from
 a state; B4 S2048), and one full-depth Mamba2-780M prefill of a
@@ -101,24 +105,47 @@ def device_ms(fn, calls: int = CALLS) -> float:
     return start.elapsed_time(end) / (calls * REPLAYS)
 
 
-def decode_worker(tree: str) -> dict:
+def _q8(args):
+    """bf16 decode inputs -> q, then K and V each as int8 and bf16
+    scales, then the index tensors."""
+    from repro_torch.models.cache import quantize_kv
+    q, k, v = args[:3]
+    return (q, *quantize_kv(k), *quantize_kv(v)) + tuple(args[3:])
+
+
+def _decode_worker(tree: str, q8: bool) -> dict:
     sys.path.insert(0, os.path.join(tree, "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import decode_attention_paged as dap
+    from repro_torch.kernels import decode_attention_q8 as dq8
     _build.build(["decode_attention", "decode_attention_paged"])
     out = {"tree": tree}
-    for name, paged, fn in (("decode_attention_paged", True,
-                             dap.decode_attention_paged_cuda),
-                            ("decode_attention", False,
-                             da.decode_attention_cuda)):
+    kernels = ((("decode_attention_paged_q8", True,
+                 dap.decode_attention_paged_q8_cuda),
+                ("decode_attention_q8", False, dq8.decode_attention_q8_cuda))
+               if q8 else
+               (("decode_attention_paged", True,
+                 dap.decode_attention_paged_cuda),
+                ("decode_attention", False, da.decode_attention_cuda)))
+    for name, paged, fn in kernels:
         for shape, b, lengths, L in (("serve", 4, [40, 90, 150, 220], 256),
                                      ("B16x2048", 16, [2048] * 16, 2048)):
             args = _inputs(paged, b, lengths, L)
+            if q8:
+                args = _q8(args)
             out[f"{name} {shape}"] = {
                 "eager_ms": eager_ms(lambda: fn(*args)),
                 "device_ms": device_ms(lambda: fn(*args))}
     return out
+
+
+def decode_worker(tree: str) -> dict:
+    return _decode_worker(tree, q8=False)
+
+
+def q8_worker(tree: str) -> dict:
+    return _decode_worker(tree, q8=True)
 
 
 def _ssd_inputs(b, s, with_state):
@@ -176,7 +203,7 @@ def ssd_worker(tree: str) -> dict:
     return out
 
 
-WORKERS = {"decode": decode_worker, "ssd": ssd_worker}
+WORKERS = {"decode": decode_worker, "q8": q8_worker, "ssd": ssd_worker}
 
 
 def main(argv=None) -> int:
