@@ -57,6 +57,23 @@ Phases (any failure exits non-zero before the last line):
            three policy runs on the dense engine (paged=False); then
            h2o-danube-1.8b (24 layers, 32 q / 8 kv heads of head_dim 80,
            bf16, random seeded weights) under fcfs on the paged engine
+  stream   the streaming serving loop (ServeLoop: decode rounds
+           dispatched one ahead of the host on the loop's own CUDA
+           stream, pow-2 dispatch widths) replaying STREAM_N requests
+           of the in-repo ShareGPT and python-code length histograms
+           (data/traces.py, lengths uncut) as Poisson arrivals at
+           STREAM_RATE req/s, on a pool of STREAM_SLOTS sequences of
+           STREAM_SEQ tokens: Qwen2.5-7B on the paged engine under fcfs
+           (overlapped and synchronous in turns A B B A), slo-reanneal
+           and slo-preempt + chunked:32, a 2-engine EngineFleet sharing
+           the params under least-loaded (one stream per loop, checked);
+           then fcfs on the dense engine; then Mamba2-780M under fcfs.
+           Every request completes with its whole output budget; per
+           run: wall-clock TTFT and TBT p50/p90/p99, tok/s on the wall
+           clock, attainment, G, dispatch widths, the share of
+           overlapped ticks, and per loop the shares of the wall the
+           host spent scheduling, prefilling, dispatching and waiting
+           on readback
   ssm      Mamba2-780M at its published config (48 layers, d 1536, bf16,
            random seeded weights) on the dense engine: latency-model fit,
            then fcfs, slo-reanneal, slo-preempt + chunked:32; the SSD scan
@@ -75,13 +92,15 @@ Phases (any failure exits non-zero before the last line):
            paged and the dense engine on cuda (kernels) and on cpu
            (plain versions) must emit identical tokens; int8 paged and
            dense decode logits, cuda vs cpu, are reported and bounded;
+           the ServeLoop's tokens on both layouts, cuda vs cpu and
+           overlapped vs synchronous, must be identical;
            one train step of Qwen3-1.7B at 2 layers in float32, cuda vs
            cpu: loss, every gradient and the updated params, bounded;
            Mamba2-780M at 2 layers in float32: the dense engine's tokens
            under fcfs and slo-preempt + chunked:32, and the logits of one
            prefill and 4 decode steps, bounded
-Each path (paged serve, dense serve, h2o-danube serve, Mamba2 serve,
-int8, train) is driven with the
+Each path (paged serve, dense serve, h2o-danube serve, the three
+streaming paths, Mamba2 serve, int8, train) is driven with the
 launch counts set to 0 just before it and read just after; every kernel
 must launch on the path that runs it.  The line before the last is the
 kernels JSON; the last line is
@@ -99,8 +118,8 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "serve", "ssm", "int8", "train",
-          "parity")
+PHASES = ("device", "build", "kernels", "serve", "stream", "ssm", "int8",
+          "train", "parity")
 PEAK_BYTES = 3.35e12                       # H100 SXM HBM3, bytes/s
 PEAK_FLOPS = {"bfloat16": 989e12,          # dense tensor-core bf16
               "float32": 67e12}            # float32 outside tensor cores
@@ -178,6 +197,9 @@ TRAIN_KERNELS = ("flash_attention_fwd_lse", "flash_attention_dq",
 PATHS = {"serve_paged": ("decode_attention_paged", "flash_attention"),
          "serve_dense": ("flash_attention", "decode_attention"),
          "serve_hd80": ("decode_attention_paged", "flash_attention"),
+         "serve_stream": ("decode_attention_paged", "flash_attention"),
+         "serve_stream_dense": ("flash_attention", "decode_attention"),
+         "serve_stream_ssm": ("ssd_scan",),
          "serve_ssm": ("ssd_scan",),
          "int8": ("decode_attention_paged_q8", "decode_attention_q8"),
          "train": TRAIN_KERNELS}
@@ -1418,6 +1440,7 @@ def phase_serve(ctx):
         return model, runs
 
     model, runs = count_path(results, "serve_paged", paged_path)
+    ctx["model"] = model
     _log_runs(card, runs)
     if runs[-1]["prefix_hit_rate"] <= 0:
         raise AssertionError("multi-turn run had no prefix hit")
@@ -1441,6 +1464,238 @@ def phase_serve(ctx):
                    "stall", True)])
     _log_runs(card, runs)
     del dparams
+
+
+STREAM_RATE = 4.0       # Poisson arrivals of the stream phase, req/s
+STREAM_N = 64           # requests a stream run serves: ~16 s of arrivals
+# the pool a deployment of Qwen2.5-7B on one 80 GB card holds: 64
+# sequences of up to 4096 tokens, 15.0 GB of bf16 K/V (paged or dense)
+STREAM_SLOTS, STREAM_SEQ = 64, 4096
+TURNS = (True, False, False, True)   # paged fcfs: overlap on / off
+
+
+def _stream_run(make, pairs, what):
+    """Serve ``pairs`` through the ServeLoop or EngineFleet that
+    ``make()`` builds, on the wall clock; every request must complete
+    with its whole output budget of in-vocabulary tokens.  Returns the
+    run's row: wall-clock TTFT and TBT percentiles, tok/s, attainment,
+    G, dispatch widths, the share of overlapped ticks, and, per loop,
+    where its host time went as shares of the wall: the policy
+    (``_schedule``), the prefill steps (timed, so synchronized), queuing
+    the decode rounds (``_dispatch_round``) and waiting on a round's
+    readback (near 0 while the host, not the card, is the bottleneck).
+    The engines are freed before and after the run: each holds a
+    deployment-sized pool."""
+    import collections
+    import gc
+    import numpy as np
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    loop = make()
+    loops = getattr(loop, "loops", [loop])
+    # one loop, one stream: fleet members never share one
+    if len({id(lp._stream) for lp in loops}) != len(loops) or any(
+            lp._stream == torch.cuda.default_stream() for lp in loops):
+        raise AssertionError(f"{what}: loops share a stream")
+    spent = [collections.Counter() for _ in loops]   # one per loop thread
+
+    def timed(fn, key, box):
+        def run(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                box[key] += time.perf_counter() - t0
+        return run
+
+    for lp, box in zip(loops, spent):
+        def consume(ticket, real=lp._consume, box=box):
+            t0 = time.perf_counter()
+            if ticket.done is not None:
+                ticket.done.synchronize()
+            box["readback_wait"] += time.perf_counter() - t0
+            real(ticket)
+        lp._consume = consume
+        lp._schedule = timed(lp._schedule, "schedule", box)
+        lp._run_prefill_plan = timed(lp._run_prefill_plan, "prefill", box)
+        lp._dispatch_round = timed(lp._dispatch_round, "dispatch", box)
+    loop.start(warm_lengths=[len(p) for _, p in pairs])
+    streams = loop.submit_trace(pairs)
+    t0 = time.perf_counter()
+    loop.serve()
+    wall = time.perf_counter() - t0
+    vocab = loops[0].eng.cfg.vocab_size
+    for (r, _), st in zip(pairs, streams):
+        want = r.planning_output_len()
+        if st.error is not None or len(st.tokens) != want or not all(
+                0 <= t < vocab for t in st.tokens):
+            raise AssertionError(f"{what}: request {st.req_id} gave "
+                                 f"{len(st.tokens)} of {want} tokens "
+                                 f"(error {st.error})")
+    m = loop.metrics
+    s = m.summary()
+    done = [tl for tl in m.timelines.values() if not tl.rejected]
+    ttft = [tl.ttft for tl in done]
+    tbt = [g for tl in done for g in tl.tbt]
+    pct = lambda xs, q: float(np.percentile(xs, q)) * 1e3   # noqa: E731
+    widths = collections.Counter(g.dispatch_width for g in m.gauges
+                                 if g.dispatch_width)
+    rounds = [sum(1 for g in lp.metrics.gauges if g.dispatch_width)
+              for lp in loops]
+    row = {"run": what, "n": len(pairs), "completed": s["n"],
+           "G": s["G"], "attainment": s["attainment"],
+           "ttft_p50_ms": pct(ttft, 50), "ttft_p90_ms": pct(ttft, 90),
+           "ttft_p99_ms": pct(ttft, 99),
+           "tbt_p50_ms": pct(tbt, 50), "tbt_p90_ms": pct(tbt, 90),
+           "tbt_p99_ms": pct(tbt, 99), "n_tbt": len(tbt),
+           "tok_per_s_wall": s["tokens_per_s"], "tokens": s["tokens"],
+           "serve_s": wall, "ticks": len(m.gauges),
+           "dispatch_widths": dict(sorted(widths.items())),
+           "overlap_frac": s["overlap_frac"],
+           "host_share": [{k: box[k] / wall for k in (
+               "schedule", "prefill", "dispatch", "readback_wait")}
+               for box in spent],
+           "dispatch_ms_per_round": [box["dispatch"] * 1e3 / max(1, n)
+                                     for box, n in zip(spent, rounds)],
+           "preemptions": s["preemptions"],
+           "tokens_by_request": [st.tokens for st in streams]}
+    del loop, loops, streams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def _log_stream(card, smi, runs):
+    for r in runs:
+        log(f"  stream {card} | {smi} | {r['run']}: completed="
+            f"{r['completed']}/{r['n']} G={r['G']:.4f} attainment="
+            f"{r['attainment']:.2f} TTFT p50/p90/p99="
+            f"{r['ttft_p50_ms']:.2f}/{r['ttft_p90_ms']:.2f}/"
+            f"{r['ttft_p99_ms']:.2f} ms TBT p50/p90/p99="
+            f"{r['tbt_p50_ms']:.2f}/{r['tbt_p90_ms']:.2f}/"
+            f"{r['tbt_p99_ms']:.2f} ms (of {r['n_tbt']} gaps) tok/s(wall)="
+            f"{r['tok_per_s_wall']:.1f} tokens={r['tokens']} serve_s="
+            f"{r['serve_s']:.3f} widths={r['dispatch_widths']} overlapped="
+            f"{r['overlap_frac']:.3f} preemptions={r['preemptions']}")
+        for i, (share, ms) in enumerate(zip(r["host_share"],
+                                            r["dispatch_ms_per_round"])):
+            log(f"    loop {i}: dispatch ms/round={ms:.2f} host share of "
+                "the wall: " + " ".join(f"{k}={v:.3f}"
+                                        for k, v in share.items()))
+    log("  stream runs: " + json.dumps(
+        [{k: v for k, v in r.items() if k != "tokens_by_request"}
+         for r in runs]))
+
+
+def phase_stream(ctx):
+    """The streaming serving loop on the wall clock: each request's
+    tokens stream out as the loop delivers them, decode rounds are
+    dispatched one ahead of the host's readback."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.latency_model import PAPER_TABLE2
+    from repro_torch.data.traces import sample_trace_workload
+    from repro_torch.engine.engine import Engine
+    from repro_torch.launch.serve import fit_latency_model
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import EngineFleet, ServeLoop
+    card, smi, results = ctx["card"], ctx["smi"], ctx["results"]
+    cfg, params = full_model(ctx)
+    model = ctx.get("model")
+    if model is None:
+        model = fit_latency_model(cfg, params, 4, np.random.default_rng(0),
+                                  device="cuda")
+        log(f"  latency model fit on {card}: {model}")
+
+    def engine(p=params, c=cfg, paged=True):
+        return Engine(c, p, max_slots=STREAM_SLOTS, max_seq_len=STREAM_SEQ,
+                      paged=paged, device="cuda")
+
+    def workload(c=cfg):
+        # ShareGPT (Vicuna) and python-code lengths from the in-repo
+        # histograms, uncut, paced as a Poisson process
+        return sample_trace_workload(STREAM_N, c.vocab_size,
+                                     rate=STREAM_RATE, seed=1)
+
+    def loop(policy, disc="stall", overlap=True, paged=True):
+        return lambda: ServeLoop(engine(paged=paged), policy, model=model,
+                                 discipline=disc, overlap=overlap)
+
+    pairs = workload()
+    lens = np.array([[r.input_len, r.planning_output_len()]
+                     for r, _ in pairs])
+    log(f"  stream workload: {STREAM_N} requests at {STREAM_RATE} req/s "
+        f"over {pairs[-1][0].arrival_time:.2f} s, prompt tokens median "
+        f"{np.median(lens[:, 0]):.0f} max {lens[:, 0].max()}, output "
+        f"tokens median {np.median(lens[:, 1]):.0f} max "
+        f"{lens[:, 1].max()} sum {lens[:, 1].sum()}; pool {STREAM_SLOTS} "
+        f"slots x {STREAM_SEQ} tokens")
+
+    def paged_path():
+        # overlapped and synchronous in turns (A B B A): one card, one
+        # call, so the two compare without the spread between calls
+        runs = [_stream_run(loop("fcfs", overlap=overlap), workload(),
+                            "paged fcfs stall" + ("" if overlap else
+                                                  " --no-overlap"))
+                for overlap in TURNS]
+        runs += [_stream_run(loop("slo-reanneal"), workload(),
+                             "paged slo-reanneal stall"),
+                 _stream_run(loop("slo-preempt", "chunked:32"), workload(),
+                             "paged slo-preempt chunked:32"),
+                 _stream_run(lambda: EngineFleet(
+                     [engine(), engine()], "fcfs", mapper="least-loaded",
+                     model=model, discipline="stall"),
+                     workload(), "fleet x2 least-loaded fcfs stall")]
+        return runs
+
+    runs = count_path(results, "serve_stream", paged_path)
+    same = all(r["tokens_by_request"] == runs[0]["tokens_by_request"]
+               for r in runs[1:len(TURNS)])
+    log(f"  stream {cfg.name} bf16: overlapped vs synchronous tokens "
+        f"identical={same} (reported only: bf16 rounds of other widths "
+        "may flip an argmax; the parity phase holds it at f32)")
+    for key in ("tbt_p50_ms", "tbt_p90_ms", "tbt_p99_ms", "ttft_p50_ms",
+                "ttft_p90_ms", "tok_per_s_wall", "serve_s"):
+        by = {o: [r[key] for r, t in zip(runs, TURNS) if t == o]
+              for o in (True, False)}
+        log(f"  stream {card} | {smi} | paged fcfs {key}, overlapped / "
+            f"synchronous, mean of {len(by[True])} turns each: "
+            f"{np.mean(by[True]):.2f} / {np.mean(by[False]):.2f} "
+            f"(each: {[round(v, 2) for v in by[True]]} / "
+            f"{[round(v, 2) for v in by[False]]})")
+    runs += count_path(results, "serve_stream_dense", lambda: [
+        _stream_run(loop("fcfs", paged=False), workload(),
+                    "dense fcfs stall")])
+    for r in runs:
+        r["model"] = cfg.name
+    # Mamba2-780M at its published config: fcfs plans nothing with the
+    # latency model, so the paper's table serves
+    scfg = get_config("mamba2-780m")
+    sparams = init_params(scfg, seed=0, device="cuda")
+    ssm_runs = count_path(results, "serve_stream_ssm", lambda: [
+        _stream_run(lambda: ServeLoop(engine(sparams, scfg), "fcfs",
+                                      model=PAPER_TABLE2), workload(scfg),
+                    "mamba2 dense fcfs stall")])
+    ssm_runs[0]["model"] = scfg.name
+    del sparams
+    torch.cuda.empty_cache()
+    runs += ssm_runs
+    _log_stream(card, smi, runs)
+    pow2 = {1 << k for k in range(STREAM_SLOTS.bit_length())}
+    for r in runs:
+        sync = "no-overlap" in r["run"]
+        widths = set(r["dispatch_widths"])
+        # pow-2 buckets on the paged engine (the fleet's too), the whole
+        # pool on the dense one; overlap in every overlapped run only
+        ok_widths = widths == {STREAM_SLOTS} if "dense" in r["run"] \
+            else widths <= pow2
+        if not widths or not ok_widths or \
+                (r["overlap_frac"] > 0) == sync:
+            raise AssertionError(f"stream run {r['run']}: widths {widths}, "
+                                 f"overlapped share {r['overlap_frac']}")
+    ctx["stream"] = runs
 
 
 def phase_ssm(ctx):
@@ -1800,6 +2055,7 @@ def phase_parity(ctx):
         if not same:
             raise AssertionError(f"{layout} engine: cuda vs cpu tokens "
                                  f"differ: {tokens}")
+    _stream_parity(cfg, p_gpu, p_cpu)
     # logits of one prefill (padded to a 128 bucket) and one decode step
     logits = {}
     r, prompt = sample_serve_workload(1, cfg.vocab_size, seed=3)[0]
@@ -1842,6 +2098,39 @@ def phase_parity(ctx):
                                  f"differ by {diff} > {limit}")
     _train_parity()
     _ssm_parity()
+
+
+def _stream_parity(cfg, p_gpu, p_cpu):
+    """The ServeLoop's greedy tokens per request at 2 layers in float32,
+    TF32 off, on both layouts: identical on cuda (kernels, the readback
+    behind a pinned copy and an event) and cpu (plain versions), and
+    between the overlapped and the synchronous loop."""
+    from repro_torch.data.synthetic import sample_serve_workload
+    from repro_torch.engine.engine import Engine
+    from repro_torch.serving import ServeLoop
+    for paged in (True, False):
+        got = {}
+        for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+            for overlap in (True, False):
+                pairs = sample_serve_workload(4, cfg.vocab_size, seed=2)
+                for r, _ in pairs:
+                    r.output_len = 8
+                lp = ServeLoop(Engine(cfg, params, max_slots=4,
+                                      max_seq_len=256, paged=paged,
+                                      device=dev), "fcfs", overlap=overlap)
+                lp.start(warm_lengths=[len(p) for _, p in pairs])
+                streams = lp.submit_trace(pairs)
+                lp.serve()
+                got[dev, overlap] = [st.tokens for st in streams]
+        ref = got["cuda", True]
+        same = all(v == ref for v in got.values()) and \
+            all(len(t) == 8 for t in ref)
+        layout = "paged" if paged else "dense"
+        log(f"  parity {cfg.name} x2 layers f32 {layout} ServeLoop: tokens "
+            f"identical cuda/cpu x overlap/sync={same} "
+            f"({sum(len(t) for t in ref)} tokens each)")
+        if not same:
+            raise AssertionError(f"{layout} ServeLoop tokens differ: {got}")
 
 
 def _ssm_parity():
@@ -2002,7 +2291,7 @@ def main(argv=None) -> int:
     log(smi)
     log(f"device: {card} x{torch.cuda.device_count()} torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
-    ctx = {"card": card, "results": {}}
+    ctx = {"card": card, "smi": smi, "results": {}}
     t = time.perf_counter()
     built = _build.build()
     log(f"build: {built['built']} sources in {built['seconds']:.1f} s "
@@ -2020,6 +2309,7 @@ def main(argv=None) -> int:
     ssd_sass, ssd_ptxas = check_ssd_build(tc)
     for phase, fn in (("kernels", lambda: phase_kernels(ctx["results"])),
                       ("serve", lambda: phase_serve(ctx)),
+                      ("stream", lambda: phase_stream(ctx)),
                       ("ssm", lambda: phase_ssm(ctx)),
                       ("int8", lambda: phase_int8(ctx)),
                       ("train", lambda: phase_train(ctx)),

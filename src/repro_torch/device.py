@@ -33,7 +33,9 @@ def torch_dtype(name: "Union[str, torch.dtype]") -> torch.dtype:
 
 
 def synchronize(device: torch.device):
-    """Wait for queued device work, so a host clock read after it
-    measures the work and not its launch."""
+    """Wait for the work queued on the device's current stream, so a host
+    clock read after it measures the work and not its launch.  Only that
+    stream: a serving loop's prefill must not wait for the rounds another
+    loop queued on a stream of its own."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()

@@ -37,8 +37,13 @@ warm-up (first use of a prompt bucket, a chunk length, the decode round;
 also the first build and load of each CUDA kernel) runs off the clock on
 a scratch cache, so it never changes engine state.
 
-Not ported yet (ROADMAP M6, M11): ``dispatch_decode`` and the streaming
-loop's dispatch/sync split, and the device mesh.
+The streaming loop (:mod:`repro_torch.serving.loop`) drives decode
+through :meth:`Engine.dispatch_decode` instead: one decode round fused
+with on-device sampling over a pow-2 slot prefix, queued on the current
+stream without any read back to the host, so the loop can schedule the
+next tick while the card computes.
+
+Not ported yet (ROADMAP M11): the device mesh.
 """
 from __future__ import annotations
 
@@ -169,7 +174,9 @@ class Engine:
             logits, new = forward_decode(self.params, self.cfg,
                                          tokens=tokens, cache=cache,
                                          active=active)
-        cache["pos"] = torch.where(active, new["pos"], cache["pos"])
+        # in place: ``cache`` may be a slot-prefix view of the pool
+        # (:meth:`_slice_slots`), which a rebinding would not reach
+        cache["pos"].copy_(torch.where(active, new["pos"], cache["pos"]))
         return logits[:, -1], cache
 
     def _prefill_one(self, tokens, length):
@@ -214,6 +221,71 @@ class Engine:
         self._scratch["pos"].zero_()
         synchronize(self.device)
         self._warm.add(key)
+
+    # --------------------------------------- dispatch/sync split (serving)
+    def _slice_slots(self, cache, width: int):
+        """View of the first ``width`` slots of the paged pool: pos and
+        block tables sliced, the shared page tensors passed through (the
+        port's paged pool holds no per-slot SSM state).  The slices are
+        views and the decode step writes in place, so the round lands in
+        the full pool with no merge."""
+        return {"pos": cache["pos"][:width],
+                "block_tables": cache["block_tables"][:width],
+                "layers": cache["layers"]}
+
+    def _decode_dispatch(self, cache, tokens, active, generator):
+        """Fused decode round + on-device sampling over the first
+        ``tokens.shape[0]`` slots (a pow-2 batch bucket on the paged
+        layout, the whole pool on the dense one).  The sampled ids stay
+        on the device: the next round can be dispatched from them
+        without a host round trip."""
+        width = tokens.shape[0]
+        if width < self.max_slots:
+            cache = self._slice_slots(cache, width)
+        logits, _ = self._decode_step(cache, tokens, active)
+        return sample(logits, generator, self.temperature)
+
+    @torch.no_grad()
+    def dispatch_decode(self, feed, active_np, width: Optional[int] = None,
+                        lookahead: int = 0):
+        """Queue one fused decode+sample round without waiting for it.
+
+        ``feed``: ``[max_slots, 1]`` int32 tensor on the engine's device
+        holding each running slot's last sampled token (typically
+        written from the previous round's output, so chained rounds
+        never touch the host).  ``active_np``: host bool mask.
+        ``width``: batch width, a pow-2 bucket covering every active
+        slot (paged only; the dense layout always runs the full pool).
+        ``lookahead``: extra write positions the copy-on-write guard
+        must cover while earlier rounds are still in flight.
+
+        Returns the ``[width]`` int32 tensor of sampled ids at once; it
+        is computed on the device's stream in order, and nothing here
+        reads back to the host or synchronizes, so the caller does its
+        host work (scheduling, delivery, block accounting) meanwhile.
+        Off the clock, each width warms once on the scratch pool."""
+        B = self.max_slots if (width is None or not self.paged) \
+            else int(width)
+        if not (0 < B <= self.max_slots):
+            raise ValueError(f"width {width} outside (0, {self.max_slots}]")
+        if any(active_np[B:]):
+            raise ValueError(f"active slot >= dispatch width {B}")
+        if self.paged:
+            self._cow_guard(lookahead)
+        if ("dispatch", B) not in self._warm:
+            # a generator of its own: warming draws nothing from the
+            # engine's sampling stream
+            self._warm_up(("dispatch", B), self._decode_dispatch, feed[:B],
+                          torch.zeros(B, dtype=torch.bool,
+                                      device=self.device),
+                          torch.Generator(device=self.device))
+        active = torch.from_numpy(np.array(active_np[:B], dtype=bool))
+        if self.device.type == "cuda":
+            # a blocking host-to-device copy would wait for the rounds
+            # in flight: copy from pinned memory, queued on the stream
+            active = active.pin_memory().to(self.device, non_blocking=True)
+        return self._decode_dispatch(self.cache, feed[:B], active,
+                                     self.generator)
 
     def finish_slot(self, rt: RuntimeRequest):
         """Release a finished request's slot: publish its KV-valid span
@@ -341,10 +413,14 @@ class Engine:
         self.cow_copies += 1
         return new
 
-    def _cow_guard(self):
+    def _cow_guard(self, lookahead: int = 0):
         """Before a decode round writes, split any shared page a slot's
         write frontier sits in (structurally unreachable through normal
-        admission — kept so a shared page can never be scribbled on)."""
+        admission — kept so a shared page can never be scribbled on).
+        ``lookahead`` widens the guard to the next write positions while
+        earlier decode rounds are still in flight (the serving loop's
+        overlapped dispatch): host token counts lag the device by that
+        many rounds."""
         for slot, rt in enumerate(self.slot_req):
             if rt is None:
                 continue
@@ -352,9 +428,10 @@ class Engine:
             pos = rt.prefill_pos if rt.phase is Phase.PREFILLING \
                 else rt.input_len + len(rt.generated) - 1
             blocks = self._slot_blocks[slot]
-            bi = (pos % self.slot_len) // self.block_size
-            if bi < len(blocks) and self.pool.refcount(blocks[bi]) > 1:
-                self._cow_block(slot, bi)
+            for d in range(lookahead + 1):
+                bi = ((pos + d) % self.slot_len) // self.block_size
+                if bi < len(blocks) and self.pool.refcount(blocks[bi]) > 1:
+                    self._cow_block(slot, bi)
 
     def free_slots(self) -> List[int]:
         return [i for i, f in enumerate(self.slot_free) if f]
@@ -473,6 +550,15 @@ class Engine:
         tok = int(sample(row, self.generator, self.temperature)[0])
         self._push_token(rt, tok)
         return True
+
+    def prefill(self, rt: RuntimeRequest, slot: int):
+        """Whole-prompt prefill: stage the slot and compute the full
+        remaining context in one step (any cached prefix aliased).  The
+        plan-driven executors instead call :meth:`begin_prefill` once
+        and :meth:`prefill_step` per tick, as the discipline's
+        :class:`StepPlan` dictates."""
+        self.begin_prefill(rt, slot)
+        self.prefill_step(rt)
 
     def preempt(self, rt: RuntimeRequest):
         """Evict a running request: free its slot and its blocks.  The

@@ -1,18 +1,26 @@
-"""Serving launcher: the engine's batch admission loop on a synthetic
-mixed workload, on the GPU by default.
+"""Serving launcher: live streaming loop (default) or the engine's
+batch admission loop on a synthetic mixed workload, on the GPU by
+default.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-7b \
-      --n 8 --policy slo-reanneal --mode batch
+      --n 8 --policy slo-reanneal --arrival-rate 4
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
-      --reduced --n 4 --policy fcfs --device cpu
+      --reduced --n 4 --policy fcfs --device cpu --instances 2
 
 ``--policy`` accepts any ``repro_torch.core.policies.make`` registry
 name (``fcfs``, ``priority``, ``slo-reanneal``, ``slo-preempt``, …) plus
 ``slo``/``planned`` for the offline Algorithm 1/2 planner (plan batches,
-score them under both disciplines, dispatch).  The streaming serving
-loop (``--mode stream``) and engine fleets (``--instances > 1``) are not
-ported yet (ROADMAP M6) and raise.
+score them under both disciplines, dispatch).  Streaming mode drives the
+:class:`repro_torch.serving.ServeLoop` — arrival-timed ingestion,
+per-token wall-clock streams, overlapped host scheduling + device
+execution — and reports *measured* TTFT/TBT/attainment; ``--mode
+batch`` runs the engine's batch admission loop on its internal clock
+instead (the planner policies always use batch mode: their plan needs
+the whole workload up front).  ``--instances N`` scales streaming mode
+data-parallel: an :class:`repro_torch.serving.EngineFleet` of N engines
+sharing one params dict, routed by ``--mapper`` (least-loaded default;
+``annealed`` needs the batched annealer and raises until ROADMAP M7).
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from repro_torch.device import resolve_device
 from repro_torch.engine.engine import Engine
 from repro_torch.engine.request import RuntimeRequest
 from repro_torch.models.model import init_params
+from repro_torch.serving import EngineFleet, ServeLoop
 
 
 def _to_rts(pairs):
@@ -82,22 +91,31 @@ def main(argv=None):
                     help="any policies.make registry name (fcfs, priority, "
                          "slo-reanneal, slo-preempt, ...) or slo/planned "
                          "for the offline planner")
-    ap.add_argument("--mode", choices=("stream", "batch"), default="batch",
-                    help="batch: engine admission loop; stream: not "
-                         "ported yet")
+    ap.add_argument("--mode", choices=("stream", "batch"), default="stream",
+                    help="stream: live ServeLoop with measured wall-clock "
+                         "metrics; batch: engine admission loop")
     ap.add_argument("--discipline", default="stall",
-                    help="stall | chunked | chunked:<size>")
+                    help="stall | chunked | chunked:<size> — both modes; "
+                         "streaming runs chunks in the tick plan "
+                         "alongside decode dispatches")
     ap.add_argument("--arrival-rate", type=float, default=0.0,
                     help="requests/s; 0 = all submitted at t=0")
     ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--no-overlap", action="store_true",
+                    help="stream mode: synchronous reference loop")
     ap.add_argument("--instances", type=int, default=1,
-                    help="engine fleet size; only 1 is ported")
+                    help="stream mode: data-parallel EngineFleet size "
+                         "(N engines behind one front door, ticked in "
+                         "turn by one host thread: on one card a fleet "
+                         "serves no faster than one loop while the "
+                         "decode round is host-bound)")
+    ap.add_argument("--mapper", default="least-loaded",
+                    help="fleet routing: round-robin | least-loaded | "
+                         "slo-affinity | memory-greedy (annealed raises: "
+                         "ROADMAP M7)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain PyTorch kernels)")
     args = ap.parse_args(argv)
-    if args.mode == "stream" or args.instances > 1:
-        raise SystemExit("--mode stream and --instances > 1 are not yet "
-                         "ported (ROADMAP M6)")
     device = resolve_device(args.device)
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
@@ -115,9 +133,41 @@ def main(argv=None):
 
     eng = Engine(cfg, params, max_slots=args.max_batch, max_seq_len=256,
                  device=device)
+    planner = args.policy in ("slo", "planned")
+    if args.mode == "stream" and not planner:
+        pol = make(args.policy, model=model, max_batch=args.max_batch)
+        # a policy that carries its own discipline (dynamic-chunk) wins
+        # over the flag, as in batch mode below
+        disc = getattr(pol, "discipline", None) or discipline
+        if args.instances > 1:
+            engines = [eng] + [Engine(cfg, params, max_slots=args.max_batch,
+                                      max_seq_len=256, device=device)
+                               for _ in range(args.instances - 1)]
+            loop = EngineFleet(engines, args.policy, mapper=args.mapper,
+                               model=model, discipline=disc,
+                               overlap=not args.no_overlap)
+        else:
+            loop = ServeLoop(eng, pol, model=model, discipline=disc,
+                             overlap=not args.no_overlap)
+        loop.start(warm_lengths=[len(p) for _, p in pairs])
+        loop.submit_trace(pairs)
+        loop.serve()
+        s = loop.metrics.summary()
+        where = f"fleet{args.instances}:{args.mapper}" \
+            if args.instances > 1 else "stream"
+        print(f"policy={args.policy} mode={where} arch={cfg.name} "
+              f"device={device} discipline={disc!r} "
+              f"overlap={not args.no_overlap} G={s['G']:.4f} "
+              f"attainment={s['attainment']:.2f} "
+              f"completed={s['n']}/{len(pairs)} "
+              f"ttft_mean={s['ttft_mean'] * 1e3:.1f}ms "
+              f"tbt_p90={s['tbt_p90'] * 1e3:.2f}ms "
+              f"tok/s={s['tokens_per_s']:.0f} "
+              f"preemptions={s['preemptions']}")
+        return
     rts = _to_rts(pairs)
     respect = args.arrival_rate > 0
-    if args.policy in ("slo", "planned"):
+    if planner:
         out = run_planner(eng, rts, model, discipline, args.max_batch,
                           respect)
     else:

@@ -3,8 +3,13 @@ exactly as the reference ``repro.core`` does: the same annealed
 permutation and G, the same policy decisions on the same view, the same
 discrete-event results, and the same block-pool / prefix-index state
 under one operation sequence.  The batched-annealer selectors, which
-reach the JAX-only annealer in the reference, raise in the port."""
+reach the JAX-only annealer in the reference, raise in the port.  The
+trace sampler and the serving loop's token streams and metrics are
+verbatim copies (import paths rewritten), and replay and summarize
+alike."""
 import importlib
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -16,7 +21,8 @@ def _mods(pkg):
     return {name: importlib.import_module(f"{pkg}.{name}") for name in (
         "core", "core.slo", "core.policies", "core.latency_model",
         "core.annealing", "core.events", "data.synthetic", "engine.blocks",
-        "engine.prefix")}
+        "engine.prefix", "data.traces", "serving.metrics",
+        "serving.stream")}
 
 
 def _annealed(m):
@@ -93,6 +99,42 @@ def _pool_and_index(m):
     return log
 
 
+def _trace(m):
+    pairs = m["data.traces"].sample_trace_workload(
+        12, 500, rate=4.0, process="bursty", seed=5, max_input=300)
+    return [(r.req_id, r.task_type, r.input_len, r.output_len,
+             r.arrival_time, (r.slo.ttft, r.slo.tpot, r.slo.e2e), p.tolist())
+            for r, p in pairs]
+
+
+def _served(m):
+    """Token streams and metrics fed one scripted serving run: pushes at
+    fixed wall times, a rejection, gauges."""
+    met, stream = m["serving.metrics"], m["serving.stream"]
+    sink = met.ServingMetrics()
+    reqs = m["data.synthetic"].sample_requests(5, seed=6)
+    for i, r in enumerate(reqs):
+        st = stream.TokenStream(r.req_id)
+        st.submit_time = 0.1 * i
+        for k in range(3 + i):
+            st.push(k, 0.1 * i + 0.05 * (k + 1) ** 1.5)
+        st.close(1.0 + i)
+        sink.on_finish(r, met.RequestTimeline(
+            req_id=r.req_id, task_type=r.task_type, arrival=r.arrival_time,
+            submit=st.submit_time, first_token=st.events[0].t,
+            finish=st.events[-1].t, n_tokens=len(st.events), tbt=st.tbts(),
+            preemptions=i % 2))
+        sink.on_gauge(met.StepGauge(t=0.1 * i, queue_depth=4 - i, active=i,
+                                    free_blocks=10 - i, dispatch_width=2,
+                                    overlapped=bool(i % 2),
+                                    prefill_tokens=16 * (i % 3)))
+    sink.on_finish(reqs[0], met.RequestTimeline(
+        req_id=99, task_type="chat", arrival=0.0, submit=0.0,
+        first_token=None, finish=None, n_tokens=0, tbt=[], rejected=True))
+    both = met.ServingMetrics.aggregate([sink, met.ServingMetrics()])
+    return sink.summary(), sink.rows(), both.summary(), sink.met(0)
+
+
 CASES = {
     "priority_mapping": _annealed,
     "decide-fcfs": lambda m: _decide(m, "fcfs"),
@@ -103,6 +145,8 @@ CASES = {
         m, "slo-reanneal", "chunked:64"),
     "simulate-slo-preempt": lambda m: _simulated(m, "slo-preempt", "stall"),
     "block-pool-and-prefix-index": _pool_and_index,
+    "trace-workload": _trace,
+    "serving-metrics": _served,
 }
 
 
@@ -110,6 +154,17 @@ CASES = {
 def test_copy_schedules_identically(case):
     ref, port = (CASES[case](_mods(pkg)) for pkg in PKGS)
     assert port == ref
+
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+
+
+@pytest.mark.parametrize("module", ["data/traces.py", "serving/stream.py",
+                                    "serving/metrics.py"])
+def test_verbatim_copies(module):
+    ref = (SRC / "repro" / module).read_text()
+    assert (SRC / "repro_torch" / module).read_text() == \
+        re.sub(r"\brepro\.", "repro_torch.", ref)
 
 
 @pytest.mark.parametrize("selector", [

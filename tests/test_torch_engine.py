@@ -120,3 +120,61 @@ def test_entry_points_need_cuda_unless_asked(params):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(CFG, params[1], **ENGINE_KW)
+
+
+def _preempt_by_hand(port: bool, params, paged, prefix, discipline):
+    """Two admitted, one evicted, a third admitted into its slot, a
+    second eviction, then the first re-admitted on another slot (and the
+    second after it); every step runs the engine's own tick plan.
+    Returns the tokens, preemption counts and, after every step, the free
+    blocks and the generated counts."""
+    syn = synthetic if port else jax_synthetic
+    rt_cls = RuntimeRequest if port else JaxRuntimeRequest
+    pol = policies if port else jax_policies
+    disc = pol.make_discipline(discipline)
+    rts = [rt_cls(request=r, prompt_tokens=p, max_new_tokens=14)
+           for r, p in syn.sample_serve_workload(3, CFG.vocab_size, seed=5)]
+    kw = dict(paged=paged, prefix_cache=prefix, **ENGINE_KW)
+    eng = Engine(CFG, params[1], device="cpu", **kw) if port \
+        else JaxEngine(CFG, params[0], **kw)
+    log = []
+
+    def ticks(n, until=None):
+        """``n`` ticks, then more until ``until`` has 3 tokens (a chunked
+        prefill takes several ticks: evict only running requests)."""
+        while n > 0 or (until is not None and len(until.generated) < 3):
+            eng.execute_step(eng.plan_step(disc))
+            log.append((eng.pool.available if paged else None,
+                        [len(rt.generated) for rt in rts]))
+            n -= 1
+
+    a, b, c = rts
+    eng.begin_prefill(a, 0)
+    eng.begin_prefill(b, 1)
+    ticks(4, until=a)
+    eng.preempt(a)
+    eng.begin_prefill(c, 0)                  # into the evicted slot
+    ticks(4, until=c)
+    eng.preempt(b)
+    eng.begin_prefill(a, 1)                  # back, on another slot
+    ticks(3)
+    eng.begin_prefill(b, 2)
+    while not all(eng.slot_free):
+        ticks(1)
+    return ([rt.generated for rt in rts], [rt.preemptions for rt in rts],
+            log, eng.prefix_stats())
+
+
+@pytest.mark.parametrize("paged,prefix,discipline", [
+    (True, True, "stall"), (True, False, "stall"),
+    (True, True, "chunked:16"), (False, False, "stall"),
+    (False, False, "chunked:16")])
+def test_preemption_by_hand_matches_jax(params, paged, prefix, discipline):
+    got = _preempt_by_hand(True, params, paged, prefix, discipline)
+    want = _preempt_by_hand(False, params, paged, prefix, discipline)
+    assert got == want
+    tokens, preemptions, _, stats = got
+    assert preemptions == [1, 1, 0] and all(len(t) == 14 for t in tokens)
+    assert stats["enabled"] is (paged and prefix)
+    if stats["enabled"]:
+        assert stats["hit_rate"] > 0          # re-admissions hit the index

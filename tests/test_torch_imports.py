@@ -28,7 +28,9 @@ sys.exit(1 if bad else 0)
 # modules whose import must be covered by name (the dense layout, the
 # int8 caches, the decode kernels' wrappers; training: the flash
 # backward, the loss and step, AdamW, checkpoints, the launcher; the
-# Mamba2 block and the SSD scan kernel's wrapper)
+# Mamba2 block and the SSD scan kernel's wrapper; the streaming serving
+# loop, the fleet, their streams and metrics, trace replay, the serve
+# launcher)
 NEW_MODULES = ("repro_torch.kernels.decode_attention",
                "repro_torch.kernels.decode_attention_q8",
                "repro_torch.kernels.decode_attention_paged",
@@ -40,7 +42,11 @@ NEW_MODULES = ("repro_torch.kernels.decode_attention",
                "repro_torch.train.optimizer",
                "repro_torch.train.checkpoint",
                "repro_torch.launch.train", "repro_torch.bridge",
-               "repro_torch.models.ssm", "repro_torch.kernels.ssd_scan")
+               "repro_torch.models.ssm", "repro_torch.kernels.ssd_scan",
+               "repro_torch.serving", "repro_torch.serving.loop",
+               "repro_torch.serving.fleet", "repro_torch.serving.stream",
+               "repro_torch.serving.metrics", "repro_torch.data.traces",
+               "repro_torch.launch.serve")
 
 
 def test_import_loads_no_jax_and_no_reference():

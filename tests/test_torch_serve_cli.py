@@ -1,5 +1,7 @@
-"""The port's serve CLI runs on the CPU when asked, the not-yet-ported
-modes refuse, and ``chip_smoke.py`` refuses to report without a card."""
+"""The port's serve CLI runs on the CPU when asked — batch mode, the
+streaming loop (overlapped and synchronous) and a two-engine fleet — the
+mapper that needs the batched annealer refuses, and ``chip_smoke.py``
+refuses to report without a card."""
 import os
 import pathlib
 import subprocess
@@ -30,12 +32,34 @@ def test_serve_cli_batch_on_cpu():
     assert "attainment=" in last and "/4" in last
 
 
-@pytest.mark.parametrize("flags", [["--mode", "stream"],
-                                   ["--instances", "2"]])
-def test_serve_cli_unported_modes_refuse(flags):
-    with pytest.raises(SystemExit, match="ROADMAP M6"):
-        serve.main(["--arch", "qwen3-1.7b", "--reduced", "--device", "cpu",
-                    *flags])
+CPU_ARGS = ["--arch", "qwen3-1.7b", "--reduced", "--n", "4", "--policy",
+            "fcfs", "--device", "cpu", "--arrival-rate", "50"]
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_serve_cli_stream_on_cpu(capsys, overlap):
+    """``--mode stream`` is the default: the ServeLoop serves every
+    request and prints measured wall-clock metrics."""
+    torch.set_num_threads(2)
+    serve.main(CPU_ARGS + ([] if overlap else ["--no-overlap"]))
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert last.startswith("policy=fcfs mode=stream ")
+    assert f"overlap={overlap}" in last and "device=cpu" in last
+    assert "completed=4/4" in last and "ttft_mean=" in last \
+        and "tbt_p90=" in last
+
+
+def test_serve_cli_fleet_on_cpu(capsys):
+    torch.set_num_threads(2)
+    serve.main(CPU_ARGS + ["--instances", "2", "--mapper", "least-loaded"])
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert "mode=fleet2:least-loaded" in last and "completed=4/4" in last
+
+
+def test_serve_cli_annealed_mapper_refuses():
+    with pytest.raises(ValueError, match="ROADMAP M7"):
+        serve.main(CPU_ARGS + ["--n", "2", "--instances", "2", "--mapper",
+                               "annealed"])
 
 
 def test_chip_smoke_refuses_without_a_card():
