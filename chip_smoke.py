@@ -50,6 +50,21 @@ Phases (any failure exits non-zero before the last line):
            equal across two launches, timed at the serve shapes (B1 S96;
            B1 S32 from a state) and at B4 S2048, eager and as device
            time from CUDA-graph replays
+  anneal   the batched annealer's kernel (csrc/anneal.cu: one launch
+           anneals every instance x chain) against its plain version on
+           the same draws, on both scoring paths (incremental and full
+           evaluate), over padded N 8/64/256/1024 x max_batch 1/8/32 x
+           (instances, chains) (1, 8)/(4, 2)/(8, 8) (ragged instances, an
+           empty one) x contended/loose SLOs under the default budget,
+           and at the shapes of benchmarks/bench_overhead.py (N 64/128/256
+           x 8 chains, 4 instances x 64 x 2 chains, max_batch 8) under
+           iters=100 per level: best G bitwise or within 1e-6, the same
+           best schedule in >= 95% of chains, G within 1e-5 of numpy
+           evaluate of the kernel's schedule, every schedule a padded
+           permutation in batches of at most max_batch, two launches
+           bitwise equal, 0 bytes spilled; ms a call, us a proposal, the
+           plain version's eager ms, the bound, and the per-proposal time
+           at N 8 (the serial floor)
   serve    Qwen2.5-7B at its published config (28 layers, bf16, random
            seeded weights): latency-model fit, then run_policy under
            fcfs, slo-reanneal, slo-preempt + chunked:32, and a multi-turn
@@ -64,10 +79,15 @@ Phases (any failure exits non-zero before the last line):
            (data/traces.py, lengths uncut) as Poisson arrivals at
            STREAM_RATE req/s, on a pool of STREAM_SLOTS sequences of
            STREAM_SEQ tokens: Qwen2.5-7B on the paged engine under fcfs
-           (overlapped and synchronous in turns A B B A), slo-reanneal
-           and slo-preempt + chunked:32, a 2-engine EngineFleet sharing
+           (overlapped and synchronous in turns A B B A) and
+           slo-preempt + chunked:32, a 2-engine EngineFleet sharing
            the params under least-loaded (one stream per loop, checked);
-           then fcfs on the dense engine; then Mamba2-780M under fcfs.
+           then fcfs on the dense engine; then the batched annealer on
+           the serving path, on the same trace and pools: a ServeLoop
+           under slo-reanneal:jax as the trace arrives and with all of
+           it waiting at t=0, and a 2-engine EngineFleet under
+           route:annealed, each printing its anneal launches; then
+           Mamba2-780M under fcfs.
            Every request completes with its whole output budget; per
            run: wall-clock TTFT and TBT p50/p90/p99, tok/s on the wall
            clock, attainment, G, dispatch widths, the share of
@@ -99,7 +119,7 @@ Phases (any failure exits non-zero before the last line):
            Mamba2-780M at 2 layers in float32: the dense engine's tokens
            under fcfs and slo-preempt + chunked:32, and the logits of one
            prefill and 4 decode steps, bounded
-Each path (paged serve, dense serve, h2o-danube serve, the three
+Each path (paged serve, dense serve, h2o-danube serve, the five
 streaming paths, Mamba2 serve, int8, train) is driven with the
 launch counts set to 0 just before it and read just after; every kernel
 must launch on the path that runs it.  The line before the last is the
@@ -118,8 +138,8 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "serve", "stream", "ssm", "int8",
-          "train", "parity")
+PHASES = ("device", "build", "kernels", "anneal", "serve", "stream", "ssm",
+          "int8", "train", "parity")
 PEAK_BYTES = 3.35e12                       # H100 SXM HBM3, bytes/s
 PEAK_FLOPS = {"bfloat16": 989e12,          # dense tensor-core bf16
               "float32": 67e12}            # float32 outside tensor cores
@@ -190,6 +210,12 @@ KERNELS = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:74"},
+    # not a Pallas kernel: the jitted anneal program (_run_chains /
+    # _run_chains_multi), one launch per anneal here
+    "anneal": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/anneal.cu",
+        "replaces": "src/repro/core/annealing_jax.py:519"},
 }
 TRAIN_KERNELS = ("flash_attention_fwd_lse", "flash_attention_dq",
                  "flash_attention_dkv")
@@ -200,6 +226,10 @@ PATHS = {"serve_paged": ("decode_attention_paged", "flash_attention"),
          "serve_stream": ("decode_attention_paged", "flash_attention"),
          "serve_stream_dense": ("flash_attention", "decode_attention"),
          "serve_stream_ssm": ("ssd_scan",),
+         "serve_stream_reanneal_jax": ("anneal", "decode_attention_paged",
+                                       "flash_attention"),
+         "serve_stream_route_annealed": ("anneal", "decode_attention_paged",
+                                         "flash_attention"),
          "serve_ssm": ("ssd_scan",),
          "int8": ("decode_attention_paged_q8", "decode_attention_q8"),
          "train": TRAIN_KERNELS}
@@ -212,7 +242,8 @@ NO_LIBRARY = {
                                  "block table over int8 K/V",
     "decode_attention_q8": "no single PyTorch call attends over int8 K/V "
                            "with per-row scales",
-    "ssd_scan": "no single PyTorch call computes the SSD chunk scan"}
+    "ssd_scan": "no single PyTorch call computes the SSD chunk scan",
+    "anneal": "no PyTorch call anneals"}
 
 
 def log(msg):
@@ -1588,6 +1619,62 @@ def _log_stream(card, smi, runs):
          for r in runs]))
 
 
+def _stream_anneal_runs(ctx, engine, workload, model):
+    """The two serving paths that reach the batched annealer, on the
+    stream phase's trace and pools, each driven with the launch counts
+    set to 0 just before it.  A ServeLoop under ``slo-reanneal:jax``
+    anneals the waiting queue at every admission event with two or more
+    waiting: once as the trace arrives (at 4 req/s a queue of two forms
+    only when two arrivals share a tick), once with the whole trace
+    waiting at t=0, the setting of the paper's Algorithm 1 and of the
+    serve phase's batch runs (``arrival_rate=0``), which anneals all 64
+    requests at once.  A 2-engine EngineFleet under ``route:annealed``
+    plans the arriving trace by Algorithm 2: memory-greedy assignment
+    against each engine's pool, then every instance's queue annealed in
+    one launch."""
+    from repro_torch.core.profiler import MemoryModel
+    from repro_torch.kernels import ops
+    from repro_torch.serving import EngineFleet, ServeLoop
+    # the mapper's memory: each engine's pool in tokens (the default,
+    # unbounded, sends every request to instance 0)
+    memory = MemoryModel(total_memory=STREAM_SLOTS * STREAM_SEQ)
+
+    def counted(make, pairs, what):
+        before = ops.launch_counts().get("anneal", 0)
+        row = _stream_run(make, pairs, what)
+        row["anneal_launches"] = ops.launch_counts().get("anneal", 0) - before
+        return row
+
+    def reanneal():
+        return [counted(lambda: ServeLoop(engine(), "slo-reanneal:jax",
+                                          model=model), w, what)
+                for w, what in ((workload(), "paged slo-reanneal:jax stall"),
+                                (workload(rate=0.0), "paged slo-reanneal:jax "
+                                 "stall, all waiting at t=0"))]
+
+    def route():
+        return [counted(lambda: EngineFleet(
+            [engine(), engine()], "fcfs", mapper="annealed", model=model,
+            discipline="stall", memory=memory), workload(),
+            "fleet x2 route:annealed fcfs stall")]
+
+    runs = count_path(ctx["results"], "serve_stream_reanneal_jax", reanneal)
+    runs += count_path(ctx["results"], "serve_stream_route_annealed", route)
+    for row in runs:
+        if min(row["dispatch_ms_per_round"]) <= 0:
+            raise AssertionError(f"{row['run']}: an engine served nothing")
+        log(f"  stream {ctx['card']} | {ctx['smi']} | {row['run']}: "
+            f"completed={row['completed']}/{row['n']} attainment="
+            f"{row['attainment']:.2f} G={row['G']:.4f} anneal launches="
+            f"{row['anneal_launches']} policy share of the wall="
+            f"{row['host_share'][0]['schedule']:.4f}")
+    # one anneal at least where a queue is certain to be waiting
+    if runs[1]["anneal_launches"] < 1 or runs[2]["anneal_launches"] < 1:
+        raise AssertionError("anneal: no launch with the whole trace "
+                             "waiting, or no plan on the annealed fleet")
+    return runs
+
+
 def phase_stream(ctx):
     """The streaming serving loop on the wall clock: each request's
     tokens stream out as the loop delivers them, decode rounds are
@@ -1613,11 +1700,12 @@ def phase_stream(ctx):
         return Engine(c, p, max_slots=STREAM_SLOTS, max_seq_len=STREAM_SEQ,
                       paged=paged, device="cuda")
 
-    def workload(c=cfg):
+    def workload(c=cfg, rate=STREAM_RATE):
         # ShareGPT (Vicuna) and python-code lengths from the in-repo
-        # histograms, uncut, paced as a Poisson process
-        return sample_trace_workload(STREAM_N, c.vocab_size,
-                                     rate=STREAM_RATE, seed=1)
+        # histograms, uncut, paced as a Poisson process (rate 0: all at
+        # t=0)
+        return sample_trace_workload(STREAM_N, c.vocab_size, rate=rate,
+                                     seed=1)
 
     def loop(policy, disc="stall", overlap=True, paged=True):
         return lambda: ServeLoop(engine(paged=paged), policy, model=model,
@@ -1634,15 +1722,13 @@ def phase_stream(ctx):
         f"slots x {STREAM_SEQ} tokens")
 
     def paged_path():
-        # overlapped and synchronous in turns (A B B A): one card, one
+        # overlapped and synchronous in turns A B B A: one card, one
         # call, so the two compare without the spread between calls
         runs = [_stream_run(loop("fcfs", overlap=overlap), workload(),
                             "paged fcfs stall" + ("" if overlap else
                                                   " --no-overlap"))
                 for overlap in TURNS]
-        runs += [_stream_run(loop("slo-reanneal"), workload(),
-                             "paged slo-reanneal stall"),
-                 _stream_run(loop("slo-preempt", "chunked:32"), workload(),
+        runs += [_stream_run(loop("slo-preempt", "chunked:32"), workload(),
                              "paged slo-preempt chunked:32"),
                  _stream_run(lambda: EngineFleet(
                      [engine(), engine()], "fcfs", mapper="least-loaded",
@@ -1668,6 +1754,7 @@ def phase_stream(ctx):
     runs += count_path(results, "serve_stream_dense", lambda: [
         _stream_run(loop("fcfs", paged=False), workload(),
                     "dense fcfs stall")])
+    runs += _stream_anneal_runs(ctx, engine, workload, model)
     for r in runs:
         r["model"] = cfg.name
     # Mamba2-780M at its published config: fcfs plans nothing with the
@@ -2268,6 +2355,255 @@ def _map(tree, fn):
     return fn(tree)
 
 
+# ------------------------------------------------------------------ anneal
+# The batched annealer's sweep: padded N, max_batch, (instances, chains)
+ANNEAL_N = (8, 64, 256, 1024)
+ANNEAL_MB = (1, 8, 32)
+ANNEAL_IC = ((1, 8), (4, 2), (8, 8))
+# past the shared-memory budget: the per-chain state in the global
+# workspace (padded N, max_batch), 8 chains, contended SLOs
+ANNEAL_GLOBAL = ((4096, 8), (4096, 64))
+# bounds, stated before the first run on the card: the kernel's best G
+# vs the plain version's within 1e-6 relative (float32 sums of up to 1024
+# terms taken in another order: the kernel's block trees and scans vs
+# torch's); the kernel's G vs numpy evaluate (float64) of the kernel's
+# own schedule within 1e-5 relative; met counts exact; the same best
+# schedule in at least 95% of chains (a within-batch swap leaves G equal
+# up to summation order, so the best-so-far test `G > best` may break
+# such a tie the other way)
+ANNEAL_G_TOL, ANNEAL_EVAL_TOL, ANNEAL_SAME = 1e-6, 1e-5, 0.95
+# the shapes of benchmarks/bench_overhead.py, timed under the reference
+# config's iters=100 per level (6300 proposals a chain): (label,
+# instances, chains, requests per instance); max_batch 8, contended SLOs
+ANNEAL_BENCH = (("N64 C8", 1, 8, 64), ("N128 C8", 1, 8, 128),
+                ("N256 C8", 1, 8, 256), ("I4 N64 C2", 4, 2, 64))
+# a padded N of 8: the least work per proposal, so its time per proposal
+# is the design's serial floor (the chain of block barriers)
+ANNEAL_FLOOR = ("N8 C8 (floor)", 1, 8, 8)
+
+
+def _anneal_arrays(n, seed, regime):
+    """Requests as the reference test's ``_arrays`` makes them: the
+    paper's mix, SLOs tightened in the contended regime."""
+    from repro_torch.core.slo import as_arrays
+    from repro_torch.data.synthetic import sample_requests
+    reqs = sample_requests(n, seed=seed)
+    for r in reqs:
+        if regime == "contended":
+            r.slo = dataclasses.replace(
+                r.slo, e2e=r.slo.e2e * 0.2 if r.slo.e2e else None,
+                ttft=r.slo.ttft * 0.02 if r.slo.ttft else None,
+                tpot=r.slo.tpot * 0.5 if r.slo.tpot else None)
+        r.predicted_output_len = r.output_len
+    return as_arrays(reqs)
+
+
+def _anneal_case(sizes, pad, regime, cfg, seed):
+    """(arrays per instance, reqc [I, pad, 11], n_valid [I], draws) on
+    the card, float32."""
+    import torch
+    from repro_torch.core import annealing_torch as at
+    from repro_torch.core.latency_model import PAPER_TABLE2
+    arrays = [_anneal_arrays(n, 1000 * seed + k, regime)
+              for k, n in enumerate(sizes)]
+    reqc = torch.stack([at._pack(a, PAPER_TABLE2, pad, torch.float32, "cuda")
+                        for a in arrays])
+    nv = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    draws = at.make_draws([at.instance_seed(seed, k)
+                           for k in range(len(sizes))], cfg).cuda()
+    return arrays, reqc, nv, draws
+
+
+def _anneal_cost(n_inst, chains, n, mb, props, incremental):
+    """Bytes and operations of one anneal: reqc and n_valid read once,
+    each chain's draw rows read once, its best schedule and G written
+    once; per proposal (every proposal of the schedule, as no chain of
+    a contended instance meets every SLO) the incremental path rebuilds
+    3 rows of mb members at 10 flops each, sorts them (3 mb^2 compares),
+    takes an N-long scan and three N-long sums and does the reference's
+    N x mb slack compares; the full path 25 flops per position."""
+    nbytes = n_inst * (n * 11 * 4 + 4) + n_inst * chains * (
+        props * 16 + n * 5 + 4)
+    per = 30 * mb + 3 * mb * mb + 4 * n + n * mb if incremental else 25 * n
+    return nbytes, n_inst * chains * props * per
+
+
+def _check_anneal(arrays, nv, mb, got, plain, again, label, stats):
+    """Validity, determinism and agreement of one kernel launch (got)
+    with the plain version (plain) and with numpy evaluate."""
+    import numpy as np
+    import torch
+    from repro_torch.core import annealing_torch as at
+    from repro_torch.core.latency_model import PAPER_TABLE2
+    from repro_torch.core.objective import evaluate
+    for a, b in zip(got, again):
+        if not torch.equal(a, b):
+            raise AssertionError(f"anneal {label}: two launches differ")
+    kp, kb, kg = (t.cpu().numpy() for t in got)
+    pp, pb, pg = (t.cpu().numpy() for t in plain)
+    n = kp.shape[-1]
+    for i, nvi in enumerate(nv.tolist()):
+        for c in range(kp.shape[1]):
+            perm, bnd = kp[i, c], kb[i, c]
+            if sorted(perm.tolist()) != list(range(n)) or not bnd[0] \
+                    or not bnd[nvi:].all() or (perm[nvi:] !=
+                                               np.arange(nvi, n)).any():
+                raise AssertionError(f"anneal {label} instance {i} chain "
+                                     f"{c}: not a padded permutation")
+            if nvi and np.bincount(np.cumsum(bnd[:nvi]) - 1).max() > mb:
+                raise AssertionError(f"anneal {label} instance {i} chain "
+                                     f"{c}: a batch above max_batch {mb}")
+            same = (perm == pp[i, c]).all() and (bnd == pb[i, c]).all()
+            stats["chains"] += 1
+            stats["same"] += int(same)
+            rel = abs(float(kg[i, c]) - float(pg[i, c])) / max(
+                abs(float(pg[i, c])), 1e-30)
+            stats["g_rel"] = max(stats["g_rel"], rel)
+            stats["g_abs"] = max(stats["g_abs"],
+                                 abs(float(kg[i, c]) - float(pg[i, c])))
+            if rel > ANNEAL_G_TOL:
+                raise AssertionError(f"anneal {label} instance {i} chain {c}"
+                                     f": G {kg[i, c]} vs plain {pg[i, c]}")
+            if not nvi:
+                continue
+            ev = evaluate(arrays[i], PAPER_TABLE2, *at._extract(perm, bnd,
+                                                                nvi))
+            erel = abs(float(kg[i, c]) - ev.G) / max(ev.G, 1e-30)
+            stats["eval_rel"] = max(stats["eval_rel"], erel)
+            if erel > ANNEAL_EVAL_TOL:
+                raise AssertionError(f"anneal {label} instance {i} chain {c}"
+                                     f": G {kg[i, c]} vs evaluate {ev.G}")
+            if not same:
+                evp = evaluate(arrays[i], PAPER_TABLE2,
+                               *at._extract(pp[i, c], pb[i, c], nvi))
+                if evp.n_met != ev.n_met:
+                    raise AssertionError(
+                        f"anneal {label} instance {i} chain {c}: met "
+                        f"{ev.n_met} vs plain's schedule {evp.n_met}")
+
+
+def phase_anneal(ctx):
+    """The batched annealer's kernel against its plain version on the
+    same draws, over the sweep and both scoring paths, then timed at the
+    benchmark's shapes."""
+    import torch
+    from repro_torch.core import annealing_torch as at
+    from repro_torch.core.annealing import SAParams
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import anneal as ka
+    from repro_torch.kernels import ops
+    card, smi, results = ctx["card"], ctx["smi"], ctx["results"]
+    spill = [ln for ln in _build.compiler_log("anneal")
+             if ", 0 bytes spill stores, 0 bytes spill loads" not in ln]
+    if spill or not _build.compiler_log("anneal"):
+        raise AssertionError(f"anneal: ptxas spills or no log: {spill}")
+    stats = {"chains": 0, "same": 0, "g_rel": 0.0, "g_abs": 0.0,
+             "eval_rel": 0.0}
+    t0 = time.perf_counter()
+    runs = 0
+    for n in ANNEAL_N:
+        for mb in ANNEAL_MB:
+            for n_inst, chains in ANNEAL_IC:
+                cfg = at.config_from_sa_params(SAParams(seed=0),
+                                               num_chains=chains)
+                sizes = [max(1, n - k * n // (2 * n_inst))
+                         for k in range(n_inst)]
+                if n_inst == 8:
+                    sizes[-1] = 0          # an empty instance
+                for regime in ("contended", "loose"):
+                    arrays, reqc, nv, draws = _anneal_case(
+                        sizes, n, regime, cfg, seed=n + mb + n_inst)
+                    for inc in (True, False):
+                        args = (reqc, nv, draws, mb, cfg.T0, cfg.T_thres,
+                                cfg.tau, cfg.iters, inc)
+                        got = ops.anneal_chains(*args)
+                        again = ops.anneal_chains(*args)
+                        plain = ka.anneal_chains_plain(*args)
+                        label = (f"N{n} mb{mb} I{n_inst} C{chains} {regime} "
+                                 f"{'incremental' if inc else 'full'}")
+                        _check_anneal(arrays, nv, mb, got, plain, again,
+                                      label, stats)
+                        runs += 1
+    for n, mb in ANNEAL_GLOBAL:
+        cfg = at.config_from_sa_params(SAParams(seed=0), num_chains=8)
+        arrays, reqc, nv, draws = _anneal_case([n - n // 4], n, "contended",
+                                               cfg, seed=n + mb)
+        for inc in (True, False):
+            args = (reqc, nv, draws, mb, cfg.T0, cfg.T_thres, cfg.tau,
+                    cfg.iters, inc)
+            if inc and ka.workspace_bytes(1, 8, n, mb, inc) == 0:
+                raise AssertionError(f"anneal N{n} mb{mb}: state in shared "
+                                     "memory, not the workspace")
+            _check_anneal(arrays, nv, mb, ops.anneal_chains(*args),
+                          ka.anneal_chains_plain(*args),
+                          ops.anneal_chains(*args),
+                          f"N{n} mb{mb} I1 C8 contended "
+                          f"{'incremental' if inc else 'full'}", stats)
+            runs += 1
+    log(f"  anneal sweep: {runs} runs (N {ANNEAL_N} x max_batch "
+        f"{ANNEAL_MB} x (instances, chains) {ANNEAL_IC} x contended/loose x "
+        f"incremental/full, and (N, max_batch) {ANNEAL_GLOBAL} with the "
+        f"state in the global workspace, global budget) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rows = []
+    for label, n_inst, chains, n in ANNEAL_BENCH + (ANNEAL_FLOOR,):
+        cfg = at.TorchSAConfig(iters=100, num_chains=chains)
+        mb = 8
+        arrays, reqc, nv, draws = _anneal_case([n] * n_inst, n, "contended",
+                                               cfg, seed=7)
+        for inc in (True, False) if label == "N64 C8" else (True,):
+            args = (reqc, nv, draws, mb, cfg.T0, cfg.T_thres, cfg.tau,
+                    cfg.iters, inc)
+            got = ops.anneal_chains(*args)
+            again = ops.anneal_chains(*args)
+            tag = f"{label} mb{mb} {'incremental' if inc else 'full'}"
+            plain_ms = None
+            if label != ANNEAL_FLOOR[0]:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                plain = ka.anneal_chains_plain(*args)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t) * 1e3
+                _check_anneal(arrays, nv, mb, got, plain, again,
+                              tag + " per_level", stats)
+            elif not all(map(torch.equal, got, again)):
+                raise AssertionError(f"anneal {tag}: two launches differ")
+            ms = time_ms(lambda: ops.anneal_chains(*args), 3)
+            props = at.temperature_levels(cfg.T0, cfg.T_thres,
+                                          cfg.tau) * cfg.iters
+            nbytes, flops = _anneal_cost(n_inst, chains, n, mb, props, inc)
+            b_ms, b_by = bound(nbytes, flops, "float32")
+            row = {"shape": tag, "instances": n_inst, "chains": chains,
+                   "n": n, "max_batch": mb, "proposals": props, "ms": ms,
+                   "us_per_proposal": ms * 1e3 / props,
+                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+            rows.append(row)
+            log(f"  anneal {card} | {smi} | {tag} ({props} proposals a "
+                f"chain): kernel {ms:.3f} ms ({row['us_per_proposal']:.3f} "
+                f"us a proposal), plain eager {plain_ms} ms, bound "
+                f"{b_ms:.6f} ms ({b_by})")
+    same = stats["same"] / stats["chains"]
+    log(f"  anneal: {stats['chains']} chains, best schedule identical to "
+        f"the plain version's in {same:.4f}, max |G - plain| relative "
+        f"{stats['g_rel']:.3e} (limit {ANNEAL_G_TOL:g}), max |G - numpy "
+        f"evaluate| relative {stats['eval_rel']:.3e} (limit "
+        f"{ANNEAL_EVAL_TOL:g}), two launches bitwise equal, ptxas 0 spill")
+    if same < ANNEAL_SAME:
+        raise AssertionError(f"anneal: identical best schedules in {same} "
+                             f"< {ANNEAL_SAME} of chains")
+    first = rows[0]
+    r = results.setdefault("anneal", {"name": "anneal", **KERNELS["anneal"]})
+    r.update({"max_abs_err": stats["g_abs"], "ms": first["ms"],
+              "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+              "bound_by": first["bound_by"], "library_ms": None,
+              "shape": first["shape"], "shapes": rows,
+              "serial_floor_us_per_proposal": rows[-1]["us_per_proposal"],
+              "identical_share": same, "max_rel_err_G": stats["g_rel"],
+              "max_rel_err_vs_evaluate": stats["eval_rel"],
+              "ptxas": _build.compiler_log("anneal")})
+    log("  anneal rows: " + json.dumps(rows))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2308,6 +2644,7 @@ def main(argv=None) -> int:
     tc_rows = check_tensor_cores(tc)
     ssd_sass, ssd_ptxas = check_ssd_build(tc)
     for phase, fn in (("kernels", lambda: phase_kernels(ctx["results"])),
+                      ("anneal", lambda: phase_anneal(ctx)),
                       ("serve", lambda: phase_serve(ctx)),
                       ("stream", lambda: phase_stream(ctx)),
                       ("ssm", lambda: phase_ssm(ctx)),

@@ -1,10 +1,11 @@
 """The paper's primary contribution: SLO-aware scheduling for LLM inference.
 
 Components: latency predictor (Eqs. 14-19), request profiler, simulated-
-annealing priority mapper (Algorithm 1) — the Python incremental-Δ
-annealer (:mod:`repro_torch.core.annealing`; the JAX package's batched
-annealer has no counterpart here yet and its selectors raise, see
-``policies.raise_no_batched_annealer``) — multi-instance scheduler
+annealing priority mapper (Algorithm 1) with two backends — the Python
+incremental-Δ annealer (:mod:`repro_torch.core.annealing`) and the jitted
+batched annealer (:mod:`repro_torch.core.annealing_torch`, vmapped over tempering
+chains and instances; imported lazily so the core stays importable
+without touching the JAX runtime) — multi-instance scheduler
 (Algorithm 2), objective G (Eq. 2), exhaustive-search oracle, and the
 discrete-event execution simulator used by the benchmarks.  See
 docs/ARCHITECTURE.md for the layer map and docs/annealer.md for the

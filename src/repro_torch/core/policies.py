@@ -35,9 +35,9 @@ serving engine (``repro_torch.engine.engine.Engine.run_policy``):
 
 Policies and disciplines are constructible by string key through the
 registry (:func:`make`), e.g. ``make("slo-preempt", model=m)``,
-or ``make("chunked:64")``, so launchers and benchmarks can select them
-from the command line (``"slo-reanneal:jax"`` raises here: the batched
-annealer is not ported yet).
+``make("chunked:64")``, or ``make("slo-reanneal:jax", model=m,
+max_batch=8)`` (online re-annealing on the jitted annealer backend), so
+launchers and benchmarks can select them from the command line.
 
 The v1 ``AdmissionPolicy`` name survives for one release as a thin
 deprecation shim: subclasses implementing ``select`` are adapted into
@@ -54,13 +54,6 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 from repro_torch.core.annealing import SAParams, priority_mapping
 from repro_torch.core.latency_model import LinearLatencyModel
 from repro_torch.core.slo import Request, as_arrays
-
-
-def raise_no_batched_annealer(what: str):
-    """The jitted batched annealer of the JAX package has no PyTorch
-    counterpart yet; every path that would reach it raises here."""
-    raise ValueError(f"{what} needs the batched annealer, which waits "
-                     "for the torch annealer: ROADMAP M7")
 
 # ----------------------------------------------------------------- views
 @dataclasses.dataclass(frozen=True)
@@ -419,13 +412,15 @@ class SLOReannealPolicy(SchedulingPolicy):
     incremental-Δ annealer keeps this cheap enough to run on the
     admission hot path (paper Table 1).
 
-    ``backend`` picks the annealer: ``"python"`` (the
-    ``objective.IncrementalEvaluator`` hot loop, the only one ported);
-    ``"jax"`` raises (:func:`raise_no_batched_annealer`)."""
+    ``backend`` picks the annealer: ``"python"`` (default — the
+    ``objective.IncrementalEvaluator`` hot loop) or ``"jax"`` (the jitted
+    incremental annealer, ``annealing_torch.priority_mapping_torch`` — queue
+    depths are bucketed to powers of two so shifting queues reuse a few
+    compilations; see docs/annealer.md for when each backend wins)."""
 
     def __init__(self, model: LinearLatencyModel, max_batch: int,
                  sa_params: Optional[SAParams] = None, min_queue: int = 2,
-                 backend: str = "python"):
+                 backend: str = "python", device=None):
         if backend not in ("python", "jax"):
             raise ValueError(
                 f"backend must be 'python' or 'jax', got {backend!r}")
@@ -435,10 +430,23 @@ class SLOReannealPolicy(SchedulingPolicy):
             else SAParams(seed=0)
         self.min_queue = min_queue
         self.backend = backend
+        self.device = device
+        self._jax_cfg = None
         if backend == "jax":
-            raise_no_batched_annealer("slo-reanneal backend 'jax'")
+            # validate the SAParams mapping up front — a jit-unsupported
+            # ablation config should fail at construction, not mid-run
+            # on the first admission event that reaches min_queue
+            from repro_torch.core.annealing_torch import config_from_sa_params
+            self._jax_cfg = config_from_sa_params(self.sa_params)
 
     def _anneal_perm(self, arrays) -> List[int]:
+        if self.backend == "jax":
+            from repro_torch.core.annealing_torch import priority_mapping_torch
+            p = self.sa_params
+            perm, _, _ = priority_mapping_torch(
+                arrays, self.model, self.max_batch, self._jax_cfg,
+                seed=p.seed, incremental=p.incremental, device=self.device)
+            return [int(i) for i in perm]
         sa = priority_mapping(arrays, self.model, self.max_batch,
                               self.sa_params)
         return [int(i) for i in sa.perm]
@@ -1066,19 +1074,20 @@ class MemoryGreedyMapper(InstanceMapper):
 
 class AnnealedMapper(InstanceMapper):
     """Full Algorithm 2: memory-greedy assignment then a per-instance
-    Algorithm-1 priority anneal (``use_jax`` asks for the batched
-    annealer, which raises until it is ported).  ``plan``
+    Algorithm-1 priority anneal (``priority_mapping_multi_torch`` when
+    ``use_jax`` — all instances × chains in one vmapped jit).  ``plan``
     returns each instance's annealed batch order, which the fleet
     replays as its submission order; ``map_batch`` exposes just the
     assignment for callers that ignore ordering."""
 
     def __init__(self, model, max_batch: int = 8, sa_params=None,
-                 memory=None, use_jax: bool = True):
+                 memory=None, use_jax: bool = True, device=None):
         self.model = model
         self.max_batch = max_batch
         self.sa_params = sa_params
         self.memory = memory
         self.use_jax = use_jax
+        self.device = device
 
     def _scheduler(self, n_instances: int):
         from repro_torch.core.scheduler import SLOAwareScheduler
@@ -1086,7 +1095,7 @@ class AnnealedMapper(InstanceMapper):
                                  max_batch=self.max_batch,
                                  memory=self.memory,
                                  sa_params=self.sa_params,
-                                 use_jax=self.use_jax)
+                                 use_jax=self.use_jax, device=self.device)
 
     def map_batch(self, requests, states):
         sched = self._scheduler(len(states))
@@ -1186,14 +1195,15 @@ def _make_planned(batches=None, **_):
 
 @register("slo-reanneal")
 def _make_reanneal(model=None, max_batch=None, sa_params=None,
-                   min_queue=2, backend=None, arg=None, **_):
+                   min_queue=2, backend=None, arg=None, device=None, **_):
     # "slo-reanneal:jax" selects the jitted annealer backend
     if backend is None:
         backend = arg if arg is not None else "python"
     return SLOReannealPolicy(_require(model, "model=...", "slo-reanneal"),
                              _require(max_batch, "max_batch=...",
                                       "slo-reanneal"),
-                             sa_params, min_queue, backend=backend)
+                             sa_params, min_queue, backend=backend,
+                             device=device)
 
 
 @register("slo-preempt")
@@ -1240,7 +1250,7 @@ def _make_chunked(arg=None, chunk_size=None, **_):
 
 @register("route")
 def _make_route(arg=None, model=None, max_batch=8, sa_params=None,
-                memory=None, use_jax=True, **_):
+                memory=None, use_jax=True, device=None, **_):
     """Instance mappers: ``route:least-loaded`` (default),
     ``route:round-robin``, ``route:slo-affinity``,
     ``route:memory-greedy``, ``route:annealed`` (Algorithm 2; needs
@@ -1257,5 +1267,5 @@ def _make_route(arg=None, model=None, max_batch=8, sa_params=None,
     if kind == "annealed":
         return AnnealedMapper(_require(model, "model=...", "route:annealed"),
                               max_batch=max_batch, sa_params=sa_params,
-                              memory=memory, use_jax=use_jax)
+                              memory=memory, use_jax=use_jax, device=device)
     raise ValueError(f"unknown instance mapper 'route:{kind}'")

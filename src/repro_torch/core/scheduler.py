@@ -17,8 +17,7 @@ from repro_torch.core.events import SimResult, simulate
 from repro_torch.core.latency_model import LinearLatencyModel
 from repro_torch.core.objective import evaluate
 from repro_torch.core.policies import (ExecutionDiscipline, InstanceState,
-                                       MemoryGreedyMapper, PlannedPolicy,
-                                       raise_no_batched_annealer)
+                                 MemoryGreedyMapper, PlannedPolicy)
 from repro_torch.core.profiler import MemoryModel, OutputLengthPredictor
 from repro_torch.core.slo import Request, as_arrays
 
@@ -55,9 +54,12 @@ class SLOAwareScheduler:
     memory : Eq. 20 memory model (per instance)
     output_predictor : fills Request.predicted_output_len when missing
     mapper : priority-mapping implementation; defaults to the Python
-             simulated annealer (Algorithm 1). ``use_jax=True`` asks
-             for the batched annealer, which is not ported yet, and
-             raises.
+             simulated annealer (Algorithm 1). ``use_jax=True`` switches to
+             the jitted parallel-tempering annealer and batches ALL
+             instances through one vmapped program
+             (``annealing_torch.priority_mapping_multi_torch``);
+             ``sa_params.incremental`` picks its incremental-Δ or
+             full-evaluate scoring (see docs/annealer.md).
     """
 
     def __init__(self, model: LinearLatencyModel, num_instances: int = 1,
@@ -65,7 +67,7 @@ class SLOAwareScheduler:
                  memory: Optional[MemoryModel] = None,
                  output_predictor: Optional[OutputLengthPredictor] = None,
                  sa_params: Optional[SAParams] = None,
-                 use_jax: bool = False):
+                 use_jax: bool = False, device=None):
         self.model = model
         self.num_instances = num_instances
         self.max_batch = max_batch
@@ -76,8 +78,15 @@ class SLOAwareScheduler:
         # shared mutable instance across every scheduler ever constructed
         self.sa_params = sa_params if sa_params is not None else SAParams()
         self.use_jax = use_jax
+        self.device = device
+        self._jax_cfg = None
         if use_jax:
-            raise_no_batched_annealer("SLOAwareScheduler(use_jax=True)")
+            # map SAParams onto the jitted annealer's config (one
+            # temperature schedule AND one proposal budget for both
+            # backends) up front: a jit-unsupported ablation config
+            # should fail at construction, not inside schedule()
+            from repro_torch.core.annealing_torch import config_from_sa_params
+            self._jax_cfg = config_from_sa_params(self.sa_params)
 
     # ------------------------------------------------ instance assignment
     def assign_instances(self, requests: Sequence[Request]
@@ -108,8 +117,15 @@ class SLOAwareScheduler:
                     r.predicted_output_len = r.output_len
         buckets = self.assign_instances(requests)
         arrays_of = [as_arrays(b) if b else None for b in buckets]
+        jax_results = None
         if self.use_jax:
-            raise_no_batched_annealer("SLOAwareScheduler(use_jax=True)")
+            # ONE jitted program anneals every instance: vmap over
+            # (instances × chains) with ragged loads padded and masked
+            from repro_torch.core.annealing_torch import priority_mapping_multi_torch
+            jax_results = iter(priority_mapping_multi_torch(
+                [a for a in arrays_of if a is not None], self.model,
+                self.max_batch, self._jax_cfg, seed=self.sa_params.seed,
+                incremental=self.sa_params.incremental, device=self.device))
         queues, sa_results = [], []
         assignment = {}
         g_num, g_den = 0.0, 0.0
@@ -117,8 +133,11 @@ class SLOAwareScheduler:
             q = InstanceQueue(inst)
             if bucket:
                 arrays = arrays_of[inst]
-                res = priority_mapping(arrays, self.model,
-                                       self.max_batch, self.sa_params)
+                if jax_results is not None:
+                    res = SAResult(*next(jax_results), -1, False)
+                else:
+                    res = priority_mapping(arrays, self.model,
+                                           self.max_batch, self.sa_params)
                 sa_results.append(res)
                 ev = evaluate(arrays, self.model, res.perm, res.batch_id)
                 g_num += ev.n_met

@@ -698,7 +698,8 @@ class Engine:
         ``arrival_time`` (relative to the run start) has passed on the
         engine clock."""
         pol, preemptive = resolve_policy(policy, model=model,
-                                         max_batch=self.max_slots)
+                                         max_batch=self.max_slots,
+                                         device=self.device)
         if model is None:
             model = getattr(pol, "model", None)
         if discipline is None:

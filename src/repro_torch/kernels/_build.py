@@ -40,12 +40,13 @@ SOURCES = {
     "flash_attention_dq": "flash_attention_bwd",
     "flash_attention_dkv": "flash_attention_bwd",
     "ssd_scan": "ssd_scan",
+    "anneal": "anneal",
 }
 KERNELS = tuple(SOURCES)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes: every pointer and the stream as c_void_p, so ctypes never cuts
 # a 64-bit address to a 32-bit int
 SIGNATURES = {
@@ -60,6 +61,16 @@ SIGNATURES = {
     "flash_attention_dkv": [_P] * 8 + [_I] * 8 + [_P],
     # + the C·Bᵀ workspace, and the plan's slices
     "ssd_scan": [_P] * 9 + [_I] * 7 + [_P],
+    # reqc, n_valid, draws, the three outputs, the workspace; the shapes,
+    # iters and the scoring path; T0, T_thres, tau
+    "anneal": [_P] * 7 + [_I] * 7 + [_F] * 3 + [_P],
+}
+# entry points beside a kernel's that launch nothing: name -> (the kernel
+# whose library holds it, argtypes, restype)
+HELPERS = {
+    # bytes of global workspace an anneal of (instances, chains, N,
+    # max_batch, incremental) needs; 0 when its state fits on chip
+    "anneal_workspace_bytes": ("anneal", [_I] * 5, ctypes.c_longlong),
 }
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
@@ -191,19 +202,21 @@ def compiler_log(source: str) -> List[str]:
 
 
 def load(name: str):
-    """The named kernel's C entry point, its library built at first
-    use."""
+    """The C entry point of the named kernel (or of a helper in
+    ``HELPERS``), its library built at first use."""
     with _LOCK:
         fn = _FNS.get(name)
         if fn is None:
-            source = SOURCES[name]
+            kernel, argtypes, restype = HELPERS.get(
+                name, (name, SIGNATURES.get(name), ctypes.c_int))
+            source = SOURCES[kernel]
             lib = _LIBS.get(source)
             if lib is None:
-                build([name])
+                build([kernel])
                 lib = _LIBS[source] = ctypes.CDLL(str(library_path(source)))
             fn = getattr(lib, name)
-            fn.argtypes = SIGNATURES[name]
-            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
+            fn.restype = restype
             _FNS[name] = fn
         return fn
 

@@ -12,6 +12,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import anneal as _anneal
 from repro_torch.kernels import decode_attention as _dense
 from repro_torch.kernels import decode_attention_paged as _paged
 from repro_torch.kernels import decode_attention_q8 as _dense_q8
@@ -98,3 +99,15 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int, init_state=None):
         return _ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
                                    init_state=init_state)
     return _ssd.ssd_scan_cuda(x, dt, A, B, C, init_state=init_state)
+
+
+def anneal_chains(reqc, n_valid, draws, max_batch: int, T0: float,
+                  T_thres: float, tau: float, iters: int,
+                  incremental: bool = True):
+    """The batched simulated anneal over instances x chains (Algorithm 1,
+    ``draws`` the uniforms each proposal reads).  -> (best perm [I,C,N]
+    int32, best bnd [I,C,N] bool, best G [I,C])."""
+    fn = _anneal.anneal_chains_plain if reqc.device.type == "cpu" \
+        else _anneal.anneal_chains_cuda
+    return fn(reqc, n_valid, draws, max_batch, T0, T_thres, tau, iters,
+              incremental)

@@ -20,7 +20,10 @@ instead (the planner policies always use batch mode: their plan needs
 the whole workload up front).  ``--instances N`` scales streaming mode
 data-parallel: an :class:`repro_torch.serving.EngineFleet` of N engines
 sharing one params dict, routed by ``--mapper`` (least-loaded default;
-``annealed`` needs the batched annealer and raises until ROADMAP M7).
+``annealed`` is the paper's Algorithm 2: memory-greedy assignment, then
+each instance's queue annealed by the batched annealer on the engines'
+device).  ``--policy slo-reanneal:jax`` re-anneals the waiting queue on
+that annealer at every admission event.
 """
 from __future__ import annotations
 
@@ -111,8 +114,8 @@ def main(argv=None):
                          "decode round is host-bound)")
     ap.add_argument("--mapper", default="least-loaded",
                     help="fleet routing: round-robin | least-loaded | "
-                         "slo-affinity | memory-greedy (annealed raises: "
-                         "ROADMAP M7)")
+                         "slo-affinity | memory-greedy | annealed "
+                         "(Algorithm 2 on the batched annealer)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain PyTorch kernels)")
     args = ap.parse_args(argv)
@@ -135,7 +138,8 @@ def main(argv=None):
                  device=device)
     planner = args.policy in ("slo", "planned")
     if args.mode == "stream" and not planner:
-        pol = make(args.policy, model=model, max_batch=args.max_batch)
+        pol = make(args.policy, model=model, max_batch=args.max_batch,
+                   device=device)
         # a policy that carries its own discipline (dynamic-chunk) wins
         # over the flag, as in batch mode below
         disc = getattr(pol, "discipline", None) or discipline
@@ -171,7 +175,8 @@ def main(argv=None):
         out = run_planner(eng, rts, model, discipline, args.max_batch,
                           respect)
     else:
-        pol = make(args.policy, model=model, max_batch=args.max_batch)
+        pol = make(args.policy, model=model, max_batch=args.max_batch,
+                   device=device)
         # a policy that carries its own discipline (dynamic-chunk) wins
         # over the flag
         discipline = getattr(pol, "discipline", None) or discipline

@@ -18,9 +18,10 @@ Two submission modes:
   ``mapper.plan``: a planning mapper both *assigns* requests to
   instances and may *order* each instance's queue.  The fleet submits in
   exactly that order; each loop's arrival-stable ingestion turns the
-  plan into its FCFS admission order.  ``route:annealed`` (the paper's
-  Algorithm 2 on the batched annealer) raises until the torch annealer
-  lands (ROADMAP M7).
+  plan into its FCFS admission order.  ``route:annealed`` is the paper's
+  Algorithm 2: memory-greedy assignment, then every instance's queue
+  annealed by the batched annealer in one launch on the engines'
+  device.
 
 Every loop gets a disjoint request-id range (``id_base``), so results,
 streams and the aggregated
@@ -69,9 +70,10 @@ class EngineFleet:
     mapper:
         :class:`~repro_torch.core.policies.InstanceMapper` instance or
         registry key (``"least-loaded"`` default, ``"round-robin"``,
-        ``"slo-affinity"``, ``"memory-greedy"``; ``"annealed"`` raises
-        when it routes, see the module docstring) — mapper kwargs
-        (``model=...``) ride through ``make_mapper``.
+        ``"slo-affinity"``, ``"memory-greedy"``, ``"annealed"``) —
+        mapper kwargs (``model=...``) ride through ``make_mapper``; the
+        annealed mapper anneals on the first engine's device unless
+        ``device=`` says otherwise.
     """
 
     def __init__(self, engines: Sequence[Engine], policy="fcfs", *,
@@ -84,6 +86,7 @@ class EngineFleet:
             ServeLoop(eng, policy, model=model, discipline=discipline,
                       overlap=overlap, id_base=i * _ID_STRIDE)
             for i, eng in enumerate(engines)]
+        mapper_kw.setdefault("device", engines[0].device)
         self.mapper = make_mapper(mapper, model=model, **mapper_kw)
         self._lock = threading.Lock()
 

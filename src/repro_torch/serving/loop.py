@@ -155,8 +155,11 @@ class ServeLoop:
                  metrics: Optional[ServingMetrics] = None,
                  id_base: int = 0):
         self.eng = engine
+        # a policy built here anneals (slo-reanneal:jax) on the engine's
+        # device
         self.pol, self.preemptive = resolve_policy(
-            policy, model=model, max_batch=engine.max_slots)
+            policy, model=model, max_batch=engine.max_slots,
+            device=engine.device)
         self.model = model if model is not None \
             else getattr(self.pol, "model", None)
         if discipline is None:

@@ -2,9 +2,12 @@
 exactly as the reference ``repro.core`` does: the same annealed
 permutation and G, the same policy decisions on the same view, the same
 discrete-event results, and the same block-pool / prefix-index state
-under one operation sequence.  The batched-annealer selectors, which
-reach the JAX-only annealer in the reference, raise in the port.  The
-trace sampler and the serving loop's token streams and metrics are
+under one operation sequence.  The batched-annealer selectors run on the
+port's annealer (``core/annealing_torch.py``) where the reference runs
+its JAX one: the same memory-greedy assignment, annealed plans no worse
+than their starting solutions, and source that differs from the
+reference only in the annealer's names and the ``device`` it runs on.
+The trace sampler and the serving loop's token streams and metrics are
 verbatim copies (import paths rewritten), and replay and summarize
 alike."""
 import importlib
@@ -167,18 +170,111 @@ def test_verbatim_copies(module):
         re.sub(r"\brepro\.", "repro_torch.", ref)
 
 
+def _starts_g(m, reqs, model, mb):
+    """The better of Algorithm 1's two starting solutions' G."""
+    obj = m["core.objective"]
+    arrays = m["core.slo"].as_arrays(reqs)
+    return max(obj.evaluate(arrays, model, *obj.fcfs_schedule(len(reqs),
+                                                              mb)).G,
+               obj.evaluate(arrays, model, *obj.sorted_by_e2e_schedule(
+                   arrays, model, mb)).G)
+
+
 @pytest.mark.parametrize("selector", [
     "slo-reanneal:jax", "scheduler-use-jax", "route:annealed"])
-def test_batched_annealer_selectors_raise(selector):
-    m = _mods("repro_torch")
-    model = m["core.latency_model"].PAPER_TABLE2
-    with pytest.raises(ValueError, match="torch annealer: ROADMAP M7"):
-        if selector == "scheduler-use-jax":
-            m["core"].SLOAwareScheduler(model, use_jax=True)
-        elif selector == "route:annealed":
-            mapper = m["core.policies"].make(selector, model=model)
-            mapper.map_batch(m["data.synthetic"].sample_requests(4), [
-                m["core.policies"].InstanceState(instance_id=i)
-                for i in range(2)])
-        else:
-            m["core.policies"].make(selector, model=model, max_batch=4)
+def test_batched_annealer_selectors_run(selector):
+    """Each selector that reaches the JAX annealer in the reference runs
+    on the port's annealer on the CPU: the memory-greedy assignment is
+    the reference's exactly (it draws no random numbers), and every
+    instance's annealed plan scores (numpy ``evaluate``) no lower than
+    its starting solutions."""
+    ref, port = _mods("repro"), _mods("repro_torch")
+    for m in (ref, port):
+        m["core.objective"] = importlib.import_module(
+            m["core"].__name__ + ".objective")
+    model = port["core.latency_model"].PAPER_TABLE2
+    jmodel = ref["core.latency_model"].PAPER_TABLE2
+    reqs = port["data.synthetic"].sample_requests(20, seed=9)
+    jreqs = ref["data.synthetic"].sample_requests(20, seed=9)
+    obj, as_arrays = port["core.objective"], port["core.slo"].as_arrays
+    # finite memory, so the memory-greedy assignment spreads the requests
+    mem, jmem = (importlib.import_module(m["core"].__name__ + ".profiler")
+                 .MemoryModel(total_memory=1e6) for m in (port, ref))
+    if selector == "slo-reanneal:jax":
+        pol = port["core.policies"].make(selector, model=model, max_batch=4,
+                                         device="cpu")
+        assert pol.backend == "jax" and pol.device == "cpu"
+        # the policy admits in the annealed order, and the annealed
+        # schedule scores no lower than the starting solutions
+        from repro_torch.core.annealing_torch import priority_mapping_torch
+        arrays = as_arrays(reqs)
+        perm, bid, _ = priority_mapping_torch(arrays, model, 4, pol._jax_cfg,
+                                              seed=0, device="cpu")
+        assert pol._anneal_perm(arrays) == perm.tolist()
+        assert sorted(perm.tolist()) == list(range(20))
+        assert obj.evaluate(arrays, model, perm, bid).G >= \
+            _starts_g(port, reqs, model, 4) * (1 - 1e-5)
+        view, _ = _view(port)
+        dec = pol.decide(view)
+        assert sorted(dec.admit) == list(range(len(view.pending)))
+        return
+    if selector == "scheduler-use-jax":
+        sched = port["core"].SLOAwareScheduler(
+            model, num_instances=2, max_batch=4, memory=mem, use_jax=True,
+            device="cpu")
+        want = ref["core"].SLOAwareScheduler(
+            jmodel, num_instances=2, max_batch=4, memory=jmem,
+            use_jax=True).schedule(jreqs).assignment
+    else:
+        mapper = port["core.policies"].make(selector, model=model,
+                                            max_batch=4, memory=mem,
+                                            device="cpu")
+        states = [port["core.policies"].InstanceState(instance_id=i)
+                  for i in range(2)]
+        jstates = [ref["core.policies"].InstanceState(instance_id=i)
+                   for i in range(2)]
+        got = mapper.map_batch(reqs, states)
+        assert got == ref["core.policies"].make(
+            selector, model=jmodel, max_batch=4, memory=jmem).map_batch(
+                jreqs, jstates)
+        orders = mapper.plan(reqs, states)
+        assert [sorted(o) for o in orders] == [
+            [k for k, inst in enumerate(got) if inst == i] for i in range(2)]
+        want = {r.req_id: i for r, i in zip(jreqs, got)}
+        sched = mapper._scheduler(2)
+    out = sched.schedule(reqs)
+    assert out.assignment == want
+    for q in out.queues:
+        plan = [r for b in q.batches for r in b]
+        sizes = [len(b) for b in q.batches]
+        assert len(plan) >= 5 and max(sizes) <= 4
+        g = obj.evaluate(as_arrays(plan), model, np.arange(len(plan)),
+                         np.repeat(np.arange(len(sizes)), sizes)).G
+        assert g >= _starts_g(port, plan, model, 4) * (1 - 1e-5)
+
+
+def test_core_copies_differ_only_in_the_annealer_and_its_device():
+    """policies.py, scheduler.py and core/__init__.py are the
+    reference's with import paths rewritten, the JAX annealer's module
+    and front ends renamed to the port's, and a ``device`` argument
+    passed through to the annealer: with those names mapped back and the
+    device arguments taken out, every character but whitespace is the
+    reference's."""
+    names = (("annealing_torch", "annealing_jax"),
+             ("priority_mapping_multi_torch", "priority_mapping_multi_jax"),
+             ("priority_mapping_torch", "priority_mapping_jax"))
+    device = (",device=None", ",device=self.device", ",device=device",
+              "self.device=device")
+    for module in ("core/policies.py", "core/scheduler.py",
+                   "core/__init__.py"):
+        port = (SRC / "repro_torch" / module).read_text()
+        for a, b in names:
+            port = port.replace(a, b)
+        port = re.sub(r"\s+", "", re.sub(r"\brepro_torch\.", "repro.", port))
+        n_device = sum(port.count(d) for d in device)
+        for d in device:
+            port = port.replace(d, "")
+        ref = re.sub(r"\s+", "", (SRC / "repro" / module).read_text())
+        assert port == ref, module
+        assert n_device == {"core/policies.py": 10, "core/scheduler.py": 3,
+                            "core/__init__.py": 0}[module]

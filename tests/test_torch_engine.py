@@ -1,14 +1,16 @@
 """Port engine vs JAX engine: the same seeded workloads through
-``Engine.run_policy`` under fcfs / slo-reanneal / slo-preempt, stalling
-and ``chunked:16`` prefill, prefix cache on and off, on reduced
+``Engine.run_policy`` under fcfs / slo-reanneal / slo-preempt, the index
+family (W-index, SJF, EDF) and dynamic-chunk, stalling and
+``chunked:16`` prefill, prefix cache on and off, on reduced
 ``qwen3-1.7b`` in float32.
 
 Per request: identical greedy tokens and the same completion set.  The
 SLO policies read the measured engine clock, so their admission order
 may differ between the two engines; tokens are compared per request,
-never per tick.  Under fcfs the order is clock-free, so the prefix-cache
-accounting (cached tokens, ``prefix_stats()``, copy-on-write count) must
-match too."""
+never per tick.  Under fcfs, the index policies and dynamic-chunk the
+prefix-cache totals (``prefix_stats()``) must match too, and under fcfs,
+whose order is clock-free, the cached tokens per request and the
+copy-on-write count."""
 import dataclasses
 
 import jax
@@ -72,6 +74,10 @@ def _run(port: bool, params, policy, discipline, prefix, workload):
     ("fcfs", "stall", True, "multiturn"),
     ("fcfs", "stall", False, "multiturn"),
     ("fcfs", "chunked:16", True, "multiturn"),
+    ("index", "stall", True, "serve"),
+    ("index:sjf", "stall", True, "serve"),
+    ("index:edf", "stall", True, "serve"),
+    ("dynamic-chunk", None, True, "serve"),
 ])
 def test_engine_tokens_match_jax(params, policy, discipline, prefix,
                                  workload):
@@ -80,10 +86,11 @@ def test_engine_tokens_match_jax(params, policy, discipline, prefix,
     assert sorted(got) == sorted(want)
     for rid in want:
         assert got[rid]["tokens"] == want[rid]["tokens"], rid
+    if policy not in ("slo-reanneal", "slo-preempt"):
+        assert eng.prefix_stats() == jeng.prefix_stats()
     if policy == "fcfs":
         assert [got[r]["cached"] for r in sorted(got)] == \
             [want[r]["cached"] for r in sorted(want)]
-        assert eng.prefix_stats() == jeng.prefix_stats()
         assert eng.cow_copies == jeng.cow_copies
     if workload == "multiturn" and prefix:
         assert eng.prefix_stats()["hit_rate"] > 0

@@ -30,7 +30,7 @@ sys.exit(1 if bad else 0)
 # backward, the loss and step, AdamW, checkpoints, the launcher; the
 # Mamba2 block and the SSD scan kernel's wrapper; the streaming serving
 # loop, the fleet, their streams and metrics, trace replay, the serve
-# launcher)
+# launcher; the batched annealer and its kernel's wrapper)
 NEW_MODULES = ("repro_torch.kernels.decode_attention",
                "repro_torch.kernels.decode_attention_q8",
                "repro_torch.kernels.decode_attention_paged",
@@ -46,7 +46,9 @@ NEW_MODULES = ("repro_torch.kernels.decode_attention",
                "repro_torch.serving", "repro_torch.serving.loop",
                "repro_torch.serving.fleet", "repro_torch.serving.stream",
                "repro_torch.serving.metrics", "repro_torch.data.traces",
-               "repro_torch.launch.serve")
+               "repro_torch.launch.serve",
+               "repro_torch.core.annealing_torch",
+               "repro_torch.kernels.anneal")
 
 
 def test_import_loads_no_jax_and_no_reference():

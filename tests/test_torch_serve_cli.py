@@ -1,7 +1,8 @@
 """The port's serve CLI runs on the CPU when asked — batch mode, the
-streaming loop (overlapped and synchronous) and a two-engine fleet — the
-mapper that needs the batched annealer refuses, and ``chip_smoke.py``
-refuses to report without a card."""
+streaming loop (overlapped and synchronous) and a two-engine fleet,
+routed least-loaded or by the annealed mapper (Algorithm 2 on the
+batched annealer) — and ``chip_smoke.py`` refuses to report without a
+card."""
 import os
 import pathlib
 import subprocess
@@ -56,10 +57,14 @@ def test_serve_cli_fleet_on_cpu(capsys):
     assert "mode=fleet2:least-loaded" in last and "completed=4/4" in last
 
 
-def test_serve_cli_annealed_mapper_refuses():
-    with pytest.raises(ValueError, match="ROADMAP M7"):
-        serve.main(CPU_ARGS + ["--n", "2", "--instances", "2", "--mapper",
-                               "annealed"])
+def test_serve_cli_annealed_mapper_runs(capsys):
+    """``--mapper annealed`` is the paper's Algorithm 2 on the batched
+    annealer, here on the CPU the engines run on."""
+    torch.set_num_threads(2)
+    serve.main(CPU_ARGS + ["--n", "2", "--instances", "2", "--mapper",
+                           "annealed"])
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert "mode=fleet2:annealed" in last and "completed=2/2" in last
 
 
 def test_chip_smoke_refuses_without_a_card():

@@ -555,16 +555,32 @@ def test_fleet_ticks_its_loops_in_turn_on_the_calling_thread(params):
 
 
 @pytest.mark.parametrize("selector", ["route:annealed", "slo-reanneal:jax"])
-def test_batched_annealer_selectors_raise(params, selector):
-    """Both reach the batched annealer, which waits for its port: the
-    fleet's planning mapper when it routes, the policy when it is
-    made."""
-    with pytest.raises(ValueError, match="ROADMAP M7"):
-        if selector == "route:annealed":
-            fleet = EngineFleet([_engine(params) for _ in range(2)],
-                                "fcfs", mapper="annealed",
-                                model=PAPER_TABLE2)
-            fleet.submit_trace(synthetic.sample_serve_workload(
-                2, CFG.vocab_size, seed=18))
-        else:
-            ServeLoop(_engine(params), selector, model=PAPER_TABLE2)
+def test_batched_annealer_selectors_run(params, selector, monkeypatch):
+    """Both reach the batched annealer, on the engines' device (the CPU
+    here): the fleet's planning mapper when it routes a trace, the
+    policy at each admission event with a queue.  Every request
+    completes with its whole output."""
+    from repro_torch.core import annealing_torch
+    calls = []
+    for name in ("priority_mapping_torch", "priority_mapping_multi_torch"):
+        real = getattr(annealing_torch, name)
+
+        def spy(*a, _real=real, **kw):
+            calls.append(kw["device"])
+            return _real(*a, **kw)
+        monkeypatch.setattr(annealing_torch, name, spy)
+    pairs = synthetic.sample_serve_workload(8, CFG.vocab_size, seed=18,
+                                            arrival_rate=50.0)
+    if selector == "route:annealed":
+        loop = EngineFleet([_engine(params) for _ in range(2)], "fcfs",
+                           mapper="annealed", model=PAPER_TABLE2)
+    else:
+        loop = ServeLoop(_engine(params), selector, model=PAPER_TABLE2)
+        assert loop.pol.backend == "jax"
+    loop.start(warm_lengths=[len(p) for _, p in pairs])
+    streams = loop.submit_trace(pairs)
+    res = loop.serve()
+    assert len(res) == len(pairs)
+    assert all(st.done and len(st.tokens) == r.output_len
+               for (r, _), st in zip(pairs, streams))
+    assert calls and all(torch.device(d).type == "cpu" for d in calls)
