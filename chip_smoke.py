@@ -58,13 +58,22 @@ Phases (any failure exits non-zero before the last line):
            empty one) x contended/loose SLOs under the default budget,
            and at the shapes of benchmarks/bench_overhead.py (N 64/128/256
            x 8 chains, 4 instances x 64 x 2 chains, max_batch 8) under
-           iters=100 per level: best G bitwise or within 1e-6, the same
-           best schedule in >= 95% of chains, G within 1e-5 of numpy
-           evaluate of the kernel's schedule, every schedule a padded
-           permutation in batches of at most max_batch, two launches
-           bitwise equal, 0 bytes spilled; ms a call, us a proposal, the
-           plain version's eager ms, the bound, and the per-proposal time
-           at N 8 (the serial floor)
+           iters=100 per level; then a case at each threshold of the
+           kernel's launch plan and one past it (a warp per chain to N
+           32, also at N 20, three rows at once there at max_batch 10, a
+           row a pass at 11; a block at N 33, at N 100 with max_batch 64,
+           a thread a position to N 256, two a thread at N 257; the
+           request rows in shared memory at N 2048, in device memory at
+           N 4096; the state in a global workspace at N 8192; an early
+           exit inside a draw tile at iters 37), each printing its plan,
+           and every plan taken at least once: best G bitwise or within
+           1e-6, the same best schedule in >= 95% of chains, G within
+           1e-5 of numpy evaluate of the kernel's schedule, every
+           schedule a padded permutation in batches of at most
+           max_batch, two launches bitwise equal, every kernel instance
+           with 0 bytes spilled and a 0-byte stack frame; ms a call, us a
+           proposal, the plain version's eager ms, the bound, and the
+           per-proposal time at N 8
   serve    Qwen2.5-7B at its published config (28 layers, bf16, random
            seeded weights): latency-model fit, then run_policy under
            fcfs, slo-reanneal, slo-preempt + chunked:32, and a multi-turn
@@ -132,10 +141,12 @@ import argparse
 import dataclasses
 import json
 import math
+import multiprocessing
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "anneal", "serve", "stream", "ssm",
@@ -2360,9 +2371,42 @@ def _map(tree, fn):
 ANNEAL_N = (8, 64, 256, 1024)
 ANNEAL_MB = (1, 8, 32)
 ANNEAL_IC = ((1, 8), (4, 2), (8, 8))
-# past the shared-memory budget: the per-chain state in the global
-# workspace (padded N, max_batch), 8 chains, contended SLOs
-ANNEAL_GLOBAL = ((4096, 8), (4096, 64))
+# a case at each threshold of the kernel's launch plan (csrc/anneal.cu:
+# a warp per chain to N 32, three rows at once there to max_batch 10, a
+# thread a position to N 256, the request rows and the state in shared
+# memory while they fit) and one past it, one instance x 4 chains, both
+# scoring paths: (label, padded N, n_valid, max_batch, regime, iters a
+# level or None for the default budget, the plan expected: threads,
+# request rows in shared memory, state in shared memory)
+# a case where a chain meets every SLO after its first level of 37
+# proposals, and stops inside its second tile of 32 draws
+ANNEAL_EXIT = "early exit inside a draw tile"
+ANNEAL_EDGES = (
+    ("warp, N not a multiple of 32", 20, 20, 8, "contended", None,
+     (32, True, True)),
+    ("warp at its N limit, three rows at once", 32, 32, 10, "contended",
+     None, (32, True, True)),
+    ("warp, a row a pass", 32, 32, 11, "contended", None, (32, True, True)),
+    ("block, one past the warp limit", 33, 33, 8, "contended", None,
+     (96, True, True)),
+    ("block, N not a multiple of 32, two members a lane", 100, 100, 64,
+     "contended", None, (128, True, True)),
+    ("block, a position a thread at its limit", 256, 200, 8, "contended",
+     None, (256, True, True)),
+    ("block, two positions a thread", 257, 257, 8, "contended", None,
+     (256, True, True)),
+    (ANNEAL_EXIT, 40, 24, 32, "loose", 37, (96, True, True)),
+    ("request rows in shared memory", 2048, 1536, 8, "contended", None,
+     (256, True, True)),
+    ("request rows in device memory", 4096, 3072, 8, "contended", None,
+     (256, False, True)),
+    ("request rows in device memory, max_batch 64", 4096, 3072, 64,
+     "contended", None, (256, False, True)),
+    ("state in the global workspace", 8192, 6144, 8, "contended", None,
+     (256, False, False)),
+    ("state in the global workspace, max_batch 64", 8192, 6144, 64,
+     "contended", None, (256, False, False)),
+)
 # bounds, stated before the first run on the card: the kernel's best G
 # vs the plain version's within 1e-6 relative (float32 sums of up to 1024
 # terms taken in another order: the kernel's block trees and scans vs
@@ -2377,9 +2421,9 @@ ANNEAL_G_TOL, ANNEAL_EVAL_TOL, ANNEAL_SAME = 1e-6, 1e-5, 0.95
 # instances, chains, requests per instance); max_batch 8, contended SLOs
 ANNEAL_BENCH = (("N64 C8", 1, 8, 64), ("N128 C8", 1, 8, 128),
                 ("N256 C8", 1, 8, 256), ("I4 N64 C2", 4, 2, 64))
-# a padded N of 8: the least work per proposal, so its time per proposal
-# is the design's serial floor (the chain of block barriers)
-ANNEAL_FLOOR = ("N8 C8 (floor)", 1, 8, 8)
+# a padded N of 8: the least work a proposal, where the dependent chain
+# of a proposal's steps is all there is
+ANNEAL_FLOOR = ("N8 C8", 1, 8, 8)
 
 
 def _anneal_arrays(n, seed, regime):
@@ -2419,12 +2463,13 @@ def _anneal_cost(n_inst, chains, n, mb, props, incremental):
     each chain's draw rows read once, its best schedule and G written
     once; per proposal (every proposal of the schedule, as no chain of
     a contended instance meets every SLO) the incremental path rebuilds
-    3 rows of mb members at 10 flops each, sorts them (3 mb^2 compares),
-    takes an N-long scan and three N-long sums and does the reference's
-    N x mb slack compares; the full path 25 flops per position."""
+    3 rows of mb members at 10 flops each, takes an N-long scan and
+    three N-long sums and compares each of the N slacks with its batch's
+    wait once (no row needs sorting for that count); the full path 25
+    flops per position."""
     nbytes = n_inst * (n * 11 * 4 + 4) + n_inst * chains * (
         props * 16 + n * 5 + 4)
-    per = 30 * mb + 3 * mb * mb + 4 * n + n * mb if incremental else 25 * n
+    per = 30 * mb + 4 * n + n if incremental else 25 * n
     return nbytes, n_inst * chains * props * per
 
 
@@ -2482,23 +2527,69 @@ def _check_anneal(arrays, nv, mb, got, plain, again, label, stats):
                         f"{ev.n_met} vs plain's schedule {evp.n_met}")
 
 
-def phase_anneal(ctx):
-    """The batched annealer's kernel against its plain version on the
-    same draws, over the sweep and both scoring paths, then timed at the
-    benchmark's shapes."""
+def _check_early_exit(args, got, tag):
+    """That a chain of this case stopped after its first level, inside a
+    draw tile: the plain version on that chain's first ``iters`` draws
+    finishes (it raises when a chain needs more), on none it does not,
+    and the kernel's chain equals it bit for bit."""
     import torch
+    from repro_torch.kernels import anneal as ka
+    reqc, nv, draws, *rest = args
+    iters = rest[-2]
+    if iters % 32 == 0:
+        raise AssertionError(f"anneal {tag}: {iters} proposals a level end "
+                             "a draw tile")
+
+    def plain_within(c, cut):
+        one = draws[:, c:c + 1, :cut].contiguous()
+        try:
+            return ka.anneal_chains_plain(reqc, nv, one, *rest)
+        except ValueError:
+            return None
+    for c in range(draws.shape[1]):
+        if plain_within(c, 0) is not None:
+            continue
+        out = plain_within(c, iters)
+        if out is None:
+            continue
+        if not all(torch.equal(a[:, c:c + 1], b) for a, b in zip(got, out)):
+            raise AssertionError(f"anneal {tag}: chain {c} stops after "
+                                 f"{iters} proposals in the plain version, "
+                                 "not so in the kernel")
+        return c
+    raise AssertionError(f"anneal {tag}: no chain stops after its first "
+                         f"{iters} proposals")
+
+
+def _plain_on_card(args):
+    """The plain version on the card, in a worker process, on CPU copies
+    of one case's inputs: (perm, bnd, G) on the CPU."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import torch
+    from repro_torch.kernels import anneal as ka
+    dev = [a.cuda() if torch.is_tensor(a) else a for a in args]
+    return tuple(t.cpu() for t in ka.anneal_chains_plain(*dev))
+
+
+def _plan_name(plan):
+    """The kind of launch plan: a warp per chain, or a block with the
+    request rows and the state where they fit."""
+    if plan["threads"] == 32:
+        return "warp per chain"
+    return ("block, request rows and state in shared memory"
+            if plan["reqc_smem"] else
+            "block, state in shared memory, request rows in device memory"
+            if plan["state_smem"] else "block, state in the global workspace")
+
+
+def _anneal_sweep(stats, plans):
+    """The kernel against its plain version on the same draws: the sweep
+    and a case at each threshold of the launch plan, both scoring
+    paths."""
     from repro_torch.core import annealing_torch as at
     from repro_torch.core.annealing import SAParams
-    from repro_torch.kernels import _build
     from repro_torch.kernels import anneal as ka
     from repro_torch.kernels import ops
-    card, smi, results = ctx["card"], ctx["smi"], ctx["results"]
-    spill = [ln for ln in _build.compiler_log("anneal")
-             if ", 0 bytes spill stores, 0 bytes spill loads" not in ln]
-    if spill or not _build.compiler_log("anneal"):
-        raise AssertionError(f"anneal: ptxas spills or no log: {spill}")
-    stats = {"chains": 0, "same": 0, "g_rel": 0.0, "g_abs": 0.0,
-             "eval_rel": 0.0}
     t0 = time.perf_counter()
     runs = 0
     for n in ANNEAL_N:
@@ -2523,71 +2614,145 @@ def phase_anneal(ctx):
                                  f"{'incremental' if inc else 'full'}")
                         _check_anneal(arrays, nv, mb, got, plain, again,
                                       label, stats)
+                        plans.add(_plan_name(ka.launch_plan(n, mb, inc)))
                         runs += 1
-    for n, mb in ANNEAL_GLOBAL:
-        cfg = at.config_from_sa_params(SAParams(seed=0), num_chains=8)
-        arrays, reqc, nv, draws = _anneal_case([n - n // 4], n, "contended",
-                                               cfg, seed=n + mb)
-        for inc in (True, False):
-            args = (reqc, nv, draws, mb, cfg.T0, cfg.T_thres, cfg.tau,
-                    cfg.iters, inc)
-            if inc and ka.workspace_bytes(1, 8, n, mb, inc) == 0:
-                raise AssertionError(f"anneal N{n} mb{mb}: state in shared "
-                                     "memory, not the workspace")
-            _check_anneal(arrays, nv, mb, ops.anneal_chains(*args),
-                          ka.anneal_chains_plain(*args),
-                          ops.anneal_chains(*args),
-                          f"N{n} mb{mb} I1 C8 contended "
-                          f"{'incremental' if inc else 'full'}", stats)
-            runs += 1
     log(f"  anneal sweep: {runs} runs (N {ANNEAL_N} x max_batch "
         f"{ANNEAL_MB} x (instances, chains) {ANNEAL_IC} x contended/loose x "
-        f"incremental/full, and (N, max_batch) {ANNEAL_GLOBAL} with the "
-        f"state in the global workspace, global budget) in "
+        f"incremental/full, global budget) in "
         f"{time.perf_counter() - t0:.1f} s")
-    rows = []
-    for label, n_inst, chains, n in ANNEAL_BENCH + (ANNEAL_FLOOR,):
-        cfg = at.TorchSAConfig(iters=100, num_chains=chains)
-        mb = 8
-        arrays, reqc, nv, draws = _anneal_case([n] * n_inst, n, "contended",
-                                               cfg, seed=7)
-        for inc in (True, False) if label == "N64 C8" else (True,):
+    t0 = time.perf_counter()
+    for label, n, nvi, mb, regime, iters, want in ANNEAL_EDGES:
+        cfg = at.config_from_sa_params(SAParams(seed=0), num_chains=4)
+        if iters:
+            cfg = dataclasses.replace(cfg, iters=iters)
+        arrays, reqc, nv, draws = _anneal_case([nvi], n, regime, cfg,
+                                               seed=n + mb)
+        for inc in (True, False):
+            plan = ka.launch_plan(n, mb, inc)
+            if (plan["threads"], plan["reqc_smem"],
+                    plan["state_smem"]) != want:
+                raise AssertionError(f"anneal {label}: plan {plan}, "
+                                     f"expected {want}")
+            if plan["state_smem"] != (
+                    ka.workspace_bytes(1, 4, n, mb, inc) == 0):
+                raise AssertionError(f"anneal {label}: workspace bytes "
+                                     "disagree with the plan")
             args = (reqc, nv, draws, mb, cfg.T0, cfg.T_thres, cfg.tau,
                     cfg.iters, inc)
+            tag = (f"{label}: N{n} n_valid {nvi} mb{mb} {regime} iters "
+                   f"{cfg.iters} {'incremental' if inc else 'full'}")
             got = ops.anneal_chains(*args)
-            again = ops.anneal_chains(*args)
-            tag = f"{label} mb{mb} {'incremental' if inc else 'full'}"
-            plain_ms = None
-            if label != ANNEAL_FLOOR[0]:
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                plain = ka.anneal_chains_plain(*args)
-                torch.cuda.synchronize()
-                plain_ms = (time.perf_counter() - t) * 1e3
-                _check_anneal(arrays, nv, mb, got, plain, again,
-                              tag + " per_level", stats)
-            elif not all(map(torch.equal, got, again)):
-                raise AssertionError(f"anneal {tag}: two launches differ")
-            ms = time_ms(lambda: ops.anneal_chains(*args), 3)
-            props = at.temperature_levels(cfg.T0, cfg.T_thres,
-                                          cfg.tau) * cfg.iters
-            nbytes, flops = _anneal_cost(n_inst, chains, n, mb, props, inc)
-            b_ms, b_by = bound(nbytes, flops, "float32")
-            row = {"shape": tag, "instances": n_inst, "chains": chains,
-                   "n": n, "max_batch": mb, "proposals": props, "ms": ms,
-                   "us_per_proposal": ms * 1e3 / props,
-                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
-            rows.append(row)
-            log(f"  anneal {card} | {smi} | {tag} ({props} proposals a "
-                f"chain): kernel {ms:.3f} ms ({row['us_per_proposal']:.3f} "
-                f"us a proposal), plain eager {plain_ms} ms, bound "
-                f"{b_ms:.6f} ms ({b_by})")
+            _check_anneal(arrays, nv, mb, got, ka.anneal_chains_plain(*args),
+                          ops.anneal_chains(*args), tag, stats)
+            plans.add(_plan_name(plan))
+            log(f"  anneal {tag}: {_plan_name(plan)} ({plan['threads']} "
+                "threads)")
+            if label == ANNEAL_EXIT:
+                c = _check_early_exit(args, got, tag)
+                log(f"  anneal {tag}: chain {c} meets every SLO and stops "
+                    f"after {cfg.iters} proposals, inside its draw tile "
+                    f"{cfg.iters // 32}")
+            runs += 1
+    log(f"  anneal plan thresholds: {2 * len(ANNEAL_EDGES)} runs in "
+        f"{time.perf_counter() - t0:.1f} s; plans taken: {sorted(plans)}")
+    if len(plans) != 4:
+        raise AssertionError(f"anneal: plans taken {sorted(plans)}, not "
+                             "all four")
+
+
+def phase_anneal(ctx):
+    """The batched annealer's kernel against its plain version on the
+    same draws, over the sweep, the launch plan's thresholds and both
+    scoring paths, then timed at the benchmark's shapes."""
+    import torch
+    from repro_torch.core import annealing_torch as at
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import anneal as ka
+    from repro_torch.kernels import ops
+    card, smi, results = ctx["card"], ctx["smi"], ctx["results"]
+    ptxas = _build.compiler_log("anneal")
+    bad = [ln for ln in ptxas if "0 bytes stack frame, 0 bytes spill "
+           "stores, 0 bytes spill loads" not in ln]
+    if bad or len(ptxas) != 6:
+        raise AssertionError(f"anneal: not six kernel instances with a "
+                             f"0-byte stack and 0 spill: {ptxas}")
+    stats = {"chains": 0, "same": 0, "g_rel": 0.0, "g_abs": 0.0,
+             "eval_rel": 0.0}
+    plans = set()
+    mb = 8
+    bench = []
+    for label, n_inst, chains, n in ANNEAL_BENCH + (ANNEAL_FLOOR,):
+        cfg = at.TorchSAConfig(iters=100, num_chains=chains)
+        case = _anneal_case([n] * n_inst, n, "contended", cfg, seed=7)
+        for inc in (True, False) if label == "N64 C8" else (True,):
+            bench.append((label, n_inst, chains, n, cfg, case, inc))
+    # the plain version at the benchmark's shapes (an eager run takes
+    # 10-30 s of host time) in worker processes on the card while the
+    # sweep runs, all but the first, which is timed here; no worker runs
+    # while the kernel is timed
+    pool = ProcessPoolExecutor(max_workers=4, mp_context=(
+        multiprocessing.get_context("spawn")))
+    try:
+        futures = {}
+        for k, (label, _, _, _, cfg, (_, reqc, nv, draws), inc) in \
+                enumerate(bench):
+            if k and label != ANNEAL_FLOOR[0]:
+                futures[k] = pool.submit(_plain_on_card, (
+                    reqc.cpu(), nv.cpu(), draws.cpu(), mb, cfg.T0,
+                    cfg.T_thres, cfg.tau, cfg.iters, inc))
+        _anneal_sweep(stats, plans)
+        t0 = time.perf_counter()
+        plain_of = {k: f.result() for k, f in futures.items()}
+        wait = time.perf_counter() - t0
+        log(f"  anneal: the plain version at {len(futures)} benchmark "
+            f"shapes in worker processes, waited {wait:.1f} s after the "
+            "sweep")
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    rows = []
+    for k, (label, n_inst, chains, n, cfg, case, inc) in enumerate(bench):
+        arrays, reqc, nv, draws = case
+        args = (reqc, nv, draws, mb, cfg.T0, cfg.T_thres, cfg.tau,
+                cfg.iters, inc)
+        got = ops.anneal_chains(*args)
+        again = ops.anneal_chains(*args)
+        tag = f"{label} mb{mb} {'incremental' if inc else 'full'}"
+        plain_ms = None
+        if k == 0:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            plain = ka.anneal_chains_plain(*args)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t) * 1e3
+            _check_anneal(arrays, nv, mb, got, plain, again,
+                          tag + " per_level", stats)
+        elif k in plain_of:
+            _check_anneal(arrays, nv, mb, got, plain_of[k], again,
+                          tag + " per_level", stats)
+        elif not all(map(torch.equal, got, again)):
+            raise AssertionError(f"anneal {tag}: two launches differ")
+        ms = time_ms(lambda: ops.anneal_chains(*args), 10)
+        props = at.temperature_levels(cfg.T0, cfg.T_thres,
+                                      cfg.tau) * cfg.iters
+        nbytes, flops = _anneal_cost(n_inst, chains, n, mb, props, inc)
+        b_ms, b_by = bound(nbytes, flops, "float32")
+        row = {"shape": tag, "instances": n_inst, "chains": chains,
+               "n": n, "max_batch": mb, "proposals": props, "ms": ms,
+               "us_per_proposal": ms * 1e3 / props,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "plan": _plan_name(ka.launch_plan(n, mb, inc))}
+        rows.append(row)
+        log(f"  anneal {card} | {smi} | {tag} ({props} proposals a "
+            f"chain, {row['plan']}): kernel {ms:.3f} ms "
+            f"({row['us_per_proposal']:.3f} us a proposal), plain eager "
+            f"{plain_ms} ms, bound {b_ms:.6f} ms ({b_by})")
     same = stats["same"] / stats["chains"]
     log(f"  anneal: {stats['chains']} chains, best schedule identical to "
         f"the plain version's in {same:.4f}, max |G - plain| relative "
         f"{stats['g_rel']:.3e} (limit {ANNEAL_G_TOL:g}), max |G - numpy "
         f"evaluate| relative {stats['eval_rel']:.3e} (limit "
-        f"{ANNEAL_EVAL_TOL:g}), two launches bitwise equal, ptxas 0 spill")
+        f"{ANNEAL_EVAL_TOL:g}), two launches bitwise equal, ptxas 0 spill "
+        f"and 0-byte stacks")
     if same < ANNEAL_SAME:
         raise AssertionError(f"anneal: identical best schedules in {same} "
                              f"< {ANNEAL_SAME} of chains")
@@ -2597,10 +2762,10 @@ def phase_anneal(ctx):
               "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
               "bound_by": first["bound_by"], "library_ms": None,
               "shape": first["shape"], "shapes": rows,
-              "serial_floor_us_per_proposal": rows[-1]["us_per_proposal"],
+              "n8_us_per_proposal": rows[-1]["us_per_proposal"],
               "identical_share": same, "max_rel_err_G": stats["g_rel"],
               "max_rel_err_vs_evaluate": stats["eval_rel"],
-              "ptxas": _build.compiler_log("anneal")})
+              "plans": sorted(plans), "ptxas": ptxas})
     log("  anneal rows: " + json.dumps(rows))
 
 

@@ -71,6 +71,9 @@ HELPERS = {
     # bytes of global workspace an anneal of (instances, chains, N,
     # max_batch, incremental) needs; 0 when its state fits on chip
     "anneal_workspace_bytes": ("anneal", [_I] * 5, ctypes.c_longlong),
+    # the launch plan at (N, max_batch, incremental): threads a block and
+    # where the request rows and the state sit
+    "anneal_plan": ("anneal", [_I] * 3, ctypes.c_int),
 }
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()

@@ -26,9 +26,11 @@ from repro_torch.core import annealing_torch as at
 from repro_torch.kernels import _build
 
 NAME = "anneal"
-# what the kernel takes: its row buffers hold max_batch slacks a row, and
-# its start-up argsort is quadratic in N
-MAX_N, MAX_BATCH = 16384, 256
+# what the kernel takes: its float64 sums, taken in another order than
+# the plain version's, are exact (and so order-free) while 24 bits of
+# mantissa + 16 binary orders of latency + log2(N) fit float64's 53, that
+# is to N 8192 (tests/test_torch_anneal_order.py)
+MAX_N, MAX_BATCH = 8192, 256
 
 
 def anneal_chains_plain(reqc, n_valid, draws, max_batch: int, T0: float,
@@ -117,6 +119,16 @@ def workspace_bytes(n_inst: int, chains: int, n: int, max_batch: int,
     whether a chain's state fits in shared memory): 0 when it does."""
     return int(_build.load("anneal_workspace_bytes")(
         n_inst, chains, n, max_batch, int(incremental)))
+
+
+def launch_plan(n: int, max_batch: int, incremental: bool) -> dict:
+    """The kernel's launch plan at these shapes (``anneal_plan`` in
+    csrc/anneal.cu, which alone decides it): ``threads`` a block (32 is
+    a warp per chain), and whether the request rows (``reqc_smem``) and
+    the per-chain state (``state_smem``) sit in shared memory."""
+    code = int(_build.load("anneal_plan")(n, max_batch, int(incremental)))
+    return {"threads": code & 0xFFFF, "reqc_smem": bool(code >> 16 & 1),
+            "state_smem": bool(code >> 17 & 1)}
 
 
 def check_inputs(reqc, n_valid, draws, max_batch, T0, T_thres, tau, iters):

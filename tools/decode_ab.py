@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """A/B times of the port's kernels between two checkouts of this
 repository, on one NVIDIA GPU: the bf16 decode kernels (default), the
-int8 decode kernels (``--kernels q8``) or the SSD chunk scan
-(``--kernels ssd``).
+int8 decode kernels (``--kernels q8``), the SSD chunk scan
+(``--kernels ssd``) or the batched annealer (``--kernels anneal``).
 
     git archive <commit> | tar -x -C build/other
-    python3 tools/decode_ab.py build/other [--kernels q8|ssd] [--out ab.json]
+    python3 tools/decode_ab.py build/other [--kernels q8|ssd|anneal] \
+        [--out ab.json]
 
 ``decode``: the paged decode (``decode_attention_paged``, K1) and the
 dense decode (``decode_attention``, K6) at the serve shape (Qwen2.5-7B
@@ -18,7 +19,12 @@ three shapes ``chip_smoke.py`` times (Mamba2-780M widths, nh 48, hd 64,
 ds 128, float32 x, B and C as the model hands them: B1 S96; B1 S32 from
 a state; B4 S2048), and one full-depth Mamba2-780M prefill of a
 2048-token prompt (B1, 48 layers, bf16 random weights from seed 0, into
-a dense cache, the LM head on the last position).  Through each
+a dense cache, the LM head on the last position).  ``anneal``: the
+batched-annealer kernel (``anneal_chains_cuda``) at ``chip_smoke.py``'s
+``ANNEAL_BENCH`` and ``ANNEAL_FLOOR`` shapes (N 64 / 128 / 256 x 8
+chains, 4 instances x 64 x 2 chains, N 8 x 8 chains; max_batch 8,
+contended SLOs, 100 proposals a level: 6300 a chain), incremental, and
+N 64 on the full path too, with ms a call and us a proposal.  Through each
 checkout's own wrappers, each building its kernels in its own
 ``build/``.  Runs in turns: the other checkout, this one, this one, the
 other, each in a process of its own.  Every kernel time is given twice:
@@ -203,7 +209,33 @@ def ssd_worker(tree: str) -> dict:
     return out
 
 
-WORKERS = {"decode": decode_worker, "q8": q8_worker, "ssd": ssd_worker}
+def anneal_worker(tree: str) -> dict:
+    sys.path.insert(0, os.path.join(tree, "src"))
+    sys.path.insert(0, HERE)
+    from chip_smoke import ANNEAL_BENCH, ANNEAL_FLOOR, _anneal_case
+    from repro_torch.core import annealing_torch as at
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import anneal as ka
+    _build.build(["anneal"])
+    out = {"tree": tree}
+    for label, n_inst, chains, n in ANNEAL_BENCH + (ANNEAL_FLOOR,):
+        cfg = at.TorchSAConfig(iters=100, num_chains=chains)
+        _, reqc, nv, draws = _anneal_case([n] * n_inst, n, "contended", cfg,
+                                          seed=7)
+        props = at.n_proposals(cfg)
+        for inc in (True, False) if label == "N64 C8" else (True,):
+            def fn():
+                return ka.anneal_chains_cuda(reqc, nv, draws, 8, cfg.T0,
+                                             cfg.T_thres, cfg.tau, cfg.iters,
+                                             inc)
+            ms = eager_ms(fn, 10)
+            out[f"anneal {label} {'incremental' if inc else 'full'}"] = {
+                "ms": ms, "us_per_proposal": ms * 1e3 / props}
+    return out
+
+
+WORKERS = {"decode": decode_worker, "q8": q8_worker, "ssd": ssd_worker,
+           "anneal": anneal_worker}
 
 
 def main(argv=None) -> int:
