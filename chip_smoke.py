@@ -25,7 +25,9 @@ Phases (any failure exits non-zero before the last line):
            8 kv heads); the bf16-q paged and dense decode (split-KV, over
            bf16 and int8 K/V) also on 2048-slot rings split many ways
            (lengths 1 to 2048, a wrapped ring under a window of 1024,
-           group 12, hd 80, int8 also hd 64, the timed B16 x 2048), each
+           group 12, hd 80, int8 also hd 64, zamba2-1.2b's shared block
+           at group 1 (32 q / 32 kv heads of hd 64), the timed B16 x
+           2048; K1 and K6 also timed at zamba2's serve shape), each
            bitwise equal across two launches and its split plan printed;
            int8 with NaN scales and random values in every pool row past
            each length, bitwise equal to those rows zeroed; decode times
@@ -87,8 +89,11 @@ Phases (any failure exits non-zero before the last line):
            of the in-repo ShareGPT and python-code length histograms
            (data/traces.py, lengths uncut) as Poisson arrivals at
            STREAM_RATE req/s, on a pool of STREAM_SLOTS sequences of
-           STREAM_SEQ tokens: Qwen2.5-7B on the paged engine under fcfs
-           (overlapped and synchronous in turns A B B A) and
+           STREAM_SEQ tokens, its models at STREAM_DEPTH of their
+           published depth (published widths; the latency model fit at
+           that depth): Qwen2.5-7B (14 of 28 layers) on the paged
+           engine under fcfs (overlapped and synchronous in turns A B B
+           A) and
            slo-preempt + chunked:32, a 2-engine EngineFleet sharing
            the params under least-loaded (one stream per loop, checked);
            then fcfs on the dense engine; then the batched annealer on
@@ -96,7 +101,7 @@ Phases (any failure exits non-zero before the last line):
            under slo-reanneal:jax as the trace arrives and with all of
            it waiting at t=0, and a 2-engine EngineFleet under
            route:annealed, each printing its anneal launches; then
-           Mamba2-780M under fcfs.
+           Mamba2-780M (24 of 48 layers) under fcfs.
            Every request completes with its whole output budget; per
            run: wall-clock TTFT and TBT p50/p90/p99, tok/s on the wall
            clock, attainment, G, dispatch widths, the share of
@@ -109,7 +114,19 @@ Phases (any failure exits non-zero before the last line):
            launches once per layer per prefill pass; then one prefill of
            a 2048-token prompt at full depth (B1), timed, with the SSD
            scan's launches and share of it (launches x device time)
-  int8     the same model: one 128-token prompt and 32 greedy decode
+  hybrid   Zamba2-1.2B at its published config (38 layers: 32 Mamba2
+           blocks, one shared attention+MLP block used at six layers, d
+           2048, 32 q / 32 kv heads of hd 64, d_state 64, bf16, random
+           seeded weights): the parameter tree (one shared block, {} at
+           the attention layers); latency-model fit on the paged engine,
+           then fcfs, slo-reanneal:jax and slo-preempt + chunked:32 on the
+           paged and on the dense engine (the SSD scan once per SSM layer
+           per prefill pass); a timed full-depth B1 2048-token prefill;
+           one ServeLoop run of the stream phase's trace on its pool
+           (paged fcfs); then 4 layers (SSM, ATTN, SSM, ATTN) in float32,
+           cuda vs cpu: both engines' tokens under fcfs and slo-preempt +
+           chunked:32, prefill + 4 decode logits within 1e-4 of max
+  int8     Qwen2.5-7B: one 128-token prompt and 32 greedy decode
            steps through an int8 paged cache and an int8 dense cache,
            each against the same run on a bf16 cache, with the
            synchronized host time of a decode step on each cache
@@ -129,7 +146,8 @@ Phases (any failure exits non-zero before the last line):
            under fcfs and slo-preempt + chunked:32, and the logits of one
            prefill and 4 decode steps, bounded
 Each path (paged serve, dense serve, h2o-danube serve, the five
-streaming paths, Mamba2 serve, int8, train) is driven with the
+streaming paths, Mamba2 serve, the hybrid's paged, dense and stream
+paths, int8, train) is driven with the
 launch counts set to 0 just before it and read just after; every kernel
 must launch on the path that runs it.  The line before the last is the
 kernels JSON; the last line is
@@ -150,7 +168,7 @@ from concurrent.futures import ProcessPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "anneal", "serve", "stream", "ssm",
-          "int8", "train", "parity")
+          "hybrid", "int8", "train", "parity")
 PEAK_BYTES = 3.35e12                       # H100 SXM HBM3, bytes/s
 PEAK_FLOPS = {"bfloat16": 989e12,          # dense tensor-core bf16
               "float32": 67e12}            # float32 outside tensor cores
@@ -176,6 +194,9 @@ GRAD_TOL = {"bfloat16": 1e-2, "float32": 5e-5}
 SSD_TOL = {"float32": (5e-5, 2e-3, 0.0), "bfloat16": (5e-5, 5e-2, 2 ** -7)}
 # Qwen2.5-7B attention shapes and the serve engine's page geometry
 H, KV, HD, PAGE = 28, 4, 128, 16
+# zamba2-1.2b's shared attention block (configs/zamba2_1_2b.py): MHA,
+# GQA group 1
+ZAMBA2_HEADS = dict(h=32, kv=32, hd=64)
 # Mamba2-780M's SSD widths (configs/mamba2_780m.py); the chunk whose
 # flops the f32 CUDA-core bound counts (64 rows: PR 15's yardstick, kept
 # so that it compares across kernel versions), and the kernel's own chunk
@@ -242,6 +263,12 @@ PATHS = {"serve_paged": ("decode_attention_paged", "flash_attention"),
          "serve_stream_route_annealed": ("anneal", "decode_attention_paged",
                                          "flash_attention"),
          "serve_ssm": ("ssd_scan",),
+         "serve_hybrid_paged": ("decode_attention_paged", "flash_attention",
+                                "ssd_scan"),
+         "serve_hybrid_dense": ("decode_attention", "flash_attention",
+                                "ssd_scan"),
+         "serve_stream_hybrid": ("decode_attention_paged", "flash_attention",
+                                 "ssd_scan"),
          "int8": ("decode_attention_paged_q8", "decode_attention_q8"),
          "train": TRAIN_KERNELS}
 # the int8 KV library yardstick: no single PyTorch call dequantizes int8
@@ -474,12 +501,14 @@ def decode_bound(q, lengths, L, row_bytes, index_bytes, window, dtype_name):
     attended = [min(x, window) if window else x for x in live]
     nbytes = (2 * q.numel() * q.element_size() + 2 * sum(live) * row_bytes
               + index_bytes)
-    return bound(nbytes, 4 * H * HD * sum(attended), dtype_name)
+    return bound(nbytes, 4 * q.shape[1] * q.shape[2] * sum(attended),
+                 dtype_name)
 
 
 def decode_cost(args, window, dtype_name):
     q, k, _, bt, ln = args
-    return decode_bound(q, ln, bt.shape[1] * PAGE, KV * HD * k.element_size(),
+    return decode_bound(q, ln, bt.shape[1] * PAGE,
+                        k.shape[2] * k.shape[3] * k.element_size(),
                         (bt.numel() + ln.numel()) * 4, window, dtype_name)
 
 
@@ -499,8 +528,9 @@ def decode_q8_inputs(b, lengths, pages_per_seq, dtype, window, gen,
 
 def decode_q8_cost(args, window, dtype_name):
     """int8 values + one bf16 scale per (token, kv head), for K and V."""
-    q, _, _, _, _, bt, ln = args
-    return decode_bound(q, ln, bt.shape[1] * PAGE, KV * (HD + 2),
+    q, kq, _, _, _, bt, ln = args
+    return decode_bound(q, ln, bt.shape[1] * PAGE,
+                        kq.shape[2] * (kq.shape[3] + 2),
                         (bt.numel() + ln.numel()) * 4, window, dtype_name)
 
 
@@ -526,14 +556,15 @@ def dense_q8_inputs(b, n_valid, L, dtype, gen, **heads):
 
 def dense_cost(args, window, dtype_name):
     q, k, _, nv = args
-    return decode_bound(q, nv, k.shape[1], KV * HD * k.element_size(),
+    return decode_bound(q, nv, k.shape[1],
+                        k.shape[2] * k.shape[3] * k.element_size(),
                         nv.numel() * 4, window, dtype_name)
 
 
 def dense_q8_cost(args, window, dtype_name):
     q, k, _, _, _, nv = args
-    return decode_bound(q, nv, k.shape[1], KV * (HD + 2), nv.numel() * 4,
-                        window, dtype_name)
+    return decode_bound(q, nv, k.shape[1], k.shape[2] * (k.shape[3] + 2),
+                        nv.numel() * 4, window, dtype_name)
 
 
 def sdpa_decode_fn(args):
@@ -554,7 +585,7 @@ def sdpa_decode_fn(args):
         return lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask, enable_gqa=True)
     except TypeError:                      # older torch: expand kv heads
-        rep = H // KV
+        rep = q.shape[1] // k.shape[2]
         ke = ks.repeat_interleave(rep, dim=1)
         ve = vs.repeat_interleave(rep, dim=1)
         return lambda: F.scaled_dot_product_attention(qs, ke, ve,
@@ -1105,6 +1136,11 @@ def phase_kernels(results):
             ("B4 L2048 hd80 H32 KV8",
              lambda dt: decode_inputs(4, [1, 100, 1000, 2048], 128, dt, 0,
                                       gen, h=32, kv=8, hd=80)),
+            # zamba2-1.2b's shared block: MHA, group 1 (15 of the m16
+            # tile's 16 rows zero)
+            ("B4 L2048 g1 H32 KV32 hd64",
+             lambda dt: decode_inputs(4, [1, 100, 1000, 2048], 128, dt, 0,
+                                      gen, **ZAMBA2_HEADS)),
             ("B16 len2048 (timed)",
              lambda dt: decode_inputs(16, [2048] * 16, 128, dt, 0, gen)),
         ]),
@@ -1139,6 +1175,9 @@ def phase_kernels(results):
             ("B4 L2048 hd64 H16 KV2 window512",
              lambda dt: decode_q8_inputs(4, [1, 100, 1000, 3000], 128, dt,
                                          512, gen, h=16, kv=2, hd=64)),
+            ("B4 L2048 g1 H32 KV32 hd64",
+             lambda dt: decode_q8_inputs(4, [1, 100, 1000, 2048], 128, dt,
+                                         0, gen, **ZAMBA2_HEADS)),
             ("B16 len2048 (timed)",
              lambda dt: decode_q8_inputs(16, [2048] * 16, 128, dt, 0, gen)),
         ]),
@@ -1160,6 +1199,9 @@ def phase_kernels(results):
             ("L2048 g12 H24 KV2 n_valid 1/33/1000/2048",
              lambda dt: dense_inputs(4, [1, 33, 1000, 2048], 2048, dt, gen,
                                      h=24, kv=2)),
+            ("L2048 g1 H32 KV32 hd64 n_valid 1/33/1000/2048",
+             lambda dt: dense_inputs(4, [1, 33, 1000, 2048], 2048, dt, gen,
+                                     **ZAMBA2_HEADS)),
             ("B16 L2048 n_valid 2048 (timed)",
              lambda dt: dense_inputs(16, [2048] * 16, 2048, dt, gen)),
         ]),
@@ -1189,6 +1231,9 @@ def phase_kernels(results):
             ("L2048 hd64 H16 KV2 n_valid 1/33/1000/2048",
              lambda dt: dense_q8_inputs(4, [1, 33, 1000, 2048], 2048, dt,
                                         gen, h=16, kv=2, hd=64)),
+            ("L2048 g1 H32 KV32 hd64 n_valid 1/33/1000/2048",
+             lambda dt: dense_q8_inputs(4, [1, 33, 1000, 2048], 2048, dt,
+                                        gen, **ZAMBA2_HEADS)),
             ("B16 L2048 n_valid 2048 (timed)",
              lambda dt: dense_q8_inputs(16, [2048] * 16, 2048, dt, gen)),
         ]),
@@ -1352,6 +1397,27 @@ def phase_kernels(results):
                 f"{100 * r8['bound_share']:.1f}% of its byte bound "
                 f"{r8['bound_ms']:.4f} ms, {r8['vs_bf16']:.2f}x {bf16}'s "
                 f"{rb['device_ms']:.4f} ms")
+    # K1 and K6 at zamba2-1.2b's serve shape: the shared block's 32 q / 32
+    # kv heads of hd 64 (group 1), 4 slots over a 256-token ring
+    for name, plain, kernel, a_kw, cost, lib in (
+            ("decode_attention_paged", dap.decode_attention_paged_plain,
+             dap.decode_attention_paged_cuda,
+             decode_inputs(4, [40, 90, 150, 220], 16, bf, 0, gen,
+                           n_blocks=65, **ZAMBA2_HEADS), decode_cost, None),
+            ("decode_attention", da.decode_attention_plain,
+             da.decode_attention_cuda,
+             dense_inputs(4, [40, 90, 150, 220], 256, bf, gen,
+                          **ZAMBA2_HEADS), dense_cost, sdpa_decode_fn)):
+        a, kw = a_kw
+        r = results[name]["zamba2"] = dict(
+            shape="B4 H32 KV32 hd64 L256 len[40,90,150,220] bf16 (group 1)",
+            **timed(plain, kernel, a, kw, cost, lib and lib(a), 50,
+                    "bfloat16", graph=True))
+        log(f"  {name} zamba2 serve shape (group 1): device "
+            f"{r['device_ms']:.4f} ms, eager {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']}), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms (device "
+            f"{r['library_device_ms']})")
     for name, r in results.items():
         log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
             f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
@@ -1370,14 +1436,16 @@ def _serve_run(cfg, params, model, pairs, policy, discipline, paged,
     rts = _to_rts(pairs)
     eng = Engine(cfg, params, max_slots=4, max_seq_len=256, paged=paged,
                  profiler=profiler, device="cuda")
-    pol = make(policy, model=model, max_batch=4)
+    pol = make(policy, model=model, max_batch=4, device=eng.device)
     out = eng.run_policy(rts, pol, discipline=discipline, model=model)
     torch.cuda.synchronize()
     for rt in rts:
         got = out[rt.req_id]["tokens"]
-        if len(got) != rt.max_new_tokens:
+        if len(got) != rt.max_new_tokens or not all(
+                0 <= t < cfg.vocab_size for t in got):
             raise AssertionError(f"request {rt.req_id}: {len(got)} of "
-                                 f"{rt.max_new_tokens} tokens")
+                                 f"{rt.max_new_tokens} tokens, or one out "
+                                 "of the vocabulary")
     met = sum(v["met"] for v in out.values())
     e2e = sum(v["e2e"] for v in out.values())
     ntok = sum(len(v["tokens"]) for v in out.values())
@@ -1482,7 +1550,6 @@ def phase_serve(ctx):
         return model, runs
 
     model, runs = count_path(results, "serve_paged", paged_path)
-    ctx["model"] = model
     _log_runs(card, runs)
     if runs[-1]["prefix_hit_rate"] <= 0:
         raise AssertionError("multi-turn run had no prefix hit")
@@ -1514,6 +1581,12 @@ STREAM_N = 64           # requests a stream run serves: ~16 s of arrivals
 # sequences of up to 4096 tokens, 15.0 GB of bf16 K/V (paged or dense)
 STREAM_SLOTS, STREAM_SEQ = 64, 4096
 TURNS = (True, False, False, True)   # paged fcfs: overlap on / off
+# the stream phase's Qwen2.5-7B and Mamba2-780M at half their published
+# depth (published widths, the first half of the layers), so that the
+# whole script keeps inside its time limit with the hybrid phase beside
+# it: each run's wall is set by the trace's longest request, a chain of
+# decode rounds whose host dispatch grows with the layers
+STREAM_DEPTH = 0.5
 
 
 def _stream_run(make, pairs, what):
@@ -1686,6 +1759,14 @@ def _stream_anneal_runs(ctx, engine, workload, model):
     return runs
 
 
+def _cut_depth(cfg):
+    """``cfg`` at ``STREAM_DEPTH`` of its layers, published widths (a
+    uniform stack: the pattern is rebuilt from the family, never cut)."""
+    return dataclasses.replace(cfg, num_layers=round(cfg.num_layers
+                                                     * STREAM_DEPTH),
+                               layer_pattern=())
+
+
 def phase_stream(ctx):
     """The streaming serving loop on the wall clock: each request's
     tokens stream out as the loop delivers them, decode rounds are
@@ -1700,12 +1781,14 @@ def phase_stream(ctx):
     from repro_torch.models.model import init_params
     from repro_torch.serving import EngineFleet, ServeLoop
     card, smi, results = ctx["card"], ctx["smi"], ctx["results"]
-    cfg, params = full_model(ctx)
-    model = ctx.get("model")
-    if model is None:
-        model = fit_latency_model(cfg, params, 4, np.random.default_rng(0),
-                                  device="cuda")
-        log(f"  latency model fit on {card}: {model}")
+    full_cfg, full_params = full_model(ctx)
+    cfg = _cut_depth(full_cfg)
+    params = {**full_params, "layers": full_params["layers"][
+        :cfg.num_layers]}
+    model = fit_latency_model(cfg, params, 4, np.random.default_rng(0),
+                              device="cuda")
+    log(f"  stream {cfg.name} at {cfg.num_layers} of {full_cfg.num_layers} "
+        f"layers: latency model fit on {card}: {model}")
 
     def engine(p=params, c=cfg, paged=True):
         return Engine(c, p, max_slots=STREAM_SLOTS, max_seq_len=STREAM_SEQ,
@@ -1767,16 +1850,17 @@ def phase_stream(ctx):
                     "dense fcfs stall")])
     runs += _stream_anneal_runs(ctx, engine, workload, model)
     for r in runs:
-        r["model"] = cfg.name
-    # Mamba2-780M at its published config: fcfs plans nothing with the
+        r["model"], r["layers"] = cfg.name, cfg.num_layers
+    # Mamba2-780M at its published width: fcfs plans nothing with the
     # latency model, so the paper's table serves
-    scfg = get_config("mamba2-780m")
+    scfg = _cut_depth(get_config("mamba2-780m"))
     sparams = init_params(scfg, seed=0, device="cuda")
+    log(f"  stream {scfg.name} at {scfg.num_layers} layers")
     ssm_runs = count_path(results, "serve_stream_ssm", lambda: [
         _stream_run(lambda: ServeLoop(engine(sparams, scfg), "fcfs",
                                       model=PAPER_TABLE2), workload(scfg),
                     "mamba2 dense fcfs stall")])
-    ssm_runs[0]["model"] = scfg.name
+    ssm_runs[0]["model"], ssm_runs[0]["layers"] = scfg.name, scfg.num_layers
     del sparams
     torch.cuda.empty_cache()
     runs += ssm_runs
@@ -1863,14 +1947,16 @@ def phase_ssm(ctx):
     torch.cuda.empty_cache()
 
 
-def long_prefill(cfg, params, results, s=2048, runs=3):
+def long_prefill(cfg, params, results, s=2048, runs=3, key="prefill"):
     """One prefill of an ``s``-token prompt at full depth (B1, into a
     dense cache, the LM head on the last position, as the engine
     prefills): the host clock around each synchronized pass, median of
-    ``runs`` after one warm-up; the SSD scan's launches in one pass, its
-    device time at that shape (float32 x, B, C as the model hands it,
-    CUDA-graph replays) and its share of the pass (launches x device
-    time over the pass)."""
+    ``runs`` after one warm-up; the SSD scan's launches in one pass (one
+    per SSM layer; a hybrid's attention layers launch the flash kernel
+    once each, and nothing else launches), its device time at that shape
+    (float32 x, B, C as the model hands it, CUDA-graph replays) and its
+    share of the pass (launches x device time over the pass), stored
+    under ``results["ssd_scan"][key]``."""
     import statistics
     import torch
     from repro_torch.kernels import ops
@@ -1901,26 +1987,152 @@ def long_prefill(cfg, params, results, s=2048, runs=3):
         times.append((time.perf_counter() - t0) * 1e3)
     counts = {k: n for k, n in ops.launch_counts().items() if n}
     k4 = counts.get("ssd_scan", 0) // runs
-    if k4 != cfg.num_layers or set(counts) != {"ssd_scan"}:
-        raise AssertionError(f"long prefill: {k4} ssd_scan launches per "
-                             f"pass, counts {counts}")
+    want = {k: runs * n for k, n in (("ssd_scan", len(cfg.ssm_layers)),
+                                      ("flash_attention",
+                                       len(cfg.attn_layers))) if n}
+    if counts != want:
+        raise AssertionError(f"long prefill: launches {counts} over {runs} "
+                             f"passes, want {want}")
     nh, hd, ds = (cfg.ssm.n_heads(cfg.d_model), cfg.ssm.head_dim,
                   cfg.ssm.d_state)
     x, d, A, B, C, _ = ssd_inputs(1, s, torch.float32, False, gen, nh=nh,
                                   hd=hd, ds=ds)
     dev = graph_ms(lambda: ss.ssd_scan_cuda(x, d, A, B, C), 10)
     ms = statistics.median(times)
-    out = {"prompt": s, "batch": 1, "layers": cfg.num_layers,
-           "prefill_ms": ms, "prefill_ms_runs": times,
+    out = {"model": cfg.name, "prompt": s, "batch": 1,
+           "layers": cfg.num_layers, "prefill_ms": ms,
+           "prefill_ms_runs": times, "launches_per_pass": {
+               k: n // runs for k, n in counts.items()},
            "ssd_scan_launches": k4, "ssd_scan_device_ms": dev,
            "ssd_scan_share": k4 * dev / ms}
     results.setdefault("ssd_scan", {"name": "ssd_scan",
-                                    **KERNELS["ssd_scan"]})["prefill"] = out
-    log(f"  ssm prefill B1 S{s} x {cfg.num_layers} layers: {ms:.2f} ms "
+                                    **KERNELS["ssd_scan"]})[key] = out
+    log(f"  {cfg.name} prefill B1 S{s} x {cfg.num_layers} layers: {ms:.2f} ms "
         f"(median of {runs}: {', '.join(f'{t:.2f}' for t in times)}); "
         f"ssd_scan {k4} launches x {dev:.4f} ms device = "
         f"{k4 * dev:.2f} ms, {100 * out['ssd_scan_share']:.1f}% of it")
     return out
+
+
+# the hybrid's stream run: the stream phase's trace and pool; the count
+# of requests may be cut for the time limit (printed with the run)
+HYBRID_STREAM_N = STREAM_N
+
+
+def phase_hybrid(ctx):
+    """Zamba2-1.2B at its published config (38 layers: 32 Mamba2 blocks
+    and six uses of one shared attention+MLP block, d 2048, bf16, random
+    seeded weights): the parameter tree (one ``shared_block``, ``{}`` at
+    the six attention layers); a latency-model fit on the paged engine,
+    then fcfs stall, ``slo-reanneal:jax`` stall and slo-preempt +
+    chunked:32 on the paged engine and on the dense one (K1 or K6, K2
+    and K4 launch on each; K4 once per SSM layer per prefill pass); one
+    timed full-depth B1 2048-token prefill; one ServeLoop run of the
+    stream phase's trace on its pool (fcfs, paged); then cuda-vs-cpu
+    parity at full width, 4 layers, float32."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.latency_model import PAPER_TABLE2
+    from repro_torch.core.profiler import LatencyProfiler
+    from repro_torch.data.synthetic import sample_serve_workload
+    from repro_torch.data.traces import sample_trace_workload
+    from repro_torch.engine.engine import Engine
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import fit_latency_model
+    from repro_torch.models.config import ATTN
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import ServeLoop
+    card, smi, results = ctx["card"], ctx["smi"], ctx["results"]
+    cfg = get_config("zamba2-1.2b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    attn = [i for i, kind in enumerate(cfg.layer_pattern) if kind == ATTN]
+    if any(params["layers"][i] for i in attn) or not all(
+            params["layers"][i] for i in cfg.ssm_layers) or set(
+            params["shared_block"]) != {"attn_norm", "mlp_norm", "attn",
+                                        "mlp"}:
+        raise AssertionError("zamba2: the parameter tree has no shared "
+                             "block, or an attention layer holds weights")
+    leaves = list(_leaves(params))
+    n_ssm, n_attn = len(cfg.ssm_layers), len(attn)
+    log(f"  {cfg.name}: {cfg.num_layers} layers ({n_ssm} Mamba2, {n_attn} "
+        f"uses of one shared attention block at {attn}) d={cfg.d_model} "
+        f"heads={cfg.num_heads}/{cfg.num_kv_heads} hd={cfg.head_dim} ff="
+        f"{cfg.d_ff} d_inner={cfg.ssm.d_inner(cfg.d_model)} ssm heads="
+        f"{cfg.ssm.n_heads(cfg.d_model)}x{cfg.ssm.head_dim} d_state="
+        f"{cfg.ssm.d_state} vocab={cfg.vocab_size} {cfg.dtype}: "
+        f"{sum(t.numel() for t in leaves) / 1e9:.3f} B params, "
+        f"{sum(t.numel() * t.element_size() for t in leaves) / 1e9:.2f} GB "
+        f"drawn in {time.perf_counter() - t0:.1f} s")
+    policies = (("fcfs", "stall"), ("slo-reanneal:jax", "stall"),
+                ("slo-preempt", "chunked:32"))
+    model = None
+
+    def serve(paged):
+        nonlocal model
+        if model is None:
+            model = fit_latency_model(cfg, params, 4,
+                                      np.random.default_rng(0),
+                                      device="cuda")
+            if model == PAPER_TABLE2:
+                raise AssertionError("the latency model fell back to the "
+                                     "paper's V100 table instead of "
+                                     "fitting this card")
+            log(f"  latency model fit on {card} (paged): {model}")
+        runs = []
+        for policy, disc in policies:
+            before = ops.launch_counts()
+            r = _serve_run(cfg, params, model,
+                           sample_serve_workload(8, cfg.vocab_size, seed=1),
+                           policy, disc, paged, profiler=LatencyProfiler())
+            r["launches"] = {k: n - before.get(k, 0) for k, n in
+                             ops.launch_counts().items()
+                             if n - before.get(k, 0)}
+            runs.append(r)
+        return runs
+
+    runs = []
+    for paged, path in ((True, "serve_hybrid_paged"),
+                        (False, "serve_hybrid_dense")):
+        got = count_path(results, path, lambda: serve(paged))
+        _log_runs(card, got)
+        decode = "decode_attention_paged" if paged else "decode_attention"
+        for r in got:
+            k = r["launches"]
+            log(f"  hybrid {r['layout']} {r['policy']} {r['discipline']}: "
+                f"launches {k}; ssd_scan {k.get('ssd_scan', 0)} = {n_ssm} "
+                f"x {r['prefill_passes']} prefill passes")
+            # K2 runs whole prompts only: a chunked prefill attends
+            # through the plain chunk path, as the reference's does
+            if r["completed"] != r["n"] or k.get("ssd_scan", 0) != \
+                    n_ssm * r["prefill_passes"] or k.get(decode, 0) <= 0:
+                raise AssertionError(f"hybrid run {r['layout']} "
+                                     f"{r['policy']} {r['discipline']}: {r}")
+        runs += got
+    prefill = long_prefill(cfg, params, results, key="prefill_hybrid")
+    pairs = sample_trace_workload(HYBRID_STREAM_N, cfg.vocab_size,
+                                  rate=STREAM_RATE, seed=1)
+    log(f"  hybrid stream: {HYBRID_STREAM_N} of the stream phase's "
+        f"{STREAM_N} requests at {STREAM_RATE} req/s, pool {STREAM_SLOTS} "
+        f"slots x {STREAM_SEQ} tokens")
+    stream = count_path(results, "serve_stream_hybrid", lambda: [
+        _stream_run(lambda: ServeLoop(Engine(
+            cfg, params, max_slots=STREAM_SLOTS, max_seq_len=STREAM_SEQ,
+            device="cuda"), "fcfs", model=model), pairs,
+            "zamba2 paged fcfs stall")])
+    stream[0]["model"] = cfg.name
+    _log_stream(card, smi, stream)
+    widths = set(stream[0]["dispatch_widths"])
+    if not widths or not widths <= {1 << k for k in range(
+            STREAM_SLOTS.bit_length())} or stream[0]["overlap_frac"] <= 0:
+        raise AssertionError(f"hybrid stream: widths {widths}, overlapped "
+                             f"share {stream[0]['overlap_frac']}")
+    del params
+    torch.cuda.empty_cache()
+    ctx["hybrid"] = {"serve": runs, "prefill": prefill, "stream": stream,
+                     "parity": _hybrid_parity()}
 
 
 def _decode_run(cfg, params, prompt, steps, quantized, layout,
@@ -2232,61 +2444,87 @@ def _stream_parity(cfg, p_gpu, p_cpu):
 
 
 def _ssm_parity():
-    """Mamba2-780M at full width, 2 layers, float32, TF32 off, on cuda
-    (the SSD scan kernel) and on cpu (its plain version): the dense
-    engine's greedy tokens per request must be identical under fcfs and
-    slo-preempt + chunked:32 (the paper's table as latency model on both,
-    so the two devices plan alike), and the logits of one prefill and 4
-    decode steps (cuda's greedy tokens fed to both) must agree within
-    1e-4 of max |cpu logit|: f32 sums in other orders (the kernel's own
-    bound against plain is 5e-5 of max |plain|; the matmuls around it and
-    the second layer add their own order)."""
-    import torch
+    """Mamba2-780M at full width, 2 layers (its dense engine)."""
     from repro_torch.configs import get_config
+    _recurrent_parity(dataclasses.replace(
+        get_config("mamba2-780m"), num_layers=2, layer_pattern=(),
+        dtype="float32"), ("dense",))
+
+
+def _hybrid_parity():
+    """Zamba2-1.2B at full width, 4 layers (SSM, ATTN, SSM, ATTN: the
+    shared block used twice), on both layouts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import ATTN, SSM
+    return _recurrent_parity(dataclasses.replace(
+        get_config("zamba2-1.2b"), num_layers=4,
+        layer_pattern=(SSM, ATTN, SSM, ATTN), dtype="float32"),
+        ("paged", "dense"))
+
+
+def _recurrent_parity(cfg, layouts):
+    """``cfg`` (float32, TF32 off) on cuda (the kernels) and on cpu (their
+    plain versions), on each of ``layouts``: the engine's greedy tokens
+    per request must be identical under fcfs and slo-preempt +
+    chunked:32 (the paper's table as latency model on both, so the two
+    devices plan alike), and the logits of one prefill and 4 decode
+    steps (cuda's greedy tokens fed to both) must agree within 1e-4 of
+    max |cpu logit|: f32 sums in other orders (the SSD scan's own bound
+    against plain is 5e-5 of max |plain|; the matmuls around it and the
+    other layers add their own order).  Returns the logit differences
+    per layout."""
+    import torch
     from repro_torch.core.latency_model import PAPER_TABLE2
     from repro_torch.core.policies import make
     from repro_torch.data.synthetic import sample_serve_workload
     from repro_torch.engine.engine import Engine
     from repro_torch.launch.serve import _to_rts
     from repro_torch.models.model import init_params
-    cfg = dataclasses.replace(get_config("mamba2-780m"), num_layers=2,
-                              layer_pattern=(), dtype="float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     p_gpu = init_params(cfg, seed=1, device="cuda")
     p_cpu = _map(p_gpu, lambda t: t.cpu())
-    for policy, disc in (("fcfs", "stall"), ("slo-preempt", "chunked:32")):
-        tokens = {}
-        for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
-            rts = _to_rts(sample_serve_workload(4, cfg.vocab_size, seed=2))
-            for rt in rts:
-                rt.max_new_tokens = 8
-            eng = Engine(cfg, params, max_slots=4, max_seq_len=256,
-                         device=dev)
-            out = eng.run_policy(rts, make(policy, model=PAPER_TABLE2,
-                                           max_batch=4), discipline=disc)
-            tokens[dev] = {k: v["tokens"] for k, v in out.items()}
-        same = tokens["cuda"] == tokens["cpu"]
-        log(f"  parity {cfg.name} x2 layers f32 dense engine {policy} "
-            f"{disc}: tokens identical={same} "
-            f"({sum(len(v) for v in tokens['cuda'].values())} tokens)")
-        if not same:
-            raise AssertionError(f"ssm {policy} {disc}: cuda vs cpu tokens "
-                                 f"differ: {tokens}")
-    _, prompt = sample_serve_workload(1, cfg.vocab_size, seed=3)[0]
-    prompt = torch.from_numpy(prompt[None]).to(torch.int32)
-    with torch.no_grad():
-        g, toks = _decode_run(cfg, p_gpu, prompt.cuda(), 4, False, "dense")
-        c, _ = _decode_run(cfg, p_cpu, prompt, 4, False, "dense",
-                           tokens=toks)
-    diffs = (g - c).abs().amax(-1)
-    scale = float(c.abs().max())
-    limit = 1e-4 * max(scale, 1.0)
-    log(f"  parity {cfg.name} x2 layers f32: {prompt.shape[1]}-token "
-        f"prefill + 4 decode steps, max |logit diff| cuda vs cpu per step "
-        f"{[f'{float(d):.3e}' for d in diffs]} (max |logit| {scale:.3f}, "
-        f"limit {limit:.3e})")
-    if not float(diffs.max()) <= limit:
-        raise AssertionError(f"ssm logits: cuda vs cpu differ by "
-                             f"{float(diffs.max())} > {limit}")
+    what = f"{cfg.name} x{cfg.num_layers} layers f32"
+    report = {}
+    for layout in layouts:
+        for policy, disc in (("fcfs", "stall"), ("slo-preempt", "chunked:32")):
+            tokens = {}
+            for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+                rts = _to_rts(sample_serve_workload(4, cfg.vocab_size,
+                                                    seed=2))
+                for rt in rts:
+                    rt.max_new_tokens = 8
+                eng = Engine(cfg, params, max_slots=4, max_seq_len=256,
+                             paged=layout == "paged", device=dev)
+                out = eng.run_policy(rts, make(policy, model=PAPER_TABLE2,
+                                               max_batch=4), discipline=disc)
+                tokens[dev] = {k: v["tokens"] for k, v in out.items()}
+            same = tokens["cuda"] == tokens["cpu"]
+            log(f"  parity {what} {layout} engine {policy} {disc}: tokens "
+                f"identical={same} "
+                f"({sum(len(v) for v in tokens['cuda'].values())} tokens)")
+            if not same:
+                raise AssertionError(f"{what} {layout} {policy} {disc}: cuda "
+                                     f"vs cpu tokens differ: {tokens}")
+        _, prompt = sample_serve_workload(1, cfg.vocab_size, seed=3)[0]
+        prompt = torch.from_numpy(prompt[None]).to(torch.int32)
+        with torch.no_grad():
+            g, toks = _decode_run(cfg, p_gpu, prompt.cuda(), 4, False, layout)
+            c, _ = _decode_run(cfg, p_cpu, prompt, 4, False, layout,
+                               tokens=toks)
+        diffs = (g - c).abs().amax(-1)
+        scale = float(c.abs().max())
+        limit = 1e-4 * max(scale, 1.0)
+        log(f"  parity {what} {layout}: {prompt.shape[1]}-token prefill + 4 "
+            f"decode steps, max |logit diff| cuda vs cpu per step "
+            f"{[f'{float(d):.3e}' for d in diffs]} (max |logit| {scale:.3f}, "
+            f"limit {limit:.3e})")
+        if not float(diffs.max()) <= limit:
+            raise AssertionError(f"{what} {layout} logits: cuda vs cpu "
+                                 f"differ by {float(diffs.max())} > {limit}")
+        report[layout] = {"max_abs_logit_diff": float(diffs.max()),
+                          "max_abs_logit": scale}
+    return report
 
 
 def _train_parity():
@@ -2813,6 +3051,7 @@ def main(argv=None) -> int:
                       ("serve", lambda: phase_serve(ctx)),
                       ("stream", lambda: phase_stream(ctx)),
                       ("ssm", lambda: phase_ssm(ctx)),
+                      ("hybrid", lambda: phase_hybrid(ctx)),
                       ("int8", lambda: phase_int8(ctx)),
                       ("train", lambda: phase_train(ctx)),
                       ("parity", lambda: phase_parity(ctx))):

@@ -24,6 +24,15 @@ memory comes in two layouts:
   layers (Mamba2) always take this layout, as in the JAX engine: their
   per-slot conv and recurrent state is O(1) in sequence length.
 
+A hybrid stack (zamba2: Mamba2 blocks and one shared attention block)
+runs on either layout; on the paged one its SSM layers keep per-slot
+state beside the pages.  As in the JAX engine, the prefix index is off
+for it, and a paged chunk runs padded to its pow-2 bucket from the
+slot's state as it stands, so the padded rows, and at a first chunk
+the state the slot's previous request left, enter the recurrent state
+(``ROADMAP.md`` §3 lists both as traps of the reference, kept for
+parity).
+
 Scheduling is delegated to the same policy objects as the discrete-event
 core (:mod:`repro_torch.core.policies`): ``run_policy`` builds a
 :class:`SchedulerView` each tick, honors admit and preempt decisions,
@@ -141,9 +150,12 @@ class Engine:
             self._scratch = init_paged_cache(cfg, max_slots, max_seq_len,
                                              2, block_size,
                                              device=self.device)
-            # prefix sharing needs position-faithful KV: no window rings
+            # prefix sharing needs position-faithful, block-addressable
+            # KV: no window rings, no recurrent (SSM) state
             self.prefix = RadixPrefixIndex(self.pool, block_size) \
-                if prefix_cache and not cfg.sliding_window else None
+                if (prefix_cache and not cfg.ssm_layers
+                    and cfg.mla is None and not cfg.sliding_window) \
+                else None
         else:
             self.pool = None
             self.prefix = None
@@ -166,10 +178,12 @@ class Engine:
         """tokens [B,1]; active [B] bool -> (logits [B,V], cache).  Paged:
         pages of inactive slots need no freeze (freed slots' tables point
         at the null page).  Dense: only active slots' rows are written.
-        Either way an inactive slot's ``pos`` keeps its old value."""
+        Either way an inactive slot's ``pos`` and SSM state keep their
+        old values."""
         if self.paged:
             logits, new = forward_decode_paged(self.params, self.cfg,
-                                               tokens=tokens, cache=cache)
+                                               tokens=tokens, cache=cache,
+                                               active=active)
         else:
             logits, new = forward_decode(self.params, self.cfg,
                                          tokens=tokens, cache=cache,
@@ -224,14 +238,16 @@ class Engine:
 
     # --------------------------------------- dispatch/sync split (serving)
     def _slice_slots(self, cache, width: int):
-        """View of the first ``width`` slots of the paged pool: pos and
-        block tables sliced, the shared page tensors passed through (the
-        port's paged pool holds no per-slot SSM state).  The slices are
-        views and the decode step writes in place, so the round lands in
-        the full pool with no merge."""
+        """View of the first ``width`` slots of the paged pool: per-slot
+        state (pos, block tables, SSM conv/ssm) sliced, the shared page
+        tensors passed through.  The slices are views and the decode step
+        writes in place, so the round lands in the full pool with no
+        merge."""
         return {"pos": cache["pos"][:width],
                 "block_tables": cache["block_tables"][:width],
-                "layers": cache["layers"]}
+                "layers": [{k: (v[:width] if k in ("conv", "ssm") else v)
+                            for k, v in layer.items()}
+                           for layer in cache["layers"]]}
 
     def _decode_dispatch(self, cache, tokens, active, generator):
         """Fused decode round + on-device sampling over the first
@@ -483,9 +499,12 @@ class Engine:
         last = done + m >= n
         whole = done == 0 and last
         if self.paged or whole:
-            # SSM state is sequence-order sensitive: exact length (one
-            # warm-up per distinct length), never a padded bucket
-            L = m if self.cfg.ssm_layers else _bucket(m)
+            # a whole SSM prefill runs at exact length (one warm-up per
+            # distinct length): recurrent state is sequence-order
+            # sensitive.  A paged chunk takes its pow-2 bucket whatever
+            # the arch, as the JAX engine's does, so an SSM layer's state
+            # takes in the padded rows too (ROADMAP.md §3)
+            L = m if self.cfg.ssm_layers and whole else _bucket(m)
             toks = np.zeros((1, L), np.int32)
             toks[0, :m] = ctx[done:done + m]
         else:

@@ -94,7 +94,7 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int, init_state=None):
             t is not None and t.requires_grad
             for t in (x, dt, A, B, C, init_state)):
         raise NotImplementedError("the SSD scan has no backward kernel: "
-                                  "training SSM layers is ROADMAP.md M10")
+                                  "training SSM layers is ROADMAP.md M10b")
     if x.device.type == "cpu":
         return _ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
                                    init_state=init_state)

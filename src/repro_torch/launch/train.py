@@ -8,9 +8,9 @@
 
 Random weights from seed 0; batch ``step`` is ``token_stream(seq, vocab,
 seed=step, batch=batch)`` with ``labels = tokens``, as the JAX launcher
-trains.  Dense GQA decoders only (VLM and multi-codebook batches: ROADMAP
-M10).  The mesh dry-run (``launch/dryrun.py`` of the JAX package) waits
-for M11.
+trains.  Dense GQA decoders only (VLM and multi-codebook batches, and SSM
+layers: ROADMAP M10b).  The mesh dry-run (``launch/dryrun.py`` of the JAX
+package) waits for M11.
 """
 from __future__ import annotations
 
@@ -49,7 +49,7 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, dtype="float32")
     if cfg.uses_extra_embeds:
         raise NotImplementedError(f"{cfg.name}: VLM (embeds) training: "
-                                  "ROADMAP M10")
+                                  "ROADMAP M10b")
     dev = resolve_device(args.device)
     params = init_params(cfg, seed=0, device=dev)
     ocfg = opt.AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1))

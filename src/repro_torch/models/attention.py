@@ -34,9 +34,13 @@ NEG_INF = -1e30
 
 
 def _use_attn_kernel(cfg, s: int) -> bool:
+    """The flash kernel (K2, or K5 under grad) serves every sequence of at
+    least 16 tokens: its ragged last tile is masked, so the exact-length
+    prompts of SSM and hybrid archs take it too (the Pallas kernel needs
+    whole 16-row tiles, so the JAX package routes those to jnp)."""
     if cfg.attn_logit_softcap:
         return False
-    return s >= 16 and s % 16 == 0
+    return s >= 16
 
 
 def init_gqa(cfg, dtype: torch.dtype, device: torch.device,

@@ -20,7 +20,8 @@ A cache is a plain dict of tensors.  Two layouts:
     {"pos": [B] int32, "block_tables": [B, pages_per_slot] int32,
      "layers": [{"k": [N, P, kv, hd], "v": [N, P, kv, hd]}, ...]}
 
-  Block 0 is a reserved **null page**: unallocated table entries point
+  An SSM layer of a hybrid stack keeps its per-slot state, laid out as
+  in the dense cache (``[max_slots, ...]``: it has no pages).  Block 0 is a reserved **null page**: unallocated table entries point
   at it and padded prefill rows scatter into it, so every gather and
   scatter stays in bounds without host-side masking.
 
@@ -30,10 +31,11 @@ bf16, one scale per (token, kv head) (:func:`quantize_kv`).
 
 Where the JAX package donates the cache to a jitted step and gets an
 updated copy back, the port writes **in place** (O(tokens) scatters);
-the functions below mutate and return the same tensors.  SSM layers
-live in the dense layout only (an attention-free arch never takes the
-paged pool, as in the JAX engine); MLA latents, MoE and hybrid stacks
-wait for later slices (ROADMAP.md M9/M10).
+the functions below mutate and return the same tensors.  An
+attention-free (SSM-only) arch never takes the paged pool, as in the
+JAX engine; hybrid stacks (Mamba2 + attention, zamba2) take either
+layout.  MLA latents and MoE wait for ROADMAP.md M9, multi-codebook
+heads for M10b.
 """
 from __future__ import annotations
 
@@ -63,20 +65,19 @@ def paged_slot_len(cfg: ModelConfig, max_len: int, block_size: int,
 
 def require_ported(cfg: ModelConfig, paged: bool = False):
     """Raise ``NotImplementedError`` unless the port runs ``cfg`` on the
-    given layout: dense GQA decoders on either, attention-free Mamba2
-    (SSM) stacks on the dense layout only."""
+    given layout: GQA decoders and hybrid SSM + attention stacks on
+    either, attention-free Mamba2 (SSM) stacks on the dense layout
+    only."""
     if cfg.mla is not None or cfg.moe is not None:
         raise NotImplementedError(f"{cfg.name}: MLA and MoE are not ported "
                                   "(ROADMAP.md M9)")
-    kinds = set(cfg.layer_pattern)
-    if kinds == {SSM}:
-        if paged:
-            raise NotImplementedError(
-                f"{cfg.name}: SSM state lives in the dense layout only; "
-                "the paged pool holds attention K/V (ROADMAP.md M10)")
-    elif kinds != {ATTN}:
+    if cfg.num_codebooks > 1:
+        raise NotImplementedError(f"{cfg.name}: multi-codebook heads are not "
+                                  "ported (ROADMAP.md M10b)")
+    if paged and not cfg.attn_layers:
         raise NotImplementedError(
-            f"{cfg.name}: hybrid SSM + attention stacks are not ported "
+            f"{cfg.name}: an attention-free stack has no pages; its SSM "
+            "state lives in the dense layout, as the JAX engine keeps it "
             "(ROADMAP.md M10)")
 
 
@@ -197,15 +198,17 @@ def init_paged_cache(cfg: ModelConfig, max_slots: int, max_len: int,
                      device: torch.device):
     """Block-paged KV pool shared by ``max_slots`` request slots, zeroed
     on ``device`` (int8 pages with bf16 scale pages when
-    ``quantized``).  Attention-only archs: SSM state has no pages."""
+    ``quantized``).  An SSM layer of a hybrid stack gets its per-slot
+    conv and recurrent state, identical to the dense layout's."""
     require_ported(cfg, paged=True)
     dtype = torch_dtype(cfg.dtype if dtype is None else dtype)
     if num_blocks < 2:
         raise ValueError("num_blocks must be >= 2 (block 0 is the null page)")
     P = block_size
-    layers = [_kv_layer((num_blocks, P), cfg.num_kv_heads, cfg.head_dim,
+    layers = [_ssm_layer(cfg, max_slots, dtype, device) if kind == SSM else
+              _kv_layer((num_blocks, P), cfg.num_kv_heads, cfg.head_dim,
                         dtype, quantized, device)
-              for _ in cfg.layer_pattern]
+              for kind in cfg.layer_pattern]
     pages_per_slot = paged_slot_len(cfg, max_len, P, window) // P
     return {"pos": torch.zeros(max_slots, dtype=torch.int32, device=device),
             "block_tables": torch.zeros((max_slots, pages_per_slot),
@@ -248,8 +251,14 @@ def write_prefill_paged(cache, layer_idx: int, kv_tuple, cfg: ModelConfig,
                         slot, n):
     """Write one request's prefill K/V ([1, S, kv, hd] each, S >= n) into
     ``slot``'s pages at positions [0, n), in place (quantized with fresh
-    per-token scales for int8 pages)."""
+    per-token scales for int8 pages); for an SSM layer, its final (conv,
+    ssm) state ([1, ...] each) into the slot's rows."""
     layer = cache["layers"][layer_idx]
+    if "ssm" in layer:
+        conv, ssm = kv_tuple
+        layer["conv"][slot].copy_(conv[0])
+        layer["ssm"][slot].copy_(ssm[0])
+        return cache
     bt = cache["block_tables"][slot]
     k, v = kv_tuple
     if "k_scale" in layer:
@@ -266,9 +275,12 @@ def write_prefill_paged(cache, layer_idx: int, kv_tuple, cfg: ModelConfig,
 
 def copy_page(cache, src: int, dst: int):
     """Copy one KV page (and its scale page, for int8 pools) across every
-    layer, in place: the device half of copy-on-write (the engine
-    allocates ``dst`` and patches the table)."""
+    paged layer, in place: the device half of copy-on-write (the engine
+    allocates ``dst`` and patches the table).  Per-slot SSM state is
+    never shared and is not touched."""
     for layer in cache["layers"]:
+        if "ssm" in layer:
+            continue
         for pages in layer.values():
             pages[dst].copy_(pages[src])
     return cache

@@ -1,6 +1,7 @@
-"""Dense GQA decoders over the dense and paged KV caches, and
-attention-free Mamba2 (SSM) stacks over the dense cache (the dense-model
-and SSM paths of ``src/repro/models/model.py``).
+"""Dense GQA decoders over the dense and paged KV caches, attention-free
+Mamba2 (SSM) stacks over the dense cache, and hybrid stacks of Mamba2
+blocks and one shared attention+MLP block (zamba2) over either (the
+dense-model, SSM and hybrid paths of ``src/repro/models/model.py``).
 
 Parameters are a plain dict of tensors with the JAX package's layout
 (``x @ w``, ``w: [d_in, d_out]``; norm scales float32), so
@@ -8,6 +9,12 @@ Parameters are a plain dict of tensors with the JAX package's layout
 forward functions take a cache dict of :mod:`repro_torch.models.cache`
 (dense: ``forward_full``/``forward_decode``/``forward_chunk``; paged:
 the ``*_paged`` forwards), float or int8, and update it in place.
+
+With ``cfg.shared_attn_weights`` the attention layers share one block,
+``params["shared_block"]``, and hold ``{}`` at their own positions of
+``params["layers"]``, as in the JAX package; every forward resolves
+``params["layers"][i] or params.get("shared_block")``.  Each attention
+layer keeps its own K/V in the cache.
 """
 from __future__ import annotations
 
@@ -31,10 +38,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
     """Random parameters at ``cfg``'s shapes, drawn on ``device`` (default
     ``cuda``) in ``cfg.dtype`` from a seeded generator on that device
     (norm scales and the SSM blocks' ``A_log``/``dt_bias``/``D``/``norm``
-    float32, as in the JAX package)."""
+    float32, as in the JAX package).  With ``cfg.shared_attn_weights``
+    one attention block is drawn at the first attention layer and stored
+    as ``params["shared_block"]``, with ``{}`` at every attention
+    position of ``params["layers"]`` (the JAX tree)."""
     require_ported(cfg)
-    if cfg.num_codebooks > 1:
-        raise NotImplementedError("multi-codebook heads: ROADMAP M10")
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev)
@@ -54,13 +62,27 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
                 "norm": init_norm(cfg, cfg.d_model, dev),
                 "mamba": ssm_mod.init_mamba2(cfg, dtype, dev, generator)})
             continue
-        params["layers"].append({
+        if cfg.shared_attn_weights and "shared_block" in params:
+            params["layers"].append({})    # weights live in shared_block
+            continue
+        block = {
             "attn_norm": init_norm(cfg, cfg.d_model, dev),
             "mlp_norm": init_norm(cfg, cfg.d_model, dev),
             "attn": attn.init_gqa(cfg, dtype, dev, generator),
             "mlp": init_mlp(cfg, cfg.d_model, cfg.d_ff, dtype, dev,
-                            generator)})
+                            generator)}
+        if cfg.shared_attn_weights:
+            params["shared_block"] = block
+            block = {}
+        params["layers"].append(block)
     return params
+
+
+def _blocks(params):
+    """Each layer's block: its own, or the shared attention block where
+    the layer holds the ``{}`` marker."""
+    shared = params.get("shared_block")
+    return [block or shared for block in params["layers"]]
 
 
 def embed_tokens(params, cfg, tokens):
@@ -135,12 +157,13 @@ def forward_full(params, cfg: ModelConfig, *, tokens, cache=None,
                          "cannot write a cache")
     if remat and cfg.ssm_layers:
         raise NotImplementedError("training SSM layers (remat through the "
-                                  "SSD scan) is not ported: ROADMAP.md M10")
+                                  "SSD scan) is not ported: ROADMAP.md "
+                                  "M10b")
     x = embed_tokens(params, cfg, tokens)
     b, s = x.shape[0], x.shape[1]
     positions = _default_positions(cfg, b, s, 0, x.device)
     for i, (kind, block) in enumerate(zip(cfg.layer_pattern,
-                                          params["layers"])):
+                                          _blocks(params))):
         if kind == SSM:
             x, state = _ssm_block_full(block, cfg, x)
             if cache is not None:
@@ -179,7 +202,7 @@ def forward_decode(params, cfg: ModelConfig, *, tokens, cache, active=None):
     positions = cache_pos[:, None]
     if cfg.mrope_sections:
         positions = positions[..., None].expand(b, 1, 3)
-    for kind, block, layer_cache in zip(cfg.layer_pattern, params["layers"],
+    for kind, block, layer_cache in zip(cfg.layer_pattern, _blocks(params),
                                         cache["layers"]):
         if kind == SSM:
             x = _ssm_block_decode(block, cfg, x, layer_cache, active)
@@ -222,7 +245,7 @@ def forward_chunk(params, cfg: ModelConfig, *, tokens, cache):
     if cfg.mrope_sections:
         positions = positions[..., None].expand(b, c, 3)
     for i, (kind, block, layer_cache) in enumerate(zip(
-            cfg.layer_pattern, params["layers"], cache["layers"])):
+            cfg.layer_pattern, _blocks(params), cache["layers"])):
         if kind == SSM:
             x, state = _ssm_block_full(block, cfg, x, layer_cache)
             write_prefill(cache, i, state, cfg)
@@ -237,10 +260,15 @@ def forward_chunk(params, cfg: ModelConfig, *, tokens, cache):
     return logits, cache
 
 
-def forward_decode_paged(params, cfg: ModelConfig, *, tokens, cache):
+def forward_decode_paged(params, cfg: ModelConfig, *, tokens, cache,
+                         active=None):
     """One-token decode step for every slot. tokens: [B, 1].
 
-    New K/V are written in place into the pages; returns
+    New K/V are written in place into the pages (an inactive slot's
+    table points at the null page, or its write lands at its frontier,
+    which its next chunk overwrites); an SSM layer's per-slot conv and
+    recurrent state are written in place, for the ``active`` slots only
+    when given ([B] bool: the JAX engine's ``where`` freeze).  Returns
     (logits [B, 1, V], new_cache) where ``new_cache`` shares the page
     tensors and carries ``pos + 1`` for every slot (the engine keeps the
     old ``pos`` of inactive slots, as the JAX engine does)."""
@@ -251,7 +279,11 @@ def forward_decode_paged(params, cfg: ModelConfig, *, tokens, cache):
     positions = cache_pos[:, None]
     if cfg.mrope_sections:
         positions = positions[..., None].expand(b, 1, 3)
-    for block, layer_cache in zip(params["layers"], cache["layers"]):
+    for kind, block, layer_cache in zip(cfg.layer_pattern, _blocks(params),
+                                        cache["layers"]):
+        if kind == SSM:
+            x = _ssm_block_decode(block, cfg, x, layer_cache, active)
+            continue
         xin = apply_norm(x, block["attn_norm"], cfg)
         h, _ = attn.gqa_decode_paged(block["attn"], cfg, xin, positions,
                                      layer_cache, block_tables, cache_pos)
@@ -266,7 +298,9 @@ def forward_prefill_paged(params, cfg: ModelConfig, *, tokens, cache,
                           slot: int = 0, length: Optional[int] = None):
     """Whole-prompt prefill of ONE request written in place into
     ``slot``'s pages (an O(prompt) scatter per layer through the slot's
-    block table; padded positions land on the null page).
+    block table; padded positions land on the null page).  An SSM layer
+    runs from zero state over all ``Lpad`` rows (the engine prefills SSM
+    archs at exact length) and writes its final state into the slot.
 
     tokens: [1, Lpad]; ``length``: actual prompt length.  Returns
     (last-token logits [V], cache)."""
@@ -275,8 +309,12 @@ def forward_prefill_paged(params, cfg: ModelConfig, *, tokens, cache,
     if length is None:
         length = s
     positions = _default_positions(cfg, b, s, 0, x.device)
-    for i, block in enumerate(params["layers"]):
-        x, kv_out = _attn_block_full(block, cfg, x, positions)
+    for i, (kind, block) in enumerate(zip(cfg.layer_pattern,
+                                          _blocks(params))):
+        if kind == SSM:
+            x, kv_out = _ssm_block_full(block, cfg, x)
+        else:
+            x, kv_out = _attn_block_full(block, cfg, x, positions)
         write_prefill_paged(cache, i, kv_out, cfg, slot, length)
     x = apply_norm(x[:, length - 1:length], params["final_norm"], cfg)
     logits = lm_head(params, cfg, x)
@@ -295,7 +333,10 @@ def forward_chunk_paged(params, cfg: ModelConfig, *, tokens, cache,
     and prefills only its unique suffix here.  tokens: [1, C];
     ``length`` (default C) is the number of valid rows of a padded pow-2
     bucket — padded rows are never written to pages and never attended
-    by valid queries.  Returns (valid-final logits [1,1,V], cache)."""
+    by valid queries.  An SSM layer runs all C rows, padded ones
+    included, from the slot's own conv and recurrent state and writes
+    the result back into the slot, as the JAX package does.  Returns
+    (valid-final logits [1,1,V], cache)."""
     x = embed_tokens(params, cfg, tokens)
     b, c = x.shape[0], x.shape[1]
     if length is None:
@@ -306,7 +347,14 @@ def forward_chunk_paged(params, cfg: ModelConfig, *, tokens, cache,
                                      dtype=torch.int32))[None].expand(b, c)
     if cfg.mrope_sections:
         positions = positions[..., None].expand(b, c, 3)
-    for block, layer_cache in zip(params["layers"], cache["layers"]):
+    for i, (kind, block, layer_cache) in enumerate(zip(
+            cfg.layer_pattern, _blocks(params), cache["layers"])):
+        if kind == SSM:
+            x, state = _ssm_block_full(block, cfg, x, {
+                name: layer_cache[name][slot:slot + 1]
+                for name in ("conv", "ssm")})
+            write_prefill_paged(cache, i, state, cfg, slot, length)
+            continue
         xin = apply_norm(x, block["attn_norm"], cfg)
         h, _ = attn.gqa_continue_paged(block["attn"], cfg, xin, positions,
                                        layer_cache, bt, pos0, n=length)

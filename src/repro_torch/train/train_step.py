@@ -5,8 +5,9 @@ Gradients come from ``torch.autograd.grad`` over the parameter leaves
 (each set to require grad for the call only), where JAX takes
 ``value_and_grad``; attention inside runs the differentiable flash
 kernels (:mod:`repro_torch.kernels.flash_attention_bwd`).  Dense models
-only: MoE's auxiliary loss waits for ROADMAP M9, VLM and multi-codebook
-batches for M10.
+only: MoE's auxiliary loss waits for ROADMAP M9; VLM and multi-codebook
+batches, and SSM layers (Mamba2 and the zamba2 hybrid: the SSD scan has
+no backward kernel), for M10b.
 """
 from __future__ import annotations
 
@@ -26,9 +27,9 @@ def lm_loss(params, cfg: ModelConfig, tokens, labels, mask=None,
     """Mean next-token cross entropy (+ MoE aux) over positions whose
     label is not -100 (and whose ``mask`` is > 0).  labels: [B,S]."""
     if embeds is not None:
-        raise NotImplementedError("embeds (VLM) batches: ROADMAP M10")
+        raise NotImplementedError("embeds (VLM) batches: ROADMAP M10b")
     if labels.dim() != 2:
-        raise NotImplementedError("multi-codebook labels: ROADMAP M10")
+        raise NotImplementedError("multi-codebook labels: ROADMAP M10b")
     logits, _, aux = forward_full(params, cfg, tokens=tokens, remat=remat)
     valid = labels >= 0
     safe = torch.clamp(labels, min=0).long()

@@ -34,6 +34,7 @@ from repro_torch.engine.request import RuntimeRequest
 
 torch.set_num_threads(2)
 CFG = dataclasses.replace(get_reduced("qwen3-1.7b"), dtype="float32")
+SSM_CFG = dataclasses.replace(get_reduced("mamba2-780m"), dtype="float32")
 ENGINE_KW = dict(max_slots=3, max_seq_len=256)
 
 
@@ -129,7 +130,8 @@ def test_entry_points_need_cuda_unless_asked(params):
         Engine(CFG, params[1], **ENGINE_KW)
 
 
-def _preempt_by_hand(port: bool, params, paged, prefix, discipline):
+def _preempt_by_hand(port: bool, params, paged, prefix, discipline,
+                     cfg=CFG):
     """Two admitted, one evicted, a third admitted into its slot, a
     second eviction, then the first re-admitted on another slot (and the
     second after it); every step runs the engine's own tick plan.
@@ -140,10 +142,10 @@ def _preempt_by_hand(port: bool, params, paged, prefix, discipline):
     pol = policies if port else jax_policies
     disc = pol.make_discipline(discipline)
     rts = [rt_cls(request=r, prompt_tokens=p, max_new_tokens=14)
-           for r, p in syn.sample_serve_workload(3, CFG.vocab_size, seed=5)]
+           for r, p in syn.sample_serve_workload(3, cfg.vocab_size, seed=5)]
     kw = dict(paged=paged, prefix_cache=prefix, **ENGINE_KW)
-    eng = Engine(CFG, params[1], device="cpu", **kw) if port \
-        else JaxEngine(CFG, params[0], **kw)
+    eng = Engine(cfg, params[1], device="cpu", **kw) if port \
+        else JaxEngine(cfg, params[0], **kw)
     log = []
 
     def ticks(n, until=None):
@@ -172,13 +174,30 @@ def _preempt_by_hand(port: bool, params, paged, prefix, discipline):
             log, eng.prefix_stats())
 
 
-@pytest.mark.parametrize("paged,prefix,discipline", [
-    (True, True, "stall"), (True, False, "stall"),
-    (True, True, "chunked:16"), (False, False, "stall"),
-    (False, False, "chunked:16")])
-def test_preemption_by_hand_matches_jax(params, paged, prefix, discipline):
-    got = _preempt_by_hand(True, params, paged, prefix, discipline)
-    want = _preempt_by_hand(False, params, paged, prefix, discipline)
+@pytest.fixture(scope="module")
+def ssm_params():
+    jp = jax.jit(init_params, static_argnums=1)(jax.random.PRNGKey(0),
+                                                SSM_CFG)
+    return jp, from_jax_params(jax.tree.map(np.asarray, jp), device="cpu")
+
+
+@pytest.mark.parametrize("arch,paged,prefix,discipline", [
+    pytest.param("qwen3-1.7b", *row, id="-".join(map(str, row)))
+    for row in ((True, True, "stall"), (True, False, "stall"),
+                (True, True, "chunked:16"), (False, False, "stall"),
+                (False, False, "chunked:16"))] + [
+    pytest.param("mamba2-780m", False, False, disc, id=f"mamba2-{disc}")
+    for disc in ("stall", "chunked:16")])
+def test_preemption_by_hand_matches_jax(request, arch, paged, prefix,
+                                        discipline):
+    """Reduced qwen3-1.7b on both layouts, and Mamba2 on the dense one
+    (its conv / SSM state re-prefilled after each eviction)."""
+    if arch == "mamba2-780m":
+        params, cfg = request.getfixturevalue("ssm_params"), SSM_CFG
+    else:
+        params, cfg = request.getfixturevalue("params"), CFG
+    got = _preempt_by_hand(True, params, paged, prefix, discipline, cfg)
+    want = _preempt_by_hand(False, params, paged, prefix, discipline, cfg)
     assert got == want
     tokens, preemptions, _, stats = got
     assert preemptions == [1, 1, 0] and all(len(t) == 14 for t in tokens)

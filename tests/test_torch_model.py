@@ -4,8 +4,10 @@ parameters, compared on logits (and on the written pages) in float32.
 Covers whole-prompt prefill through a padded bucket (the port serves it
 with the flash-attention plain version), a chunk continuation from a
 nonzero ``pos`` with a padded bucket, and decode steps, on reduced
-``qwen3-1.7b`` (qk-norm) and reduced ``qwen2.5-7b``.  Bound: the
-reference's own 1e-5 (tests/test_paged.py)."""
+``qwen3-1.7b`` (qk-norm), ``qwen2.5-7b``, ``starcoder2-3b`` (layernorm,
+gelu), ``phi4-mini-3.8b`` and ``qwen2-vl-7b`` on text (M-RoPE from the
+default positions).  Bound: the reference's own 1e-5
+(tests/test_paged.py)."""
 import dataclasses
 
 import jax
@@ -55,7 +57,8 @@ def _close(got, want):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "qwen2.5-7b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "qwen2.5-7b", "starcoder2-3b",
+                                  "phi4-mini-3.8b", "qwen2-vl-7b"])
 def test_paged_forward_matches_jax(arch):
     cfg = _cfg(arch)
     jp = jax_init(jax.random.PRNGKey(0), cfg)

@@ -41,6 +41,7 @@ from repro_torch.models import ssm
 from repro_torch.models.cache import init_cache, init_paged_cache
 from repro_torch.models.model import (forward_chunk, forward_decode,
                                       forward_full, init_params)
+from repro_torch.train.train_step import lm_loss
 
 torch.set_num_threads(2)
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -334,12 +335,15 @@ def test_init_params_and_bridge_keep_the_mamba_layout():
 
 
 def test_unported_ssm_paths_raise():
-    """zamba2 (hybrid) raises naming ROADMAP.md M10; Mamba2 has no paged
-    pool and is not trained through remat."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md M10"):
-        init_params(torch_get_reduced("zamba2-1.2b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md M10"):
-        init_cache(torch_get_reduced("zamba2-1.2b"), 1, 32, device="cpu")
+    """Mamba2 has no paged pool and is not trained (remat, or a gradient
+    through the SSD scan), naming ROADMAP.md M10; the zamba2 hybrid now
+    builds on both layouts, and training it raises naming M10b (the SSD
+    scan has no backward kernel)."""
+    hcfg = dataclasses.replace(torch_get_reduced("zamba2-1.2b"),
+                               dtype="float32")
+    hp = init_params(hcfg, seed=0, device="cpu")
+    init_cache(hcfg, 1, 32, device="cpu")
+    init_paged_cache(hcfg, 1, 32, 3, 16, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md M10"):
         init_paged_cache(TCFG, 1, 32, 3, 16, device="cpu")
     tp = init_params(TCFG, seed=0, device="cpu")
@@ -349,3 +353,8 @@ def test_unported_ssm_paths_raise():
     tp["layers"][0]["mamba"]["in_proj"].requires_grad_()
     with pytest.raises(NotImplementedError, match="ROADMAP.md M10"):
         forward_full(tp, TCFG, tokens=toks)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md M10b"):
+        lm_loss(hp, hcfg, toks, toks)
+    hp["layers"][0]["mamba"]["in_proj"].requires_grad_()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md M10b"):
+        forward_full(hp, hcfg, tokens=toks)
