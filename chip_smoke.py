@@ -26,15 +26,16 @@ Phases (any failure exits non-zero before the last line):
            bf16 and int8 K/V) also on 2048-slot rings split many ways
            (lengths 1 to 2048, a wrapped ring under a window of 1024,
            group 12, hd 80, int8 also hd 64, zamba2-1.2b's shared block
-           at group 1 (32 q / 32 kv heads of hd 64), the timed B16 x
-           2048; K1 and K6 also timed at zamba2's serve shape), each
+           at group 1 (32 q / 32 kv heads of hd 64), K1 also at
+           dbrx-132b's group 6 (48 q / 8 kv heads of hd 128), the timed
+           B16 x 2048; K1 and K6 also timed at zamba2's serve shape), each
            bitwise equal across two launches and its split plan printed;
            int8 with NaN scales and random values in every pool row past
            each length, bitwise equal to those rows zeroed; decode times
            also as device time from CUDA-graph replays, beside SDPA's,
            int8 beside bf16; the flash forward (K2) and
            the training forward
-           (K5a) over S 16/100/128/2048, GQA groups 1/2/4/7/12, hd
+           (K5a) over S 16/100/128/256/2048, GQA groups 1/2/4/6/7/12, hd
            64/80/128, windows 0/32/64 and B up to 4 (the train shape),
            each bitwise equal across two launches; CUDA-event times
            (plain, kernel, kernel, plain) with achieved TFLOP/s at the
@@ -91,7 +92,7 @@ Phases (any failure exits non-zero before the last line):
            STREAM_RATE req/s, on a pool of STREAM_SLOTS sequences of
            STREAM_SEQ tokens, its models at STREAM_DEPTH of their
            published depth (published widths; the latency model fit at
-           that depth): Qwen2.5-7B (14 of 28 layers) on the paged
+           that depth): Qwen2.5-7B (7 of 28 layers) on the paged
            engine under fcfs (overlapped and synchronous in turns A B B
            A) and
            slo-preempt + chunked:32, a 2-engine EngineFleet sharing
@@ -101,7 +102,7 @@ Phases (any failure exits non-zero before the last line):
            under slo-reanneal:jax as the trace arrives and with all of
            it waiting at t=0, and a 2-engine EngineFleet under
            route:annealed, each printing its anneal launches; then
-           Mamba2-780M (24 of 48 layers) under fcfs.
+           Mamba2-780M (12 of 48 layers) under fcfs.
            Every request completes with its whole output budget; per
            run: wall-clock TTFT and TBT p50/p90/p99, tok/s on the wall
            clock, attainment, G, dispatch widths, the share of
@@ -126,6 +127,25 @@ Phases (any failure exits non-zero before the last line):
            (paged fcfs); then 4 layers (SSM, ATTN, SSM, ATTN) in float32,
            cuda vs cpu: both engines' tokens under fcfs and slo-preempt +
            chunked:32, prefill + 4 decode logits within 1e-4 of max
+  moe      MoE and MLA: DeepSeek-V2-Lite at its published config (27
+           layers, d 2048, MLA kv_lora 512, 64 experts top-6 + 2 shared,
+           layer 0 dense at 10944, bf16, random seeded weights; every
+           earlier phase's model freed first): latency-model fit, then
+           fcfs, slo-reanneal:jax and slo-preempt + chunked:32 (warned
+           and served stalling: MLA has no chunked path) on the paged
+           and on the dense engine; a timed full-depth B1 2048-token
+           prefill (three grouped products per MoE layer, no other
+           launch); one ServeLoop run of the stream phase's trace on its
+           pool (paged fcfs); a ServeLoop asked for chunked:16 must
+           raise; one dispatch_decode round under sync debug mode
+           "error"; then DBRX at its published width and 4 of its 40
+           layers (48 q / 8 kv heads, 16 experts top-4, ff 10752): paged
+           fcfs, slo-preempt + chunked:32 with the prefix cache and the
+           multi-turn run, K1 and K2 launched; the grouped product
+           (torch._grouped_mm) against a product per expert at both
+           models' expert widths, bf16 and f32, routed rows and every
+           row to one expert, timed at DeepSeek's decode shape; 2 layers
+           f32 cuda vs cpu: tokens identical, logits within 1e-4 of max
   int8     Qwen2.5-7B: one 128-token prompt and 32 greedy decode
            steps through an int8 paged cache and an int8 dense cache,
            each against the same run on a bf16 cache, with the
@@ -147,10 +167,12 @@ Phases (any failure exits non-zero before the last line):
            prefill and 4 decode steps, bounded
 Each path (paged serve, dense serve, h2o-danube serve, the five
 streaming paths, Mamba2 serve, the hybrid's paged, dense and stream
-paths, int8, train) is driven with the
-launch counts set to 0 just before it and read just after; every kernel
-must launch on the path that runs it.  The line before the last is the
-kernels JSON; the last line is
+paths, DeepSeek's paged, dense and stream paths, DBRX's paged path,
+int8, train) is driven with the launch counts set to 0 just before it
+and read just after; every kernel must launch on the path that runs it
+(and the MoE paths' grouped product, a library call, is counted the
+same way).  The line before the last is the kernels JSON; the last
+line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -168,7 +190,7 @@ from concurrent.futures import ProcessPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "anneal", "serve", "stream", "ssm",
-          "hybrid", "int8", "train", "parity")
+          "hybrid", "moe", "int8", "train", "parity")
 PEAK_BYTES = 3.35e12                       # H100 SXM HBM3, bytes/s
 PEAK_FLOPS = {"bfloat16": 989e12,          # dense tensor-core bf16
               "float32": 67e12}            # float32 outside tensor cores
@@ -197,6 +219,8 @@ H, KV, HD, PAGE = 28, 4, 128, 16
 # zamba2-1.2b's shared attention block (configs/zamba2_1_2b.py): MHA,
 # GQA group 1
 ZAMBA2_HEADS = dict(h=32, kv=32, hd=64)
+# dbrx-132b's attention (configs/dbrx_132b.py): GQA group 6, hd 128
+DBRX_HEADS = dict(h=48, kv=8, hd=128)
 # Mamba2-780M's SSD widths (configs/mamba2_780m.py); the chunk whose
 # flops the f32 CUDA-core bound counts (64 rows: PR 15's yardstick, kept
 # so that it compares across kernel versions), and the kernel's own chunk
@@ -269,6 +293,14 @@ PATHS = {"serve_paged": ("decode_attention_paged", "flash_attention"),
                                 "ssd_scan"),
          "serve_stream_hybrid": ("decode_attention_paged", "flash_attention",
                                  "ssd_scan"),
+         # MLA runs no hand-written kernel (nor a Pallas one in the JAX
+         # package); the MoE FFN's grouped product is PyTorch's own
+         # (``ragged_dot``, counted beside the kernels, not one of them)
+         "serve_mla_paged": ("ragged_dot", "anneal"),
+         "serve_mla_dense": ("ragged_dot", "anneal"),
+         "serve_stream_mla": ("ragged_dot",),
+         "serve_moe_gqa": ("decode_attention_paged", "flash_attention",
+                           "ragged_dot"),
          "int8": ("decode_attention_paged_q8", "decode_attention_q8"),
          "train": TRAIN_KERNELS}
 # the int8 KV library yardstick: no single PyTorch call dequantizes int8
@@ -734,7 +766,7 @@ def flash_train_cost(name, q, k, window, dtype_name):
 
 # K2 and K5a cases (label, b, s, h, kv, hd, window): both q-tile sizes of
 # the bf16 block (64 rows where 128-row tiles would not fill the SMs, else
-# 128) with ragged last tiles; GQA groups 1/2/4/7/12 (starcoder2's 24
+# 128) with ragged last tiles; GQA groups 1/2/4/6/7/12 (starcoder2's 24
 # over 2); hd 64/80/128; windows 0/32/64; up to the train shape
 FLASH_CASES = [
     ("S16 g7 hd128", 1, 16, 28, 4, 128, 0),
@@ -750,6 +782,9 @@ FLASH_CASES = [
     ("S2048 g7 hd128", 1, 2048, 28, 4, 128, 0),
     ("S2048 g2 hd64 w64", 1, 2048, 4, 2, 64, 64),
     ("S2048 g4 hd80 w32", 1, 2048, 32, 8, 80, 32),
+    # dbrx-132b: GQA group 6 (48 q / 8 kv heads of hd 128)
+    ("B2 S100 g6 hd128", 2, 100, 48, 8, 128, 0),
+    ("S256 g6 hd128 (dbrx serve)", 1, 256, 48, 8, 128, 0),
     ("B4 S2048 g2 hd128 (train)", 4, 2048, 16, 8, 128, 0),
 ]
 
@@ -1141,6 +1176,10 @@ def phase_kernels(results):
             ("B4 L2048 g1 H32 KV32 hd64",
              lambda dt: decode_inputs(4, [1, 100, 1000, 2048], 128, dt, 0,
                                       gen, **ZAMBA2_HEADS)),
+            # dbrx-132b's attention: GQA group 6 (48 q / 8 kv heads)
+            ("B4 L2048 g6 H48 KV8 hd128",
+             lambda dt: decode_inputs(4, [1, 100, 1000, 2048], 128, dt, 0,
+                                      gen, **DBRX_HEADS)),
             ("B16 len2048 (timed)",
              lambda dt: decode_inputs(16, [2048] * 16, 128, dt, 0, gen)),
         ]),
@@ -1499,7 +1538,7 @@ def count_path(results, path, fn):
             raise AssertionError(f"{name} was never launched on the "
                                  f"{path} path")
     for name, n in counts.items():
-        if n:
+        if n and name in KERNELS:
             r = results.setdefault(name, {"name": name, **KERNELS[name]})
             r.setdefault("launches_by_path", {})[path] = n
             r["launches"] = sum(r["launches_by_path"].values())
@@ -1581,12 +1620,13 @@ STREAM_N = 64           # requests a stream run serves: ~16 s of arrivals
 # sequences of up to 4096 tokens, 15.0 GB of bf16 K/V (paged or dense)
 STREAM_SLOTS, STREAM_SEQ = 64, 4096
 TURNS = (True, False, False, True)   # paged fcfs: overlap on / off
-# the stream phase's Qwen2.5-7B and Mamba2-780M at half their published
-# depth (published widths, the first half of the layers), so that the
-# whole script keeps inside its time limit with the hybrid phase beside
-# it: each run's wall is set by the trace's longest request, a chain of
-# decode rounds whose host dispatch grows with the layers
-STREAM_DEPTH = 0.5
+# the stream phase's Qwen2.5-7B and Mamba2-780M at a quarter of their
+# published depth (published widths, the first layers), so that the
+# whole script keeps inside its time limit with the hybrid and moe
+# phases beside it: each run's wall is set by the trace's longest
+# request, a chain of decode rounds whose host dispatch grows with the
+# layers
+STREAM_DEPTH = 0.25
 
 
 def _stream_run(make, pairs, what):
@@ -2135,6 +2175,402 @@ def phase_hybrid(ctx):
                      "parity": _hybrid_parity()}
 
 
+# DeepSeek-V2-Lite's stream run: the stream phase's trace and pool
+MOE_STREAM_N = STREAM_N
+# DBRX (132B) at its published width: 4 of its 40 layers fit one card
+DBRX_LAYERS = 4
+MLA_FALLBACK = "falling back to whole-prompt (stalling) prefill"
+
+
+def _mla_serve_runs(cfg, params, model, paged):
+    """fcfs, ``slo-reanneal:jax`` and slo-preempt with ``chunked:32`` asked
+    for, on one layout: the chunked run must warn and fall back to
+    stalling prefill (MLA has no chunked path), the others must not."""
+    import warnings
+    from repro_torch.data.synthetic import sample_serve_workload
+    from repro_torch.kernels import ops
+    runs = []
+    for policy, disc in (("fcfs", "stall"), ("slo-reanneal:jax", "stall"),
+                         ("slo-preempt", "chunked:32")):
+        before = ops.launch_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            r = _serve_run(cfg, params, model,
+                           sample_serve_workload(8, cfg.vocab_size, seed=1),
+                           policy, disc, paged)
+        fell_back = any(MLA_FALLBACK in str(w.message) for w in caught)
+        if fell_back != (disc != "stall"):
+            raise AssertionError(f"{cfg.name} {policy} {disc}: stall "
+                                 f"fall-back warned={fell_back}")
+        r["launches"] = {k: n - before.get(k, 0) for k, n in
+                         ops.launch_counts().items() if n - before.get(k, 0)}
+        r["fell_back_to_stall"] = fell_back
+        runs.append(r)
+    return runs
+
+
+def _moe_prefill(cfg, params, s=2048, runs=3):
+    """One synchronized full-depth prefill of an ``s``-token prompt (B1,
+    into a dense cache, the LM head on the last position): the host
+    clock around each pass, median of ``runs`` after one warm-up; the
+    grouped products a pass (three per MoE layer) and no hand-written
+    kernel (MLA runs none)."""
+    import statistics
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.cache import init_cache
+    from repro_torch.models.model import forward_full
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (1, s), generator=gen,
+                           device="cuda")
+
+    def prefill():
+        cache = init_cache(cfg, 1, s, device="cuda")
+        with torch.inference_mode():
+            logits, _, _ = forward_full(params, cfg, tokens=tokens,
+                                        cache=cache, last_only=True)
+        torch.cuda.synchronize()
+        return logits
+
+    if not bool(torch.isfinite(prefill().float()).all()):
+        raise AssertionError("moe prefill: non-finite logits")
+    ops.reset_launch_counts()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        prefill()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = {k: n // runs for k, n in ops.launch_counts().items() if n}
+    n_moe = sum(1 for i in cfg.attn_layers if i not in cfg.moe.dense_layers)
+    if counts != {"ragged_dot": 3 * n_moe}:
+        raise AssertionError(f"moe prefill: launches a pass {counts}, want "
+                             f"{3 * n_moe} grouped products only")
+    ms = statistics.median(times)
+    log(f"  {cfg.name} prefill B1 S{s} x {cfg.num_layers} layers: {ms:.2f} "
+        f"ms (median of {runs}: {', '.join(f'{t:.2f}' for t in times)}); "
+        f"launches a pass {counts}")
+    return {"model": cfg.name, "prompt": s, "batch": 1,
+            "layers": cfg.num_layers, "prefill_ms": ms,
+            "prefill_ms_runs": times, "launches_per_pass": counts}
+
+
+def _sync_free_round(cfg, params):
+    """One ``dispatch_decode`` round of ``cfg`` (paged, width 2 of a
+    4-slot pool, two requests prefilled and the width warmed first) under
+    ``torch.cuda.set_sync_debug_mode("error")``: any host sync on the
+    round's path raises.  Returns its sampled ids on the host."""
+    import numpy as np
+    import torch
+    from repro_torch.data.synthetic import sample_serve_workload
+    from repro_torch.engine.engine import Engine
+    from repro_torch.launch.serve import _to_rts
+    eng = Engine(cfg, params, max_slots=4, max_seq_len=256, device="cuda")
+    rts = _to_rts(sample_serve_workload(2, cfg.vocab_size, seed=4))
+    for slot, rt in enumerate(rts):
+        eng.begin_prefill(rt, slot)
+        eng.prefill_step(rt)
+    feed = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+    for slot, rt in enumerate(rts):
+        feed[slot, 0] = rt.generated[-1]
+    active = np.array([True, True, False, False])
+    eng.dispatch_decode(feed, active, width=2)         # warms width 2
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks = eng.dispatch_decode(feed, active, width=2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    toks = toks.cpu().tolist()
+    if len(toks) != 2 or not all(0 <= t < cfg.vocab_size for t in toks):
+        raise AssertionError(f"sync-free round: tokens {toks}")
+    log(f"  {cfg.name} dispatch_decode round (width 2) under sync debug "
+        f"mode 'error': no host sync, tokens {toks}")
+    return toks
+
+
+def _ragged_check(results):
+    """The grouped product (``torch._grouped_mm``) against its plain
+    version (a product per expert over its rows, on the card) at the
+    expert widths of DeepSeek-V2-Lite (64 experts, d 2048, ff 1408) and
+    DBRX (16 experts, d 6144, ff 10752), gate/up and down shapes: rows
+    routed top-k from random router probabilities at a decode round's
+    batch (so some experts get no row), and every row given to one
+    expert; bf16 and float32 within ``TOL``.  Timed (CUDA events, plain /
+    grouped / grouped / plain) at DeepSeek's decode shape: 8 tokens x
+    top-6 = 48 rows, gate/up product, beside its bound (the weights of
+    the experts hit, x and the output each moved once)."""
+    import torch
+    from repro_torch.kernels import ragged_dot as rd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    rows = []
+    timed = None
+    for model, e, d, ff, k, t in (("deepseek-v2-lite-16b", 64, 2048, 1408,
+                                   6, 8),
+                                  ("dbrx-132b", 16, 6144, 10752, 4, 8)):
+        for dn, dt in (("bfloat16", torch.bfloat16),
+                       ("float32", torch.float32)):
+            w_up = (torch.randn((e, d, ff), generator=gen, device="cuda")
+                    * d ** -0.5).to(dt)
+            w_down = (torch.randn((e, ff, d), generator=gen, device="cuda")
+                      * ff ** -0.5).to(dt)
+            probs = torch.rand((t, e), generator=gen, device="cuda")
+            routed = torch.topk(probs, k, dim=-1).indices.reshape(-1)
+            sizes = {"routed": (routed[:, None] == torch.arange(
+                e, device="cuda")).sum(0, dtype=torch.int32),
+                "one expert takes all": torch.zeros(
+                    e, dtype=torch.int32, device="cuda")}
+            sizes["one expert takes all"][e // 2] = t * k
+            for label, gs in sizes.items():
+                for shape, w, width in (("gate/up", w_up, d),
+                                        ("down", w_down, ff)):
+                    x = torch.randn((t * k, width), generator=gen,
+                                    device="cuda").to(dt)
+                    got = rd.ragged_dot_cuda(x, w, gs)
+                    want = rd.ragged_dot_plain(x, w, gs)
+                    err = (got.float() - want.float()).abs()
+                    ok = bool((err <= TOL[dn] + TOL[dn]
+                               * want.float().abs()).all())
+                    empty = int((gs == 0).sum())
+                    rows.append({"model": model, "dtype": dn, "case": label,
+                                 "shape": shape, "rows": t * k,
+                                 "experts_without_rows": empty,
+                                 "max_abs_err": float(err.max())})
+                    log(f"  ragged_dot {model} {shape:<7} {label:<20} {dn:<8}"
+                        f" {t * k} rows over {e} experts ({empty} without "
+                        f"rows) max_abs_err={float(err.max()):.3e} tol="
+                        f"{TOL[dn]:g} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"ragged_dot {model} {shape} "
+                                             f"{label} {dn} disagrees")
+                    if (model, dn, label, shape) == (
+                            "deepseek-v2-lite-16b", "bfloat16", "routed",
+                            "gate/up"):
+                        hit = e - empty
+                        nbytes = (hit * d * ff + x.numel() + t * k * ff) \
+                            * x.element_size()
+                        b_ms, b_by = bound(nbytes, 2.0 * t * k * d * ff, dn)
+                        ms, plain_ms = alternate(
+                            lambda: rd.ragged_dot_plain(x, w, gs),
+                            lambda: rd.ragged_dot_cuda(x, w, gs), 50)
+                        timed = {"shape": f"{t} tokens x top-{k} = {t * k} "
+                                 f"rows over {e} experts ({hit} hit), "
+                                 f"{d} -> {ff}, bf16", "ms": ms,
+                                 "plain_ms": plain_ms, "bound_ms": b_ms,
+                                 "bound_by": b_by, "experts_hit": hit}
+            del w_up, w_down
+    torch.cuda.empty_cache()
+    log(f"  ragged_dot at {timed['shape']}: grouped {timed['ms']:.4f} ms, "
+        f"plain (a product per expert) {timed['plain_ms']:.4f} ms, bound "
+        f"{timed['bound_ms']:.4f} ms ({timed['bound_by']})")
+    results["ragged_dot"] = {"cases": rows, "timed": timed,
+                             "max_abs_err": max(r["max_abs_err"]
+                                                for r in rows)}
+
+
+def _moe_model_summary(cfg, params, t0):
+    import torch
+    leaves = list(_leaves(params))
+    n = sum(x.numel() for x in leaves)
+    gb = sum(x.numel() * x.element_size() for x in leaves) / 1e9
+    torch.cuda.synchronize()
+    log(f"  {cfg.name}: {cfg.num_layers} layers d={cfg.d_model} heads="
+        f"{cfg.num_heads}/{cfg.num_kv_heads} "
+        + (f"MLA rank {cfg.mla.kv_lora_rank} nope {cfg.mla.qk_nope_head_dim}"
+           f" rope {cfg.mla.qk_rope_head_dim} v {cfg.mla.v_head_dim} "
+           if cfg.mla is not None else f"hd={cfg.head_dim} ")
+        + f"experts {cfg.moe.num_experts} top-{cfg.moe.top_k} ff "
+        f"{cfg.moe.d_ff_expert} shared {cfg.moe.num_shared_experts} dense "
+        f"layers {cfg.moe.dense_layers} vocab={cfg.vocab_size} {cfg.dtype}:"
+        f" {n / 1e9:.3f} B params, {gb:.2f} GB drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"params_b": n / 1e9, "gb": gb}
+
+
+def phase_moe(ctx):
+    """MoE and MLA (ROADMAP M9) on the card.  DeepSeek-V2-Lite at its
+    published config (27 layers, d 2048, MLA rank 512, 64 experts top-6
+    + 2 shared, layer 0 dense at 10944, bf16, random seeded weights):
+    latency-model fit on the paged engine, fcfs / ``slo-reanneal:jax`` /
+    slo-preempt with ``chunked:32`` asked for (it must warn and stall)
+    on the paged and on the dense engine; a timed full-depth B1
+    2048-token prefill; one ServeLoop run of the stream phase's trace on
+    its pool (paged fcfs); a ServeLoop asked for ``chunked:16`` must
+    raise; one decode round under sync debug mode "error".  Then DBRX at
+    its published width and 4 of its 40 layers (GQA group 6): paged fcfs
+    and slo-preempt chunked:32 with the prefix cache, the multi-turn
+    run, K1 and K2 launched.  The grouped product against its plain
+    version; cuda-vs-cpu parity at 2 layers, float32, for both."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.latency_model import PAPER_TABLE2
+    from repro_torch.data.synthetic import (sample_multiturn_token_requests,
+                                            sample_serve_workload)
+    from repro_torch.data.traces import sample_trace_workload
+    from repro_torch.engine.engine import Engine
+    from repro_torch.launch.serve import fit_latency_model
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import ServeLoop, UnsupportedDisciplineError
+    card, smi, results = ctx["card"], ctx["smi"], ctx["results"]
+    # every earlier phase's model off the card before DeepSeek's 31 GB
+    # (the int8 phase draws Qwen2.5-7B again)
+    ctx.pop("params", None)
+    ctx.pop("cfg", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  moe phase on {smi}")
+    out = {"seconds": {}}
+    clock = [time.perf_counter()]
+
+    def lap(step):
+        now = time.perf_counter()
+        out["seconds"][step] = now - clock[0]
+        log(f"  moe phase: {step} took {now - clock[0]:.1f} s")
+        clock[0] = now
+
+    def fit(cfg, params):
+        model = fit_latency_model(cfg, params, 4, np.random.default_rng(0),
+                                  device="cuda")
+        if model == PAPER_TABLE2:
+            raise AssertionError("the latency model fell back to the "
+                                 "paper's V100 table instead of fitting "
+                                 "this card")
+        log(f"  latency model fit on {card} ({cfg.name}, paged): {model}; "
+            f"decode intercept {model.delta_d * 1e3:.2f} ms a round")
+        return model
+
+    cfg = get_config("deepseek-v2-lite-16b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    out["deepseek"] = _moe_model_summary(cfg, params, t0)
+    blocks = params["layers"]
+    if "mlp" not in blocks[0] or blocks[0]["mlp"]["w_gate"].shape[1] != \
+            cfg.moe.d_ff_dense or not all(
+            "moe" in b and b["moe"]["router"].dtype == torch.float32
+            and b["moe"]["shared"]["w_gate"].shape[1]
+            == cfg.moe.d_ff_expert * cfg.moe.num_shared_experts
+            for b in blocks[1:]):
+        raise AssertionError("deepseek: layer 0 is not the dense FFN, or a "
+                             "later layer is not MoE with its shared "
+                             "experts and a float32 router")
+    model = fit(cfg, params)
+    lap("deepseek draw + fit")
+    runs = []
+    for paged, path in ((True, "serve_mla_paged"),
+                        (False, "serve_mla_dense")):
+        got = count_path(results, path,
+                         lambda: _mla_serve_runs(cfg, params, model, paged))
+        _log_runs(card, got)
+        for r in got:
+            k = r["launches"]
+            log(f"  deepseek {r['layout']} {r['policy']} {r['discipline']}"
+                f" (fell back to stall: {r['fell_back_to_stall']}): "
+                f"launches {k}")
+            if r["completed"] != r["n"] or set(k) - {"ragged_dot",
+                                                     "anneal"}:
+                raise AssertionError(f"deepseek run {r['layout']} "
+                                     f"{r['policy']} {r['discipline']}: {r}")
+        runs += got
+        lap(f"deepseek {path}")
+    out["deepseek_serve"] = runs
+    out["deepseek_prefill"] = _moe_prefill(cfg, params)
+    try:
+        ServeLoop(Engine(cfg, params, max_slots=4, max_seq_len=256,
+                         device="cuda"), "fcfs", model=model,
+                  discipline="chunked:16")
+    except UnsupportedDisciplineError as e:
+        log(f"  ServeLoop(deepseek, chunked:16) refused: {e}")
+    else:
+        raise AssertionError("ServeLoop took chunked:16 on an MLA arch")
+    out["sync_free_round"] = _sync_free_round(cfg, params)
+    lap("deepseek prefill, chunked refusal, sync-free round")
+    pairs = sample_trace_workload(MOE_STREAM_N, cfg.vocab_size,
+                                  rate=STREAM_RATE, seed=1)
+    log(f"  deepseek stream: {MOE_STREAM_N} of the stream phase's "
+        f"{STREAM_N} requests at {STREAM_RATE} req/s, pool {STREAM_SLOTS} "
+        f"slots x {STREAM_SEQ} tokens")
+    stream = count_path(results, "serve_stream_mla", lambda: [
+        _stream_run(lambda: ServeLoop(Engine(
+            cfg, params, max_slots=STREAM_SLOTS, max_seq_len=STREAM_SEQ,
+            device="cuda"), "fcfs", model=model), pairs,
+            "deepseek paged fcfs stall")])
+    stream[0]["model"] = cfg.name
+    _log_stream(card, smi, stream)
+    out["deepseek_stream"] = stream
+    lap("deepseek stream")
+    del params, blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dcfg = dataclasses.replace(get_config("dbrx-132b"),
+                               num_layers=DBRX_LAYERS, layer_pattern=())
+    t0 = time.perf_counter()
+    dparams = init_params(dcfg, seed=0, device="cuda")
+    out["dbrx"] = _moe_model_summary(dcfg, dparams, t0)
+    dmodel = fit(dcfg, dparams)
+
+    def dbrx_path():
+        got = [_serve_run(dcfg, dparams, dmodel,
+                          sample_serve_workload(8, dcfg.vocab_size, seed=1),
+                          policy, disc, True)
+               for policy, disc in (("fcfs", "stall"),
+                                    ("slo-preempt", "chunked:32"))]
+        got.append(_serve_run(dcfg, dparams, dmodel,
+                              sample_multiturn_token_requests(
+                                  2, turns=3, vocab=dcfg.vocab_size),
+                              "fcfs", "stall", True))
+        got[-1]["workload"] = "multiturn"
+        return got
+
+    got = count_path(results, "serve_moe_gqa", dbrx_path)
+    _log_runs(card, got)
+    if any(r["completed"] != r["n"] for r in got) or \
+            got[-1]["prefix_hit_rate"] <= 0:
+        raise AssertionError(f"dbrx runs: {got}")
+    out["dbrx_serve"] = got
+    del dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("dbrx draw, fit and runs")
+    _ragged_check(results)
+    out["ragged_dot"] = results["ragged_dot"]
+    lap("ragged product check")
+    out["parity"] = _moe_parity()
+    lap("parity")
+    ctx["moe"] = out
+    log("  moe summary: " + json.dumps(
+        {k: v for k, v in out.items() if k not in ("deepseek_serve",
+                                                   "dbrx_serve",
+                                                   "deepseek_stream")}))
+
+
+def _moe_parity():
+    """DeepSeek-V2-Lite (layer 0 dense, layer 1 MoE) and DBRX (two MoE
+    layers) at full width, 2 layers, float32, under fcfs (an MLA arch
+    serves every discipline stalling): identical greedy tokens, cuda vs
+    cpu, and logits within 1e-4 of max |logit| (``_recurrent_parity``),
+    DeepSeek on both layouts, DBRX on the paged one (its GQA layout,
+    the one it serves on) with 2 requests: its float32 experts are 25 GB
+    a copy, and the cpu side reads them every round (both layouts took
+    73 s against DeepSeek's 17 s, on the host of an H100 machine)."""
+    from repro_torch.configs import get_config
+    out = {}
+    for arch, layouts, n in (("deepseek-v2-lite-16b", ("paged", "dense"), 4),
+                             ("dbrx-132b", ("paged",), 2)):
+        t0 = time.perf_counter()
+        out[arch] = _recurrent_parity(dataclasses.replace(
+            get_config(arch), num_layers=2, layer_pattern=(),
+            dtype="float32"), layouts, policies=(("fcfs", "stall"),),
+            n_requests=n)
+        out[arch]["seconds"] = time.perf_counter() - t0
+        log(f"  parity {arch}: {out[arch]['seconds']:.1f} s")
+    return out
+
+
 def _decode_run(cfg, params, prompt, steps, quantized, layout,
                 tokens=None, step_ms=None):
     """Prefill ``prompt`` then ``steps`` decode steps through a paged or
@@ -2462,12 +2898,15 @@ def _hybrid_parity():
         ("paged", "dense"))
 
 
-def _recurrent_parity(cfg, layouts):
+def _recurrent_parity(cfg, layouts, policies=(("fcfs", "stall"),
+                                               ("slo-preempt", "chunked:32")),
+                      n_requests=4):
     """``cfg`` (float32, TF32 off) on cuda (the kernels) and on cpu (their
     plain versions), on each of ``layouts``: the engine's greedy tokens
-    per request must be identical under fcfs and slo-preempt +
-    chunked:32 (the paper's table as latency model on both, so the two
-    devices plan alike), and the logits of one prefill and 4 decode
+    per request (``n_requests`` of 8 tokens) must be identical under
+    ``policies`` (by default fcfs and slo-preempt + chunked:32; the
+    paper's table as latency model on both, so the two devices plan
+    alike), and the logits of one prefill and 4 decode
     steps (cuda's greedy tokens fed to both) must agree within 1e-4 of
     max |cpu logit|: f32 sums in other orders (the SSD scan's own bound
     against plain is 5e-5 of max |plain|; the matmuls around it and the
@@ -2487,11 +2926,11 @@ def _recurrent_parity(cfg, layouts):
     what = f"{cfg.name} x{cfg.num_layers} layers f32"
     report = {}
     for layout in layouts:
-        for policy, disc in (("fcfs", "stall"), ("slo-preempt", "chunked:32")):
+        for policy, disc in policies:
             tokens = {}
             for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
-                rts = _to_rts(sample_serve_workload(4, cfg.vocab_size,
-                                                    seed=2))
+                rts = _to_rts(sample_serve_workload(n_requests,
+                                                    cfg.vocab_size, seed=2))
                 for rt in rts:
                     rt.max_new_tokens = 8
                 eng = Engine(cfg, params, max_slots=4, max_seq_len=256,
@@ -3052,6 +3491,7 @@ def main(argv=None) -> int:
                       ("stream", lambda: phase_stream(ctx)),
                       ("ssm", lambda: phase_ssm(ctx)),
                       ("hybrid", lambda: phase_hybrid(ctx)),
+                      ("moe", lambda: phase_moe(ctx)),
                       ("int8", lambda: phase_int8(ctx)),
                       ("train", lambda: phase_train(ctx)),
                       ("parity", lambda: phase_parity(ctx))):

@@ -24,6 +24,12 @@ memory comes in two layouts:
   layers (Mamba2) always take this layout, as in the JAX engine: their
   per-slot conv and recurrent state is O(1) in sequence length.
 
+MLA archs (DeepSeek-V2) keep a latent per token instead of K/V, in
+either layout, and have no chunked path: ``chunked_prefill`` is forced
+to 0 and ``run_policy`` falls back to stalling prefill, with a warning,
+when asked for a chunked discipline, as the JAX engine does; the prefix
+index stays off for them.
+
 A hybrid stack (zamba2: Mamba2 blocks and one shared attention block)
 runs on either layout; on the paged one its SSM layers keep per-slot
 state beside the pages.  As in the JAX engine, the prefix index is off
@@ -57,6 +63,7 @@ Not ported yet (ROADMAP M11): the device mesh.
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -169,7 +176,8 @@ class Engine:
         # dense in-progress chunked prefills: slot -> private single-slot
         # cache, copied into the slot when the final chunk completes
         self._partial: Dict[int, dict] = {}
-        self.chunked_prefill = chunked_prefill
+        # MLA archs have no chunked forward path
+        self.chunked_prefill = 0 if cfg.mla is not None else chunked_prefill
         self._warm = set()
         self.cow_copies = 0          # copy-on-write page splits performed
 
@@ -240,9 +248,9 @@ class Engine:
     def _slice_slots(self, cache, width: int):
         """View of the first ``width`` slots of the paged pool: per-slot
         state (pos, block tables, SSM conv/ssm) sliced, the shared page
-        tensors passed through.  The slices are views and the decode step
-        writes in place, so the round lands in the full pool with no
-        merge."""
+        tensors (K/V, or MLA's ckv/kpe latent pages) passed through.
+        The slices are views and the decode step writes in place, so the
+        round lands in the full pool with no merge."""
         return {"pos": cache["pos"][:width],
                 "block_tables": cache["block_tables"][:width],
                 "layers": [{k: (v[:width] if k in ("conv", "ssm") else v)
@@ -730,6 +738,12 @@ class Engine:
         else:
             disc = ChunkedPrefill(self.chunked_prefill) \
                 if self.chunked_prefill else StallingPrefill()
+        if disc.chunk_size and self.cfg.mla is not None:
+            # MLA archs have no chunked path (see __init__)
+            warnings.warn(
+                f"{disc!r} is unsupported for MLA archs; falling "
+                "back to whole-prompt (stalling) prefill")
+            disc = StallingPrefill()
         return self._run_policy_loop(rts, pol, preemptive, model,
                                      respect_arrivals, disc)
 

@@ -18,12 +18,19 @@ from repro_torch.kernels import decode_attention_paged as _paged
 from repro_torch.kernels import decode_attention_q8 as _dense_q8
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import flash_attention_bwd as _flash_bwd
+from repro_torch.kernels import ragged_dot as _ragged
 from repro_torch.kernels import ssd_scan as _ssd
+
+# calls of PyTorch's own kernels that are counted beside the port's
+# (the MoE FFN's grouped product)
+LIBRARY_CALLS = (_ragged.NAME,)
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {name: _build.LAUNCHES[name] for name in _build.KERNELS}
+    """Kernel launches, and the counted library calls, since the last
+    :func:`reset_launch_counts`."""
+    return {name: _build.LAUNCHES[name]
+            for name in _build.KERNELS + LIBRARY_CALLS}
 
 
 def reset_launch_counts():
@@ -99,6 +106,15 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int, init_state=None):
         return _ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
                                    init_state=init_state)
     return _ssd.ssd_scan_cuda(x, dt, A, B, C, init_state=init_state)
+
+
+def ragged_dot(x, w, group_sizes):
+    """The MoE FFN's grouped product: rows of ``x`` [T, K] in consecutive
+    groups of ``group_sizes`` [G], group g times ``w[g]`` ([G, K, N]).
+    -> [T, N]."""
+    if x.device.type == "cpu":
+        return _ragged.ragged_dot_plain(x, w, group_sizes)
+    return _ragged.ragged_dot_cuda(x, w, group_sizes)
 
 
 def anneal_chains(reqc, n_valid, draws, max_batch: int, T0: float,

@@ -17,8 +17,15 @@ Execution paths:
 int8 caches (``k_scale`` in the layer dict) store each new token
 quantized per (token, kv head) and dequantize inside attention.  Kernel
 calls go through :mod:`repro_torch.kernels.ops`, which picks the CUDA
-kernel or its plain version by the tensors' device.  MLA waits for a
-later slice (ROADMAP M9).
+kernel or its plain version by the tensors' device.
+
+MLA (multi-head latent attention, DeepSeek-V2) follows the JAX package's
+arithmetic in plain PyTorch, as the JAX package runs it in jnp with no
+Pallas kernel: ``mla_full`` expands the latent and attends over q·k of
+width nope + rope (192 at the published width, which the flash kernel
+does not take); ``mla_decode`` / ``mla_decode_paged`` attend in the
+latent space with ``w_uk`` absorbed into q, in float32 over the dense
+ring or the gathered live pages.
 """
 from __future__ import annotations
 
@@ -358,3 +365,138 @@ def gqa_decode_paged(params, cfg, x, positions, layer_cache, block_tables,
             block_tables, lengths.to(torch.int32), window=cfg.sliding_window)
     out = o.to(x.dtype).reshape(b, 1, h * hd)
     return out @ params["wo"], layer_cache
+
+
+# =================================================================== MLA
+def init_mla(cfg, dtype: torch.dtype, device: torch.device,
+             generator: torch.Generator):
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    s, r = d ** -0.5, m.kv_lora_rank ** -0.5
+    return {
+        "wq": normal((d, h * qk_hd), s, dtype, device, generator),
+        "w_dkv": normal((d, m.kv_lora_rank), s, dtype, device, generator),
+        "w_krope": normal((d, m.qk_rope_head_dim), s, dtype, device,
+                          generator),
+        "w_uk": normal((m.kv_lora_rank, h * m.qk_nope_head_dim), r, dtype,
+                       device, generator),
+        "w_uv": normal((m.kv_lora_rank, h * m.v_head_dim), r, dtype, device,
+                       generator),
+        "wo": normal((h * m.v_head_dim, d), (h * m.v_head_dim) ** -0.5,
+                     dtype, device, generator),
+        "kv_norm": torch.ones(m.kv_lora_rank, dtype=torch.float32,
+                              device=device)}
+
+
+def _mla_project(params, cfg, x, positions):
+    """q split into its no-rope and rope parts ([B,S,h,nope] and
+    [B,S,h,rope_d], RoPE applied), the normed latent c_kv [B,S,rank] and
+    the shared rope key k_pe [B,S,rope_d]."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    nope, rope_d = m.qk_nope_head_dim, m.qk_rope_head_dim
+    q = (x @ params["wq"]).reshape(b, s, cfg.num_heads, nope + rope_d)
+    c_kv = rmsnorm(x @ params["w_dkv"], params["kv_norm"], cfg.norm_eps)
+    k_pe = (x @ params["w_krope"]).reshape(b, s, 1, rope_d)
+    cos, sin = rope_cos_sin(positions, rope_d, cfg.rope_theta)
+    return (q[..., :nope], apply_rope(q[..., nope:], cos, sin), c_kv,
+            apply_rope(k_pe, cos, sin)[:, :, 0])
+
+
+def mla_full(params, cfg, x, positions):
+    """MLA prefill / train: expand the latent and run causal attention.
+    Returns (out [B,S,D], (c_kv [B,S,rank], k_pe [B,S,rope_d])) for
+    cache writing."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    nope, rope_d, vhd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    q_nope, q_pe, c_kv, k_pe = _mla_project(params, cfg, x, positions)
+    k_nope = (c_kv @ params["w_uk"]).reshape(b, s, h, nope)
+    v = (c_kv @ params["w_uv"]).reshape(b, s, h, vhd)
+    # 1/sqrt(nope + rope_d) with the root rounded to x's dtype, as the
+    # JAX package scales (a 0-d CPU tensor: a scalar to the device op)
+    scale = 1.0 / torch.tensor(float(nope + rope_d)).sqrt().to(x.dtype)
+    scores = (torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope)
+              + torch.einsum("bqhd,bkd->bhqk", q_pe, k_pe)) * scale
+    mask = _causal_mask(s, s, 0, 0, x.device)
+    probs = torch.softmax(scores.float().masked_fill(~mask, NEG_INF),
+                          dim=-1).to(x.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, h * vhd)
+    return out @ params["wo"], (c_kv, k_pe)
+
+
+def _mla_attend(params, cfg, q_nope, q_pe, ckv, kpe, n_valid, dtype):
+    """Absorbed one-token MLA attention over a latent view.
+
+    q_nope [B,h,nope], q_pe [B,h,rope_d]; ckv [B,L,rank], kpe
+    [B,L,rope_d]; the first ``n_valid`` [B] slots attend.
+    score_l = (q_nope · W_uk) · c_l + q_pe · kpe_l, in float32;
+    out = (Σ p_l c_l) · W_uv.  Returns [B, 1, D]."""
+    m = cfg.mla
+    b, h = q_nope.shape[0], cfg.num_heads
+    nope, rope_d, vhd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    rank = m.kv_lora_rank
+    L = ckv.shape[1]
+    q_abs = torch.einsum("bhd,rhd->bhr", q_nope,
+                         params["w_uk"].reshape(rank, h, nope))
+    ckv = ckv.float()
+    scores = (torch.einsum("bhr,blr->bhl", q_abs.float(), ckv)
+              + torch.einsum("bhd,bld->bhl", q_pe.float(), kpe.float())) \
+        * (nope + rope_d) ** -0.5
+    valid = torch.arange(L, device=ckv.device)[None, :] \
+        < n_valid.long()[:, None]
+    probs = torch.softmax(scores.masked_fill(~valid[:, None, :], NEG_INF),
+                          dim=-1)
+    ctx = torch.einsum("bhl,blr->bhr", probs, ckv).to(dtype)
+    out = torch.einsum("bhr,rhd->bhd", ctx,
+                       params["w_uv"].reshape(rank, h, vhd))
+    return out.reshape(b, 1, h * vhd) @ params["wo"]
+
+
+def mla_decode(params, cfg, x, positions, layer_cache, cache_pos,
+               active=None):
+    """Absorbed MLA decode against the dense latent ring.
+
+    x: [B, 1, D]; layer_cache: {"ckv": [B, L, rank], "kpe": [B, L,
+    rope_d]}; cache_pos: [B].  The new latent token is written in place
+    at slot ``pos % L`` (for ``active`` slots only when given), then
+    attends to the first ``min(pos+1, L)`` slots.  Returns (out
+    [B,1,D], layer_cache)."""
+    b = x.shape[0]
+    L = layer_cache["ckv"].shape[1]
+    q_nope, q_pe, c_kv, k_pe = _mla_project(params, cfg, x, positions)
+    rows = torch.arange(b, device=x.device)
+    _write_token(layer_cache, {"ckv": c_kv[:, 0], "kpe": k_pe[:, 0]},
+                 (rows, torch.remainder(cache_pos.long(), L)), active)
+    n_valid = torch.clamp(cache_pos + 1, max=L)
+    return _mla_attend(params, cfg, q_nope[:, 0], q_pe[:, 0],
+                       layer_cache["ckv"], layer_cache["kpe"], n_valid,
+                       x.dtype), layer_cache
+
+
+def mla_decode_paged(params, cfg, x, positions, layer_cache, block_tables,
+                     cache_pos):
+    """Absorbed MLA decode against the paged latent pool.
+
+    layer_cache: {"ckv": [N, P, rank], "kpe": [N, P, rope_d]} pages.  The
+    new latent token is written in place into its page, then the slot's
+    whole logical ring is gathered (``[B, slot_len, rank + rope_d]``)
+    and the dense absorbed math runs on it, as the JAX package does (the
+    latent is too narrow for a per-kv-head kernel tile; paging buys MLA
+    capacity, not decode reads).  Returns (out [B,1,D], layer_cache)."""
+    P = layer_cache["ckv"].shape[1]
+    L = block_tables.shape[1] * P
+    q_nope, q_pe, c_kv, k_pe = _mla_project(params, cfg, x, positions)
+    widx = torch.remainder(cache_pos.long(), L)
+    page_ids = torch.gather(block_tables.long(), 1,
+                            (widx // P)[:, None])[:, 0]
+    offs = torch.remainder(widx, P)
+    paged_token_write(layer_cache["ckv"], c_kv[:, 0], page_ids, offs)
+    paged_token_write(layer_cache["kpe"], k_pe[:, 0], page_ids, offs)
+    n_valid = torch.clamp(cache_pos + 1, max=L)
+    return _mla_attend(params, cfg, q_nope[:, 0], q_pe[:, 0],
+                       gather_pages(layer_cache["ckv"], block_tables),
+                       gather_pages(layer_cache["kpe"], block_tables),
+                       n_valid, x.dtype), layer_cache

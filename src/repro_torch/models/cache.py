@@ -11,7 +11,9 @@ A cache is a plain dict of tensors.  Two layouts:
 
   An SSM layer holds ``{"conv": [B, d_conv-1, d_inner + 2 ds], "ssm":
   [B, nh, hd, ds]}`` (the conv state in the cache dtype, the recurrent
-  state float32): O(1) in sequence length, so there is no ring.
+  state float32): O(1) in sequence length, so there is no ring.  An MLA
+  layer holds its latent ring ``{"ckv": [B, L, rank], "kpe": [B, L,
+  rope_d]}``.
 
 * **paged** (``init_paged_cache``): one shared pool of ``N`` pages of
   ``P`` tokens per layer plus per-slot block tables, priced by live
@@ -21,21 +23,23 @@ A cache is a plain dict of tensors.  Two layouts:
      "layers": [{"k": [N, P, kv, hd], "v": [N, P, kv, hd]}, ...]}
 
   An SSM layer of a hybrid stack keeps its per-slot state, laid out as
-  in the dense cache (``[max_slots, ...]``: it has no pages).  Block 0 is a reserved **null page**: unallocated table entries point
-  at it and padded prefill rows scatter into it, so every gather and
-  scatter stays in bounds without host-side masking.
+  in the dense cache (``[max_slots, ...]``: it has no pages); an MLA
+  layer pages its latent, ``{"ckv": [N, P, rank], "kpe": [N, P,
+  rope_d]}``.  Block 0 is a reserved **null page**: unallocated table
+  entries point at it and padded prefill rows scatter into it, so every
+  gather and scatter stays in bounds without host-side masking.
 
 Either layout may be **int8** (``quantized=True``): ``k``/``v`` hold int8
 values and each layer adds ``k_scale``/``v_scale`` ``[..., kv, 1]``
-bf16, one scale per (token, kv head) (:func:`quantize_kv`).
+bf16, one scale per (token, kv head) (:func:`quantize_kv`).  MLA
+latents stay in the cache dtype, as in the JAX package.
 
 Where the JAX package donates the cache to a jitted step and gets an
 updated copy back, the port writes **in place** (O(tokens) scatters);
 the functions below mutate and return the same tensors.  An
 attention-free (SSM-only) arch never takes the paged pool, as in the
 JAX engine; hybrid stacks (Mamba2 + attention, zamba2) take either
-layout.  MLA latents and MoE wait for ROADMAP.md M9, multi-codebook
-heads for M10b.
+layout.  Multi-codebook heads wait for ROADMAP.md M10b.
 """
 from __future__ import annotations
 
@@ -65,12 +69,9 @@ def paged_slot_len(cfg: ModelConfig, max_len: int, block_size: int,
 
 def require_ported(cfg: ModelConfig, paged: bool = False):
     """Raise ``NotImplementedError`` unless the port runs ``cfg`` on the
-    given layout: GQA decoders and hybrid SSM + attention stacks on
-    either, attention-free Mamba2 (SSM) stacks on the dense layout
-    only."""
-    if cfg.mla is not None or cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MLA and MoE are not ported "
-                                  "(ROADMAP.md M9)")
+    given layout: GQA and MLA decoders (dense FFN or MoE) and hybrid SSM
+    + attention stacks on either, attention-free Mamba2 (SSM) stacks on
+    the dense layout only."""
     if cfg.num_codebooks > 1:
         raise NotImplementedError(f"{cfg.name}: multi-codebook heads are not "
                                   "ported (ROADMAP.md M10b)")
@@ -99,6 +100,20 @@ def _kv_layer(lead, kv: int, hd: int, dtype, quantized: bool, device):
             "v": torch.zeros(lead + (kv, hd), dtype=dtype, device=device)}
 
 
+def _attn_layer(cfg: ModelConfig, lead, dtype, quantized: bool, device):
+    """An attention layer's zeroed cache over ``lead`` rows: the MLA
+    latent (``ckv`` ``lead + (rank,)``, ``kpe`` ``lead + (rope_d,)``, never
+    quantized), or GQA K/V (int8 when ``quantized``)."""
+    m = cfg.mla
+    if m is not None:
+        return {"ckv": torch.zeros(lead + (m.kv_lora_rank,), dtype=dtype,
+                                   device=device),
+                "kpe": torch.zeros(lead + (m.qk_rope_head_dim,),
+                                   dtype=dtype, device=device)}
+    return _kv_layer(lead, cfg.num_kv_heads, cfg.head_dim, dtype, quantized,
+                     device)
+
+
 def _ssm_layer(cfg: ModelConfig, batch: int, dtype, device):
     """One SSM layer's zeroed conv state (``dtype``) and float32
     recurrent state."""
@@ -117,15 +132,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     """Dense per-slot KV rings of length ``cache_len`` (capped by
     ``window`` when > 0), zeroed on ``device``.  ``quantized``: int8 KV
     with per-(token, head) bf16 scales.  SSM layers get their conv and
-    recurrent state (``window`` and ``quantized`` do not apply)."""
+    recurrent state (``window`` and ``quantized`` do not apply), MLA
+    layers their latent ring (``quantized`` does not apply)."""
     require_ported(cfg)
     dtype = torch_dtype(cfg.dtype if dtype is None else dtype)
     L = cache_len(cfg, max_len)
     if window:
         L = min(L, window)
     layers = [_ssm_layer(cfg, batch, dtype, device) if kind == SSM else
-              _kv_layer((batch, L), cfg.num_kv_heads, cfg.head_dim, dtype,
-                        quantized, device) for kind in cfg.layer_pattern]
+              _attn_layer(cfg, (batch, L), dtype, quantized, device)
+              for kind in cfg.layer_pattern]
     return {"pos": torch.zeros(batch, dtype=torch.int32, device=device),
             "layers": layers}
 
@@ -172,12 +188,17 @@ def write_prefill(cache, layer_idx: int, kv_tuple, cfg: ModelConfig):
     """Write full-sequence K/V ([B, S, kv, hd] each) produced by a
     prefill pass into the dense cache at positions [0, S), in place
     (quantized with fresh per-token scales for int8 caches); for an SSM
-    layer, its final (conv, ssm) state."""
+    layer, its final (conv, ssm) state; for an MLA layer, its latent
+    (c_kv [B, S, rank], k_pe [B, S, rope_d])."""
     layer = cache["layers"][layer_idx]
     if "ssm" in layer:
         conv, ssm = kv_tuple
         layer["conv"].copy_(conv)
         layer["ssm"].copy_(ssm)
+        return cache
+    if "ckv" in layer:
+        _ring_write(layer["ckv"], kv_tuple[0])
+        _ring_write(layer["kpe"], kv_tuple[1])
         return cache
     k, v = kv_tuple
     if "k_scale" in layer:
@@ -198,16 +219,16 @@ def init_paged_cache(cfg: ModelConfig, max_slots: int, max_len: int,
                      device: torch.device):
     """Block-paged KV pool shared by ``max_slots`` request slots, zeroed
     on ``device`` (int8 pages with bf16 scale pages when
-    ``quantized``).  An SSM layer of a hybrid stack gets its per-slot
-    conv and recurrent state, identical to the dense layout's."""
+    ``quantized``; MLA latent pages are never quantized).  An SSM layer
+    of a hybrid stack gets its per-slot conv and recurrent state,
+    identical to the dense layout's."""
     require_ported(cfg, paged=True)
     dtype = torch_dtype(cfg.dtype if dtype is None else dtype)
     if num_blocks < 2:
         raise ValueError("num_blocks must be >= 2 (block 0 is the null page)")
     P = block_size
     layers = [_ssm_layer(cfg, max_slots, dtype, device) if kind == SSM else
-              _kv_layer((num_blocks, P), cfg.num_kv_heads, cfg.head_dim,
-                        dtype, quantized, device)
+              _attn_layer(cfg, (num_blocks, P), dtype, quantized, device)
               for kind in cfg.layer_pattern]
     pages_per_slot = paged_slot_len(cfg, max_len, P, window) // P
     return {"pos": torch.zeros(max_slots, dtype=torch.int32, device=device),
@@ -249,10 +270,11 @@ def paged_prefill_write(pages, vals, block_table, n, start=0):
 
 def write_prefill_paged(cache, layer_idx: int, kv_tuple, cfg: ModelConfig,
                         slot, n):
-    """Write one request's prefill K/V ([1, S, kv, hd] each, S >= n) into
-    ``slot``'s pages at positions [0, n), in place (quantized with fresh
-    per-token scales for int8 pages); for an SSM layer, its final (conv,
-    ssm) state ([1, ...] each) into the slot's rows."""
+    """Write one request's prefill K/V ([1, S, kv, hd] each, S >= n), or
+    MLA latent ([1, S, rank], [1, S, rope_d]), into ``slot``'s pages at
+    positions [0, n), in place (quantized with fresh per-token scales
+    for int8 pages); for an SSM layer, its final (conv, ssm) state ([1,
+    ...] each) into the slot's rows."""
     layer = cache["layers"][layer_idx]
     if "ssm" in layer:
         conv, ssm = kv_tuple
@@ -260,6 +282,10 @@ def write_prefill_paged(cache, layer_idx: int, kv_tuple, cfg: ModelConfig,
         layer["ssm"][slot].copy_(ssm[0])
         return cache
     bt = cache["block_tables"][slot]
+    if "ckv" in layer:
+        paged_prefill_write(layer["ckv"], kv_tuple[0][0], bt, n)
+        paged_prefill_write(layer["kpe"], kv_tuple[1][0], bt, n)
+        return cache
     k, v = kv_tuple
     if "k_scale" in layer:
         kq, ks = quantize_kv(k)

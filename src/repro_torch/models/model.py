@@ -1,10 +1,13 @@
-"""Dense GQA decoders over the dense and paged KV caches, attention-free
-Mamba2 (SSM) stacks over the dense cache, and hybrid stacks of Mamba2
-blocks and one shared attention+MLP block (zamba2) over either (the
-dense-model, SSM and hybrid paths of ``src/repro/models/model.py``).
+"""Decoders over the dense and paged KV caches (counterpart of
+``src/repro/models/model.py``): GQA or MLA attention blocks whose FFN is
+an MLP or, on the MoE layers of an MoE config, a mixture of experts
+(``moe_ffn``); attention-free Mamba2 (SSM) stacks over the dense cache;
+hybrid stacks of Mamba2 blocks and one shared attention+MLP block
+(zamba2) over either.
 
 Parameters are a plain dict of tensors with the JAX package's layout
-(``x @ w``, ``w: [d_in, d_out]``; norm scales float32), so
+(``x @ w``, ``w: [d_in, d_out]``; norm scales and the MoE router
+float32), so
 :func:`repro_torch.bridge.from_jax_params` is a straight copy.  The
 forward functions take a cache dict of :mod:`repro_torch.models.cache`
 (dense: ``forward_full``/``forward_decode``/``forward_chunk``; paged:
@@ -15,6 +18,9 @@ With ``cfg.shared_attn_weights`` the attention layers share one block,
 ``params["layers"]``, as in the JAX package; every forward resolves
 ``params["layers"][i] or params.get("shared_block")``.  Each attention
 layer keeps its own K/V in the cache.
+
+MLA archs have no chunked path (``forward_chunk`` / ``forward_chunk_paged``
+refuse them, as the JAX package asserts): the engine prefills them whole.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from repro_torch.models.cache import (require_ported, write_prefill,
 from repro_torch.models.config import SSM, ModelConfig
 from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, \
     init_norm, normal
+from repro_torch.models.moe import init_moe, moe_ffn
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
@@ -38,7 +45,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
     """Random parameters at ``cfg``'s shapes, drawn on ``device`` (default
     ``cuda``) in ``cfg.dtype`` from a seeded generator on that device
     (norm scales and the SSM blocks' ``A_log``/``dt_bias``/``D``/``norm``
-    float32, as in the JAX package).  With ``cfg.shared_attn_weights``
+    float32, as in the JAX package).  An attention block takes MLA where
+    ``cfg.mla`` is set, and an MoE FFN in place of its MLP on the MoE
+    layers (those not in ``cfg.moe.dense_layers``; the dense ones are
+    ``cfg.moe.d_ff_dense`` wide when it is set).  With
+    ``cfg.shared_attn_weights``
     one attention block is drawn at the first attention layer and stored
     as ``params["shared_block"]``, with ``{}`` at every attention
     position of ``params["layers"]`` (the JAX tree)."""
@@ -56,7 +67,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((cfg.d_model, cfg.vocab_size), s, dtype,
                                    dev, generator)
-    for kind in cfg.layer_pattern:
+    for i, kind in enumerate(cfg.layer_pattern):
         if kind == SSM:
             params["layers"].append({
                 "norm": init_norm(cfg, cfg.d_model, dev),
@@ -68,9 +79,15 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
         block = {
             "attn_norm": init_norm(cfg, cfg.d_model, dev),
             "mlp_norm": init_norm(cfg, cfg.d_model, dev),
-            "attn": attn.init_gqa(cfg, dtype, dev, generator),
-            "mlp": init_mlp(cfg, cfg.d_model, cfg.d_ff, dtype, dev,
-                            generator)}
+            "attn": (attn.init_mla if cfg.mla is not None else
+                     attn.init_gqa)(cfg, dtype, dev, generator)}
+        if cfg.moe is not None and i not in cfg.moe.dense_layers:
+            block["moe"] = init_moe(cfg, dtype, dev, generator)
+        else:
+            ff = cfg.moe.d_ff_dense if cfg.moe is not None \
+                and cfg.moe.d_ff_dense else cfg.d_ff
+            block["mlp"] = init_mlp(cfg, cfg.d_model, ff, dtype, dev,
+                                    generator)
         if cfg.shared_attn_weights:
             params["shared_block"] = block
             block = {}
@@ -95,16 +112,27 @@ def lm_head(params, cfg, x):
     return x @ params["lm_head"]
 
 
-def _mlp_residual(block, cfg, x):
-    return x + apply_mlp(apply_norm(x, block["mlp_norm"], cfg), block["mlp"],
-                         cfg)
+def _ffn_residual(block, cfg, x):
+    """(x + the block's FFN of its normed input, the MoE load-balance
+    loss).  The FFN is the MLP, or the MoE on an MoE layer; the loss is
+    0.0 on an MLP layer (the decode paths drop it, as the JAX package
+    does)."""
+    y = apply_norm(x, block["mlp_norm"], cfg)
+    if "moe" in block:
+        y, loss = moe_ffn(block["moe"], cfg, y)
+    else:
+        y, loss = apply_mlp(y, block["mlp"], cfg), 0.0
+    return x + y, loss
 
 
 def _attn_block_full(block, cfg, x, positions):
-    h, kv_out = attn.gqa_full(block["attn"], cfg,
-                              apply_norm(x, block["attn_norm"], cfg),
-                              positions)
-    return _mlp_residual(block, cfg, x + h), kv_out
+    """Returns (x, the layer's cache entries, the MoE load-balance loss or
+    0.0)."""
+    h, kv_out = (attn.mla_full if cfg.mla is not None else attn.gqa_full)(
+        block["attn"], cfg, apply_norm(x, block["attn_norm"], cfg),
+        positions)
+    x, loss = _ffn_residual(block, cfg, x + h)
+    return x, kv_out, loss
 
 
 def _default_positions(cfg, batch, seq, offset, device):
@@ -117,10 +145,10 @@ def _default_positions(cfg, batch, seq, offset, device):
 
 def _attn_block_decode(block, cfg, x, positions, layer_cache, cache_pos,
                        active=None):
-    h, _ = attn.gqa_decode(block["attn"], cfg,
-                           apply_norm(x, block["attn_norm"], cfg), positions,
-                           layer_cache, cache_pos, active=active)
-    return _mlp_residual(block, cfg, x + h)
+    h, _ = (attn.mla_decode if cfg.mla is not None else attn.gqa_decode)(
+        block["attn"], cfg, apply_norm(x, block["attn_norm"], cfg),
+        positions, layer_cache, cache_pos, active=active)
+    return _ffn_residual(block, cfg, x + h)[0]
 
 
 def _ssm_block_full(block, cfg, x, layer_cache=None):
@@ -136,7 +164,8 @@ def _ssm_block_full(block, cfg, x, layer_cache=None):
 
 
 def _remat_layer(block, cfg, x, positions):
-    return _attn_block_full(block, cfg, x, positions)[0]
+    x, _, loss = _attn_block_full(block, cfg, x, positions)
+    return x, loss
 
 
 def forward_full(params, cfg: ModelConfig, *, tokens, cache=None,
@@ -151,7 +180,9 @@ def forward_full(params, cfg: ModelConfig, *, tokens, cache=None,
     keeping its activations (``torch.utils.checkpoint``, the counterpart
     of the JAX ``jax.checkpoint`` per layer); it cannot write a cache.
     Returns (logits [B, S or 1, V], cache_or_None, aux) — ``aux`` is the
-    MoE load-balance loss of the JAX signature, 0 for dense models."""
+    MoE load-balance loss summed over the layers and divided by the
+    number of attention layers, as in the JAX package (0.0 for models
+    without MoE layers)."""
     if remat and cache is not None:
         raise ValueError("remat recomputes layers in the backward pass and "
                          "cannot write a cache")
@@ -162,6 +193,7 @@ def forward_full(params, cfg: ModelConfig, *, tokens, cache=None,
     x = embed_tokens(params, cfg, tokens)
     b, s = x.shape[0], x.shape[1]
     positions = _default_positions(cfg, b, s, 0, x.device)
+    aux_total = 0.0
     for i, (kind, block) in enumerate(zip(cfg.layer_pattern,
                                           _blocks(params))):
         if kind == SSM:
@@ -170,19 +202,20 @@ def forward_full(params, cfg: ModelConfig, *, tokens, cache=None,
                 write_prefill(cache, i, state, cfg)
             continue
         if remat:
-            x = checkpoint(_remat_layer, block, cfg, x, positions,
-                           use_reentrant=False)
-            continue
-        x, kv_out = _attn_block_full(block, cfg, x, positions)
-        if cache is not None:
-            write_prefill(cache, i, kv_out, cfg)
+            x, aux = checkpoint(_remat_layer, block, cfg, x, positions,
+                                use_reentrant=False)
+        else:
+            x, kv_out, aux = _attn_block_full(block, cfg, x, positions)
+            if cache is not None:
+                write_prefill(cache, i, kv_out, cfg)
+        aux_total = aux_total + aux
     if last_only:
         x = x[:, -1:]
     x = apply_norm(x, params["final_norm"], cfg)
     logits = lm_head(params, cfg, x)
     if cache is not None:
         cache["pos"] += s
-    return logits, cache, 0.0
+    return logits, cache, aux_total / max(1, len(cfg.attn_layers))
 
 
 def forward_decode(params, cfg: ModelConfig, *, tokens, cache, active=None):
@@ -230,6 +263,12 @@ def _ssm_block_decode(block, cfg, x, layer_cache, active):
     return x + h
 
 
+def _refuse_mla_chunk(cfg):
+    if cfg.mla is not None:
+        raise NotImplementedError(f"{cfg.name}: chunked prefill has no MLA "
+                                  "path (nor has the JAX package's)")
+
+
 def forward_chunk(params, cfg: ModelConfig, *, tokens, cache):
     """Chunked-prefill step (Sarathi-style): a chunk of C tokens against
     a dense cache already holding ``cache["pos"]`` tokens (uniform across
@@ -237,6 +276,7 @@ def forward_chunk(params, cfg: ModelConfig, *, tokens, cache):
     the chunk runs from the cache's conv and recurrent state, which it
     replaces) and ``pos`` advances by C.  Returns (logits of the chunk's
     last position [B,1,V], cache)."""
+    _refuse_mla_chunk(cfg)
     x = embed_tokens(params, cfg, tokens)
     b, c = x.shape[0], x.shape[1]
     pos0 = cache["pos"][0].clone()
@@ -253,7 +293,7 @@ def forward_chunk(params, cfg: ModelConfig, *, tokens, cache):
         xin = apply_norm(x, block["attn_norm"], cfg)
         h, _ = attn.gqa_continue(block["attn"], cfg, xin, positions,
                                  layer_cache, pos0)
-        x = _mlp_residual(block, cfg, x + h)
+        x = _ffn_residual(block, cfg, x + h)[0]
     x = apply_norm(x[:, -1:], params["final_norm"], cfg)
     logits = lm_head(params, cfg, x)
     cache["pos"] += c
@@ -285,9 +325,10 @@ def forward_decode_paged(params, cfg: ModelConfig, *, tokens, cache,
             x = _ssm_block_decode(block, cfg, x, layer_cache, active)
             continue
         xin = apply_norm(x, block["attn_norm"], cfg)
-        h, _ = attn.gqa_decode_paged(block["attn"], cfg, xin, positions,
-                                     layer_cache, block_tables, cache_pos)
-        x = _mlp_residual(block, cfg, x + h)
+        h, _ = (attn.mla_decode_paged if cfg.mla is not None else
+                attn.gqa_decode_paged)(block["attn"], cfg, xin, positions,
+                                       layer_cache, block_tables, cache_pos)
+        x = _ffn_residual(block, cfg, x + h)[0]
     x = apply_norm(x, params["final_norm"], cfg)
     return lm_head(params, cfg, x), {"pos": cache_pos + 1,
                                      "block_tables": block_tables,
@@ -314,7 +355,7 @@ def forward_prefill_paged(params, cfg: ModelConfig, *, tokens, cache,
         if kind == SSM:
             x, kv_out = _ssm_block_full(block, cfg, x)
         else:
-            x, kv_out = _attn_block_full(block, cfg, x, positions)
+            x, kv_out, _ = _attn_block_full(block, cfg, x, positions)
         write_prefill_paged(cache, i, kv_out, cfg, slot, length)
     x = apply_norm(x[:, length - 1:length], params["final_norm"], cfg)
     logits = lm_head(params, cfg, x)
@@ -337,6 +378,7 @@ def forward_chunk_paged(params, cfg: ModelConfig, *, tokens, cache,
     included, from the slot's own conv and recurrent state and writes
     the result back into the slot, as the JAX package does.  Returns
     (valid-final logits [1,1,V], cache)."""
+    _refuse_mla_chunk(cfg)
     x = embed_tokens(params, cfg, tokens)
     b, c = x.shape[0], x.shape[1]
     if length is None:
@@ -358,7 +400,7 @@ def forward_chunk_paged(params, cfg: ModelConfig, *, tokens, cache,
         xin = apply_norm(x, block["attn_norm"], cfg)
         h, _ = attn.gqa_continue_paged(block["attn"], cfg, xin, positions,
                                        layer_cache, bt, pos0, n=length)
-        x = _mlp_residual(block, cfg, x + h)
+        x = _ffn_residual(block, cfg, x + h)[0]
     x = apply_norm(x[:, length - 1:length], params["final_norm"], cfg)
     logits = lm_head(params, cfg, x)
     cache["pos"][slot] += length

@@ -4,10 +4,12 @@
 Gradients come from ``torch.autograd.grad`` over the parameter leaves
 (each set to require grad for the call only), where JAX takes
 ``value_and_grad``; attention inside runs the differentiable flash
-kernels (:mod:`repro_torch.kernels.flash_attention_bwd`).  Dense models
-only: MoE's auxiliary loss waits for ROADMAP M9; VLM and multi-codebook
-batches, and SSM layers (Mamba2 and the zamba2 hybrid: the SSD scan has
-no backward kernel), for M10b.
+kernels (:mod:`repro_torch.kernels.flash_attention_bwd`).  MoE configs
+add the routers' load-balance loss (``AUX_LOSS_WEIGHT``), as the JAX
+``lm_loss`` does (held to it on the CPU; MoE training on the card is
+queued with ROADMAP M10b).  VLM and multi-codebook batches, and SSM
+layers (Mamba2 and the zamba2 hybrid: the SSD scan has no backward
+kernel), wait for M10b.
 """
 from __future__ import annotations
 
@@ -45,7 +47,7 @@ def lm_loss(params, cfg: ModelConfig, tokens, labels, mask=None,
     loss = torch.sum(torch.where(valid, nll, 0.0)) / denom
     aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
     return loss + AUX_LOSS_WEIGHT * aux, {"lm_loss": loss.detach(),
-                                          "aux_loss": aux}
+                                          "aux_loss": aux.detach()}
 
 
 def loss_and_grads(cfg: ModelConfig, params, batch, remat: bool = True):

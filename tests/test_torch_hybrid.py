@@ -136,8 +136,9 @@ def test_init_params_tree_matches_jax(layers):
 
 def test_require_ported_layouts():
     """The hybrid runs on both layouts; SSM-only stacks stay off the
-    paged pool, MLA / MoE and multi-codebook heads stay unported; the KV
-    bytes per token count the six attention layers only, as JAX's."""
+    paged pool, multi-codebook heads stay unported, MLA / MoE (DeepSeek-
+    V2-Lite, DBRX) run on both layouts with the reference's KV bytes per
+    token; the hybrid's count the six attention layers only, as JAX's."""
     full = torch_get_config("zamba2-1.2b")
     for cfg in (full, TCFG):
         require_ported(cfg)
@@ -148,8 +149,10 @@ def test_require_ported_layouts():
     with pytest.raises(NotImplementedError, match="ROADMAP.md M10"):
         require_ported(torch_get_config("mamba2-780m"), paged=True)
     for arch in ("deepseek-v2-lite-16b", "dbrx-132b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md M9"):
-            require_ported(torch_get_config(arch))
+        require_ported(torch_get_config(arch))
+        require_ported(torch_get_config(arch), paged=True)
+        assert kv_bytes_per_token(torch_get_config(arch)) == jax_kv_bytes(
+            get_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP.md M10b"):
         require_ported(torch_get_config("musicgen-medium"))
 

@@ -30,7 +30,8 @@ sys.exit(1 if bad else 0)
 # backward, the loss and step, AdamW, checkpoints, the launcher; the
 # Mamba2 block and the SSD scan kernel's wrapper; the streaming serving
 # loop, the fleet, their streams and metrics, trace replay, the serve
-# launcher; the batched annealer and its kernel's wrapper)
+# launcher; the batched annealer and its kernel's wrapper; the MoE FFN
+# and its grouped product)
 NEW_MODULES = ("repro_torch.kernels.decode_attention",
                "repro_torch.kernels.decode_attention_q8",
                "repro_torch.kernels.decode_attention_paged",
@@ -48,7 +49,8 @@ NEW_MODULES = ("repro_torch.kernels.decode_attention",
                "repro_torch.serving.metrics", "repro_torch.data.traces",
                "repro_torch.launch.serve",
                "repro_torch.core.annealing_torch",
-               "repro_torch.kernels.anneal")
+               "repro_torch.kernels.anneal",
+               "repro_torch.models.moe", "repro_torch.kernels.ragged_dot")
 
 
 def test_import_loads_no_jax_and_no_reference():

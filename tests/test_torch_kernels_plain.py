@@ -248,4 +248,4 @@ def test_cpu_wrappers_run_plain_and_launch_nothing():
         ("decode_attention_paged", "decode_attention_paged_q8",
          "decode_attention", "decode_attention_q8", "flash_attention",
          "flash_attention_fwd_lse", "flash_attention_dq",
-         "flash_attention_dkv", "ssd_scan", "anneal"), 0)
+         "flash_attention_dkv", "ssd_scan", "anneal", "ragged_dot"), 0)

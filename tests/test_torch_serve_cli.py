@@ -1,8 +1,8 @@
 """The port's serve CLI runs on the CPU when asked — batch mode, the
-streaming loop (overlapped and synchronous) and a two-engine fleet,
-routed least-loaded or by the annealed mapper (Algorithm 2 on the
-batched annealer) — and ``chip_smoke.py`` refuses to report without a
-card."""
+streaming loop (overlapped and synchronous; also on reduced
+DeepSeek-V2-Lite, MLA + MoE) and a two-engine fleet, routed
+least-loaded or by the annealed mapper (Algorithm 2 on the batched
+annealer) — and ``chip_smoke.py`` refuses to report without a card."""
 import os
 import pathlib
 import subprocess
@@ -65,6 +65,16 @@ def test_serve_cli_annealed_mapper_runs(capsys):
                            "annealed"])
     last = capsys.readouterr().out.strip().splitlines()[-1]
     assert "mode=fleet2:annealed" in last and "completed=2/2" in last
+
+
+def test_serve_cli_stream_deepseek_on_cpu(capsys):
+    """MLA + MoE (reduced DeepSeek-V2-Lite) through the streaming loop."""
+    torch.set_num_threads(2)
+    serve.main(["--arch", "deepseek-v2-lite-16b"] + CPU_ARGS[2:])
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert last.startswith("policy=fcfs mode=stream ")
+    assert "arch=deepseek-v2-lite-16b-reduced" in last \
+        and "completed=4/4" in last
 
 
 def test_chip_smoke_refuses_without_a_card():
