@@ -52,7 +52,13 @@ Phases (any failure exits non-zero before the last line):
            33 with ds 37), each with and without an initial state and bitwise
            equal across two launches, timed at the serve shapes (B1 S96;
            B1 S32 from a state) and at B4 S2048, eager and as device
-           time from CUDA-graph replays
+           time from CUDA-graph replays; the SSD scan's backward (K4b,
+           csrc/ssd_scan_bwd.cu) against the plain VJP over 32-row
+           chunks at Mamba2's and Zamba2's heads, S 96/100/2048 and the
+           edges (S 1, nh 7, odd hd and ds), with and without an initial
+           state and a final-state cotangent, each gradient within 5e-5
+           of its max |plain|, bitwise equal across two launches, 0
+           spill; timed at B4 S2048 with its f32 operations bound
   anneal   the batched annealer's kernel (csrc/anneal.cu: one launch
            anneals every instance x chain) against its plain version on
            the same draws, on both scoring paths (incremental and full
@@ -153,22 +159,33 @@ Phases (any failure exits non-zero before the last line):
   train    Qwen3-1.7B at its published config (28 layers, bf16, random
            seeded weights): AdamW lr 3e-4, B=4, S=2048, per-layer remat;
            one warm-up step (attention-weight gradients checked finite
-           and nonzero), then timed steps: loss, ms, tokens/s, peak memory
+           and nonzero), then timed steps: loss, ms, tokens/s, peak
+           memory; then TRAIN_ARCHS at published width with the JAX
+           launcher's batches: Mamba2-780M and Zamba2-1.2B whole (K4 and
+           K4b), MusicGen-medium whole on [B, S, 4] tokens, Qwen2-VL-7B at
+           4 of 28 layers on float32 embeds, DeepSeek-V2-Lite at 4 of 27
+           (its loss_and_grads under sync debug mode "error"): a warm-up
+           step whose gradients are finite and nonzero wherever the loss
+           reaches (every expert slice), 3 timed steps whose launches per
+           step must equal what the layer count predicts
   parity   Qwen2.5-7B at full width, 2 layers, float32, TF32 off: the
            paged and the dense engine on cuda (kernels) and on cpu
            (plain versions) must emit identical tokens; int8 paged and
            dense decode logits, cuda vs cpu, are reported and bounded;
            the ServeLoop's tokens on both layouts, cuda vs cpu and
            overlapped vs synchronous, must be identical;
-           one train step of Qwen3-1.7B at 2 layers in float32, cuda vs
-           cpu: loss, every gradient and the updated params, bounded;
+           one train step at 2 layers in float32, cuda vs cpu, of
+           Qwen3-1.7B, Mamba2-780M, Zamba2-1.2B (SSM, ATTN), Qwen2-VL-7B
+           (float32 embeds), MusicGen-medium and DeepSeek-V2-Lite: loss,
+           every gradient and the updated params, bounded;
            Mamba2-780M at 2 layers in float32: the dense engine's tokens
            under fcfs and slo-preempt + chunked:32, and the logits of one
            prefill and 4 decode steps, bounded
 Each path (paged serve, dense serve, h2o-danube serve, the five
 streaming paths, Mamba2 serve, the hybrid's paged, dense and stream
 paths, DeepSeek's paged, dense and stream paths, DBRX's paged path,
-int8, train) is driven with the launch counts set to 0 just before it
+int8, train and the five train paths of TRAIN_ARCHS) is driven with
+the launch counts set to 0 just before it
 and read just after; every kernel must launch on the path that runs it
 (and the MoE paths' grouped product, a library call, is counted the
 same way).  The line before the last is the kernels JSON; the last
@@ -266,6 +283,12 @@ KERNELS = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:74"},
+    # no Pallas kernel: the gradient of the SSD scan, which the JAX model
+    # takes by autodiff of its jnp ssd_chunked
+    "ssd_scan_bwd": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/models/ssm.py:74"},
     # not a Pallas kernel: the jitted anneal program (_run_chains /
     # _run_chains_multi), one launch per anneal here
     "anneal": {
@@ -302,7 +325,13 @@ PATHS = {"serve_paged": ("decode_attention_paged", "flash_attention"),
          "serve_moe_gqa": ("decode_attention_paged", "flash_attention",
                            "ragged_dot"),
          "int8": ("decode_attention_paged_q8", "decode_attention_q8"),
-         "train": TRAIN_KERNELS}
+         "train": TRAIN_KERNELS,
+         # the archs the JAX launcher trains beyond the dense decoders
+         "train_ssm": ("ssd_scan", "ssd_scan_bwd"),
+         "train_hybrid": ("ssd_scan", "ssd_scan_bwd") + TRAIN_KERNELS,
+         "train_audio": TRAIN_KERNELS,
+         "train_vlm": TRAIN_KERNELS,
+         "train_moe": ("ragged_dot",)}
 # the int8 KV library yardstick: no single PyTorch call dequantizes int8
 # K/V with per-row scales inside attention
 NO_LIBRARY = {
@@ -313,6 +342,8 @@ NO_LIBRARY = {
     "decode_attention_q8": "no single PyTorch call attends over int8 K/V "
                            "with per-row scales",
     "ssd_scan": "no single PyTorch call computes the SSD chunk scan",
+    "ssd_scan_bwd": "no PyTorch call computes the SSD chunk scan's "
+                    "gradient",
     "anneal": "no PyTorch call anneals"}
 
 
@@ -842,7 +873,8 @@ def check_train_kernels(results, fwd_worst):
     """The training kernels against their plain versions: out and lse of
     the forward (TOL), dq/dk/dv of the backward from the same residuals
     (GRAD_TOL relative to max |plain|), on the cases below and at the
-    shape the train phase gives them (B4 S2048 H16 KV8 hd128); then
+    shapes the train phase gives them (Qwen3's B4 S2048 H16 KV8 hd128,
+    Qwen2-VL's, MusicGen's and Zamba2's), in bf16 and f32; then
     dq/dk/dv bitwise repeatable, and times at the train shape and at
     S=128.  ``fwd_worst``: K5a's worst errors on FLASH_CASES."""
     import torch
@@ -867,6 +899,14 @@ def check_train_kernels(results, fwd_worst):
         ("B2 S300 rep4 hd80 window40 (dq 128-row)", 2, 300, 32, 8, 80, 40),
         ("B5 S1000 rep2 hd64 window100", 5, 1000, 8, 4, 64, 100),
         ("B4 S520 rep2 hd80 causal", 4, 520, 16, 8, 80, 0),
+        # the train phase's other shapes: Qwen2-VL (float32 under its
+        # float32 embeds), MusicGen and Zamba2's shared block (MHA, bf16)
+        ("B1 S2048 rep7 hd128 causal (qwen2-vl train)",
+         1, 2048, 28, 4, 128, 0),
+        ("B4 S2048 rep1 hd64 causal (musicgen train)",
+         4, 2048, 24, 24, 64, 0),
+        ("B4 S2048 rep1 hd64 causal (zamba2 train)",
+         4, 2048, 32, 32, 64, 0),
     ]
     worst = {n: dict.fromkeys(dtypes, 0.0) for n in TRAIN_KERNELS}
     worst[TRAIN_KERNELS[0]] = dict(fwd_worst)
@@ -1126,6 +1166,172 @@ def check_ssd_kernel(results):
             f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, f32 CUDA cores, "
             f"64-row chunks) / {tc_ms:.4f} ms ({tc_by}, 3xTF32, "
             f"{flops / 1e9:.3f} GFLOP over 32-row chunks) at {row['shape']}")
+
+
+def ssd_bwd_flops(b, s, nh, hd, ds, q=SSD_KQ):
+    """The flops of the SSD backward over chunks of ``q`` rows, reckoned
+    as :func:`ssd_flops` does: per batch row and chunk of n rows, the
+    n x n tile C·Bᵀ once (2n²·ds: B and C are shared by every head; the
+    kernel recomputes it per head, its own choice), and per head the
+    tile dy·uᵀ (2n²·hd), the tiles' products with dy, B and C (2n²·hd +
+    4n²·ds), and five n x hd x ds products (the recomputed state, dS'·B,
+    Sᵀ·dy, dS'ᵀ·u and the carried dS: 10n·hd·ds)."""
+    rows = [min(q, s - r) for r in range(0, s, q)]
+    return b * sum(2 * n * n * ds
+                   + nh * (4 * n * n * hd + 4 * n * n * ds
+                           + 10 * n * hd * ds)
+                   for n in rows)
+
+
+def ssd_bwd_cost(x, B, st, dfinal):
+    """Bounds of one backward: x, dt, A, B, C, dy (and the initial state
+    and dfinal) read once, dx, ddt, dA, dB, dC (and dinit) written once,
+    all float32; operations at the f32 CUDA-core peak, which the kernel's
+    f32 FMAs run on.  -> ((bound ms, bound_by), flops)."""
+    b, s, nh, hd = x.shape
+    ds = B.shape[-1]
+    state = b * nh * hd * ds
+    n_in = 2 * x.numel() + b * s * nh + nh + 2 * b * s * ds \
+        + state * ((st is not None) + (dfinal is not None))
+    n_out = x.numel() + b * s * nh + nh + 2 * b * s * ds \
+        + state * (st is not None)
+    flops = ssd_bwd_flops(b, s, nh, hd, ds)
+    return bound(4 * (n_in + n_out), flops, "float32"), flops
+
+
+# (label, b, s, nh, hd, ds): Mamba2-780M's heads (nh 48, hd 64, ds 128)
+# and Zamba2-1.2B's (nh 64, hd 64, ds 64), at whole 32-row chunks (96), a
+# ragged last chunk (100), the train length (2048) and the train phase's
+# shape (B4 S2048); then the edges: one
+# row, a head and state narrower than a warp's columns, odd widths
+SSD_BWD_CASES = [
+    ("mamba2 B1 S96", 1, 96, SSM_NH, SSM_HD, SSM_DS),
+    ("mamba2 B2 S100", 2, 100, SSM_NH, SSM_HD, SSM_DS),
+    ("mamba2 B2 S2048", 2, 2048, SSM_NH, SSM_HD, SSM_DS),
+    ("mamba2 B4 S2048 (train)", 4, 2048, SSM_NH, SSM_HD, SSM_DS),
+    ("zamba2 B1 S96", 1, 96, 64, 64, 64),
+    ("zamba2 B2 S100", 2, 100, 64, 64, 64),
+    ("zamba2 B2 S2048", 2, 2048, 64, 64, 64),
+    ("zamba2 B4 S2048 (train)", 4, 2048, 64, 64, 64),
+    ("B1 S1", 1, 1, SSM_NH, SSM_HD, SSM_DS),
+    ("B3 S65 nh7 hd20 ds36", 3, 65, 7, 20, 36),
+    ("B1 S100 hd33 ds37", 1, 100, 5, 33, 37),
+]
+# K4b, each gradient: 5e-5 of its max |plain| (the forward's f32 bound),
+# the plain VJP taken over the kernel's own 32-row chunks.  Over 256-row
+# chunks the plain VJP is itself up to 4e-5 of max off the float64 truth
+# (ddt: long running sums of dc that cancel), over 32-row chunks 5e-6
+# (tests/test_torch_ssd_bwd.py holds both to the float64 truth)
+SSD_BWD_TOL = 5e-5
+
+
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dinit")
+
+
+def _hold_ssd_bwd(tag, runs, want):
+    """Two launches of K4b (``runs``) against the plain VJP (``want``):
+    each gradient within SSD_BWD_TOL of its max |plain|, the launches
+    bitwise equal; logs the errors, raises where one fails.  -> the worst
+    error as a share of its gradient's max."""
+    import torch
+    torch.cuda.synchronize()
+    same = all(torch.equal(p, q) for p, q in zip(*runs) if p is not None)
+    errs, worst = {}, 0.0
+    for nm, got, ref in zip(SSD_BWD_NAMES, runs[0], want):
+        if ref is None:
+            continue
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        errs[nm] = (err, SSD_BWD_TOL * scale)
+        worst = max(worst, err / max(scale, 1e-30))
+    ok = same and all(e <= lim for e, lim in errs.values())
+    log(f"  ssd_scan_bwd {tag:<44} " + " ".join(
+        f"{nm}={e:.2e}/{lim:.2e}" for nm, (e, lim) in errs.items())
+        + f" bitwise_repeat={same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"ssd_scan_bwd {tag} disagrees or is not "
+                             "repeatable")
+    return worst
+
+
+def check_ssd_bwd_kernel(results):
+    """The SSD backward (K4b, csrc/ssd_scan_bwd.cu) against
+    ``ssd_scan_bwd_plain`` (autograd of the plain scan, 32-row chunks)
+    on the card over SSD_BWD_CASES, with and without an initial state
+    and a final-state cotangent: each gradient within SSD_BWD_TOL of its
+    max |plain|, two launches bitwise equal, 0 spills; timed at the
+    Mamba2-780M and Zamba2-1.2B train shapes (B4 S2048), where the timed
+    inputs' outputs are held to the plain VJP too."""
+    import re
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ssd_scan as ss
+    ptxas = _build.compiler_log("ssd_scan_bwd")
+    spills = [ln for ln in ptxas if not re.search(
+        r"\b0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        r"loads", ln)]
+    log(f"  ssd_scan_bwd ptxas: {ptxas}")
+    if not ptxas or spills:
+        raise AssertionError(f"ssd_scan_bwd: ptxas lines {ptxas} (spills: "
+                             f"{spills})")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    f32 = torch.float32
+    worst = 0.0
+    for label, b, s, nh, hd, ds in SSD_BWD_CASES:
+        for with_state in (False, True):
+            x, d, A, B, C, st = ssd_inputs(b, s, f32, with_state, gen,
+                                           nh=nh, hd=hd, ds=ds)
+            dy = torch.randn(x.shape, device="cuda", generator=gen)
+            dfin = torch.randn((b, nh, hd, ds), device="cuda",
+                               generator=gen) if with_state else None
+            runs = [ss.ssd_scan_bwd_cuda(x, d, A, B, C, dy, init_state=st,
+                                         dfinal=dfin) for _ in range(2)]
+            want = ss.ssd_scan_bwd_plain(x, d, A, B, C, dy, chunk=ss.CHUNK,
+                                         init_state=st, dfinal=dfin)
+            tag = f"{label}{' +state +dfinal' if with_state else ''}"
+            worst = max(worst, _hold_ssd_bwd(tag, runs, want))
+            del runs, want
+    r = results["ssd_scan_bwd"] = {
+        "name": "ssd_scan_bwd", **KERNELS["ssd_scan_bwd"],
+        "max_abs_err": worst, "max_err_share_of_max": worst,
+        "tol": {"share_of_max": SSD_BWD_TOL}, "bitwise_repeatable": True,
+        "cases": 2 * len(SSD_BWD_CASES) + 2, "ptxas": ptxas}
+    for key, nh, hd, ds in (("mamba2", SSM_NH, SSM_HD, SSM_DS),
+                            ("zamba2", 64, 64, 64)):
+        b, s = 4, 2048
+        x, d, A, B, C, _ = ssd_inputs(b, s, f32, False, gen, nh=nh, hd=hd,
+                                      ds=ds)
+        dy = torch.randn(x.shape, device="cuda", generator=gen)
+        out = {}
+
+        def plain():
+            out["plain"] = ss.ssd_scan_bwd_plain(x, d, A, B, C, dy,
+                                                 chunk=ss.CHUNK)
+
+        def kernel():
+            out.setdefault("kernel", []).append(
+                ss.ssd_scan_bwd_cuda(x, d, A, B, C, dy))
+            del out["kernel"][:-2]
+        k_ms, p_ms = alternate(plain, kernel, 3)
+        shape = f"B{b} S{s} nh{nh} hd{hd} ds{ds} f32"
+        r["max_abs_err"] = max(r["max_abs_err"], _hold_ssd_bwd(
+            f"{shape} (timed inputs)", out["kernel"], out["plain"]))
+        r["max_err_share_of_max"] = r["max_abs_err"]
+        del out
+        (b_ms, b_by), flops = ssd_bwd_cost(x, B, None, None)
+        row = {"shape": shape, "ms": k_ms,
+               "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "bound_share": b_ms / k_ms, "gflop": flops / 1e9,
+               "tflops": flops / k_ms / 1e9, "library_ms": None}
+        if key == "mamba2":
+            r.update(row)
+        else:
+            r[key] = row
+        log(f"  ssd_scan_bwd {row['shape']}: kernel {k_ms:.3f} ms "
+            f"({row['tflops']:.2f} TFLOP/s, {100 * row['bound_share']:.1f}% "
+            f"of its bound {b_ms:.4f} ms, {b_by}, f32 CUDA cores), plain "
+            f"{p_ms:.3f} ms")
 
 
 # ------------------------------------------------------------------ phases
@@ -1464,6 +1670,7 @@ def phase_kernels(results):
             f"{json.dumps(r['long'])}")
     check_train_kernels(results, fwd_worst)
     check_ssd_kernel(results)
+    check_ssd_bwd_kernel(results)
 
 
 def _serve_run(cfg, params, model, pairs, policy, discipline, paged,
@@ -2765,6 +2972,175 @@ def phase_train(ctx):
     log("  train run: " + json.dumps(report))
     del params, state
     torch.cuda.empty_cache()
+    ctx["train_archs"] = [_train_arch(ctx, *spec) for spec in TRAIN_ARCHS]
+
+
+# (arch, layers kept (None: all), B, S, launch path): every arch the JAX
+# launcher trains beyond the dense decoders, at published width, as the
+# launcher draws its batches (launch/train.py make_batch).  Qwen2-VL runs
+# float32 end to end (float32 embeds through bf16 weights, as in JAX), so
+# one sequence; DeepSeek at 4 of 27 layers is layer 0 dense and three
+# MoE layers
+TRAIN_ARCHS = (("mamba2-780m", None, 4, 2048, "train_ssm"),
+               ("zamba2-1.2b", None, 4, 2048, "train_hybrid"),
+               ("musicgen-medium", None, 4, 2048, "train_audio"),
+               ("qwen2-vl-7b", 4, 1, 2048, "train_vlm"),
+               ("deepseek-v2-lite-16b", 4, 2, 2048, "train_moe"))
+TRAIN_ARCH_STEPS = 3
+
+
+def _depth(cfg, layers):
+    """``cfg`` at its first ``layers`` layers (its own pattern cut)."""
+    if layers is None:
+        return cfg
+    return dataclasses.replace(cfg, num_layers=layers,
+                               layer_pattern=cfg.layer_pattern[:layers])
+
+
+def _launches_per_step(cfg):
+    """What the layer count predicts a remat train step launches: the
+    SSD scan twice per SSM layer (forward and re-forward) and its
+    backward once; the flash forward + lse twice per GQA attention layer
+    (an MLA layer attends in plain PyTorch, as in JAX), dq and dk/dv
+    once; three grouped products per MoE layer, twice (their backward is
+    PyTorch's own, not counted); the forward-only flash kernel never."""
+    from repro_torch.models.config import SSM
+    n_ssm = sum(k == SSM for k in cfg.layer_pattern)
+    n_attn = 0 if cfg.mla is not None else len(cfg.attn_layers)
+    n_moe = 0 if cfg.moe is None else sum(
+        1 for i in cfg.attn_layers if i not in cfg.moe.dense_layers)
+    return {"ssd_scan": 2 * n_ssm, "ssd_scan_bwd": n_ssm,
+            "flash_attention_fwd_lse": 2 * n_attn,
+            "flash_attention_dq": n_attn, "flash_attention_dkv": n_attn,
+            "ragged_dot": 6 * n_moe, "flash_attention": 0}
+
+
+def _grads_reach(cfg, grads):
+    """Every gradient leaf finite, and nonzero where the loss reaches it
+    (all but a VLM's token table under an embeds batch); an MoE layer's
+    expert weights nonzero in every expert slice (at 4096 tokens x top-6
+    of 64 experts every expert is hit).  -> the names checked."""
+    import torch
+    names = []
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{path}.{k}" if path else k)
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                walk(v, f"{path}[{i}]")
+        else:
+            if not bool(torch.isfinite(tree).all()):
+                raise AssertionError(f"{path}: gradient not finite")
+            if cfg.uses_extra_embeds and path == "embed":
+                return
+            flat = tree.reshape(tree.shape[0], -1) if ".moe.w_" in path \
+                else tree.reshape(1, -1)
+            zero = (flat.abs().amax(dim=1) == 0).nonzero().flatten()
+            if zero.numel():
+                raise AssertionError(f"{path}: all-zero gradient (slices "
+                                     f"{zero.tolist()[:8]})")
+            names.append(path)
+    walk(grads, "")
+    return names
+
+
+def _train_arch(ctx, arch, layers, B, S, path):
+    """One arch of TRAIN_ARCHS trained on the card: random seeded weights
+    in its published dtype, AdamW lr 3e-4, per-layer remat; one warm-up
+    step (gradients checked: finite, nonzero where reached; DeepSeek's
+    loss_and_grads under sync debug mode "error"), then TRAIN_ARCH_STEPS
+    timed steps on the ``path`` launch counts, checked against
+    :func:`_launches_per_step`."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models.model import init_params
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import loss_and_grads, train_step
+    cfg = _depth(get_config(arch), layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    n = sum(t.numel() for t in opt.leaves(params))
+    log(f"  {cfg.name}: {cfg.num_layers} of {get_config(arch).num_layers} "
+        f"layers d={cfg.d_model} {cfg.dtype}: {n / 1e9:.3f} B params; "
+        f"B={B} S={S}, AdamW lr 3e-4, remat per layer")
+    ocfg = opt.AdamWConfig(lr=3e-4, warmup_steps=1)
+    state = opt.init(params)
+    rng = np.random.default_rng(0)
+
+    def batch(step):
+        return {k: torch.from_numpy(v).cuda()
+                for k, v in make_batch(cfg, B, S, step, rng).items()}
+
+    b0 = batch(0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sync_free = cfg.moe is not None
+    if sync_free:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, _, grads = loss_and_grads(cfg, params, b0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    reached = _grads_reach(cfg, grads)
+    opt.apply(ocfg, params, grads, state)
+    del grads
+    losses = [float(loss)]
+    torch.cuda.synchronize()
+    log(f"  step 0 (warm-up) loss {losses[0]:.4f} "
+        f"{(time.perf_counter() - t) * 1e3:.1f} ms; {len(reached)} "
+        f"gradient leaves finite and nonzero"
+        + (" (no host sync in loss_and_grads: sync debug mode 'error')"
+           if sync_free else ""))
+
+    def timed():
+        out = []
+        for step in range(1, TRAIN_ARCH_STEPS + 1):
+            bb = batch(step)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, _, m = train_step(cfg, ocfg, params, state, bb)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            out.append({"step": step, "loss": loss,
+                        "ms": (time.perf_counter() - t1) * 1e3})
+        return out
+
+    rows = count_path(ctx["results"], path, timed)
+    from repro_torch.kernels import ops
+    got = {k: v / TRAIN_ARCH_STEPS for k, v in ops.launch_counts().items()}
+    want = _launches_per_step(cfg)
+    losses += [r["loss"] for r in rows]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = sorted(r["ms"] for r in rows)[len(rows) // 2]
+    report = {"model": cfg.name, "layers": cfg.num_layers, "batch": B,
+              "seq": S, "dtype": cfg.dtype, "params_b": n / 1e9,
+              "losses": losses, "median_ms": ms,
+              "tok_per_s": B * S / ms * 1e3, "peak_gib": peak,
+              "launches_per_step": {k: v for k, v in got.items() if v},
+              "predicted": {k: v for k, v in want.items() if v},
+              "card": ctx["smi"], "seconds": time.perf_counter() - t0}
+    log(f"  train {cfg.name} ({ctx['smi']}): losses "
+        f"{[round(x, 4) for x in losses]}, median {ms:.1f} ms/step "
+        f"({report['tok_per_s']:.0f} tokens/s), peak max_memory_allocated "
+        f"{peak:.2f} GiB, launches per step {report['launches_per_step']} "
+        f"(predicted {report['predicted']})")
+    log("  train run: " + json.dumps(report))
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{cfg.name}: non-finite loss {losses}")
+    bad = {k: (got.get(k, 0), v) for k, v in want.items()
+           if got.get(k, 0) != v}
+    if bad:
+        raise AssertionError(f"{cfg.name}: launches per step (got, "
+                             f"predicted) {bad}")
+    del params, state
+    torch.cuda.empty_cache()
+    return report
 
 
 def phase_parity(ctx):
@@ -2966,62 +3342,93 @@ def _recurrent_parity(cfg, layouts, policies=(("fcfs", "stall"),
     return report
 
 
+# (arch, its 2-layer pattern (None: the arch's own first two)) for the
+# train parity: the dense decoder, then every arch the JAX launcher trains
+# beyond it, at published width
+TRAIN_PARITY = (("qwen3-1.7b", None), ("mamba2-780m", None),
+                ("zamba2-1.2b", ("ssm", "attn")), ("qwen2-vl-7b", None),
+                ("musicgen-medium", None), ("deepseek-v2-lite-16b", None))
+
+
 def _train_parity():
-    """One train step of Qwen3-1.7B at full width, 2 layers, float32, TF32
-    off, on cuda (kernels) and on cpu (plain versions) from the same
-    params and batch.  Bounds, stated before the first measurement:
-    loss within 1e-5 of its value (f32 matmuls summed in other orders);
-    each gradient within 1e-4 of its leaf's max |cpu gradient| (the
-    attention kernels' own f32 bound is 5e-5, downstream sums add their
-    own order); updated params within 1e-6 in every leaf but at most
-    max(8, 1e-3 numel) of its elements, and within 2 lr everywhere: the
-    first AdamW step moves an element by lr·g/(|g|+eps), a sign for all
-    but the smallest gradients, so an element whose gradient is within
-    rounding of 0 may move the other way.  The count is per leaf, so a
-    leaf updated wrongly as a whole fails, a norm scale's included."""
+    """One train step of each TRAIN_PARITY arch at full width, 2 layers,
+    float32, TF32 off, on cuda (kernels) and on cpu (plain versions)
+    from the same params and batch (B2 S64, drawn as the launcher draws
+    it: float32 embeds for Qwen2-VL, [B, S, 4] tokens for MusicGen;
+    DeepSeek's layer 0 dense and layer 1 MoE, whose float32 grouped
+    product takes PyTorch's per-group loop on the card).  Bounds, stated
+    before the first measurement: loss within 1e-5 of its value (f32
+    matmuls summed in other orders); each gradient within 1e-4 of its
+    leaf's max |cpu gradient| (the attention and SSD kernels' own f32
+    bound is 5e-5, downstream sums add their own order); updated params
+    within 1e-6 in every leaf but at most max(8, 1e-3 numel) of its
+    elements, and within 2 lr everywhere: the first AdamW step moves an
+    element by lr·g/(|g|+eps), a sign for all but the smallest gradients,
+    so an element whose gradient is within rounding of 0 may move the
+    other way.  The count is per leaf, so a leaf updated wrongly as a
+    whole fails, a norm scale's included."""
+    import numpy as np
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.launch.train import make_batch
     from repro_torch.models.model import init_params
     from repro_torch.train import optimizer as opt
     from repro_torch.train.train_step import loss_and_grads
-    cfg = dataclasses.replace(get_config("qwen3-1.7b"), num_layers=2,
-                              layer_pattern=(), dtype="float32")
-    p_gpu = init_params(cfg, seed=3, device="cuda")
-    p_cpu = _map(p_gpu, lambda t: t.cpu())
-    gen = torch.Generator().manual_seed(5)
-    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
-                         dtype=torch.int32)
     ocfg = opt.AdamWConfig(lr=3e-4, warmup_steps=1)
-    out = {}
-    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
-        b = {"tokens": toks.to(dev), "labels": toks.to(dev)}
-        loss, _, grads = loss_and_grads(cfg, params, b)
-        opt.apply(ocfg, params, grads, opt.init(params))
-        out[dev] = (float(loss), _map(grads, lambda t: t.cpu()),
-                    _map(params, lambda t: t.cpu()))
-    (lg, gg, pg), (lc, gc, pc) = out["cuda"], out["cpu"]
-    g_worst = max(float((a - c).abs().max()) / max(float(c.abs().max()),
-                                                   1e-30)
-                  for a, c in zip(opt.leaves(gg), opt.leaves(gc)))
     lr = ocfg.lr
-    p_max = max(float((a - c).abs().max())
-                for a, c in zip(opt.leaves(pg), opt.leaves(pc)))
-    # (elements beyond 1e-6, allowed, numel) per leaf
-    counts = [(int(((a - c).abs() > 1e-6).sum()),
-               max(8, int(1e-3 * c.numel())), c.numel())
-              for a, c in zip(opt.leaves(pg), opt.leaves(pc))]
-    n, lim, numel = max(counts, key=lambda t: t[0] / t[1])
-    log(f"  parity {cfg.name} x2 layers f32 train step B2 S64: loss cuda "
-        f"{lg:.6f} cpu {lc:.6f} (|diff| {abs(lg - lc):.3e}, limit "
-        f"{1e-5 * abs(lc):.3e}); worst gradient diff / leaf max "
-        f"{g_worst:.3e} (limit 1e-4); updated params max |diff| "
-        f"{p_max:.3e} (limit {2 * lr:.1e}), "
-        f"{sum(c[0] for c in counts)} elements beyond 1e-6 over "
-        f"{len(counts)} leaves; nearest its limit: {n} of {numel} "
-        f"(limit {lim})")
-    if not (abs(lg - lc) <= 1e-5 * abs(lc) and g_worst <= 1e-4
-            and p_max <= 2 * lr and all(c[0] <= c[1] for c in counts)):
-        raise AssertionError("train step: cuda vs cpu out of bounds")
+    for arch, pattern in TRAIN_PARITY:
+        t0 = time.perf_counter()
+        full = get_config(arch)
+        cfg = dataclasses.replace(
+            full, num_layers=2, dtype="float32",
+            layer_pattern=pattern or full.layer_pattern[:2])
+        p_gpu = init_params(cfg, seed=3, device="cuda")
+        p_cpu = _map(p_gpu, lambda t: t.cpu())
+        batch = make_batch(cfg, 2, 64, 0, np.random.default_rng(5))
+        out, secs = {}, {}
+        for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+            t = time.perf_counter()
+            b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            loss, _, grads = loss_and_grads(cfg, params, b)
+            opt.apply(ocfg, params, grads, opt.init(params))
+            out[dev] = (float(loss), list(opt.leaves(grads)),
+                        list(opt.leaves(params)))
+            secs[dev] = time.perf_counter() - t
+        del p_gpu, p_cpu, grads, params
+        (lg, gg, pg), (lc, gc, pc) = out["cuda"], out["cpu"]
+        # compared on the card, one cpu leaf moved there at a time (the
+        # same exact differences, maxima and counts as on the host)
+        t = time.perf_counter()
+        g_worst, p_max, counts = 0.0, 0.0, []
+        for a, c in zip(gg, gc):
+            c = c.cuda()
+            g_worst = max(g_worst, float((a - c).abs().max())
+                          / max(float(c.abs().max()), 1e-30))
+        for a, c in zip(pg, pc):
+            c = c.cuda()
+            d = (a - c).abs()
+            p_max = max(p_max, float(d.max()))
+            # (elements beyond 1e-6, allowed, numel) per leaf
+            counts.append((int((d > 1e-6).sum()),
+                           max(8, int(1e-3 * c.numel())), c.numel()))
+        secs["compare"] = time.perf_counter() - t
+        n, lim, numel = max(counts, key=lambda t: t[0] / t[1])
+        del out, gg, gc, pg, pc, a, c, d
+        torch.cuda.empty_cache()
+        log(f"  parity {cfg.name} x2 layers f32 train step B2 S64: loss "
+            f"cuda {lg:.6f} cpu {lc:.6f} (|diff| {abs(lg - lc):.3e}, limit "
+            f"{1e-5 * abs(lc):.3e}); worst gradient diff / leaf max "
+            f"{g_worst:.3e} (limit 1e-4); updated params max |diff| "
+            f"{p_max:.3e} (limit {2 * lr:.1e}), "
+            f"{sum(c[0] for c in counts)} elements beyond 1e-6 over "
+            f"{len(counts)} leaves; nearest its limit: {n} of {numel} "
+            f"(limit {lim}); {time.perf_counter() - t0:.1f} s (cuda step "
+            f"{secs['cuda']:.1f}, cpu step {secs['cpu']:.1f}, compare "
+            f"{secs['compare']:.1f})")
+        if not (abs(lg - lc) <= 1e-5 * abs(lc) and g_worst <= 1e-4
+                and p_max <= 2 * lr and all(c[0] <= c[1] for c in counts)):
+            raise AssertionError(f"{cfg.name} train step: cuda vs cpu out "
+                                 "of bounds")
 
 
 def _leaves(tree):

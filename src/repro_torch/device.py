@@ -32,6 +32,14 @@ def torch_dtype(name: "Union[str, torch.dtype]") -> torch.dtype:
         raise ValueError(f"unsupported dtype {name!r}") from None
 
 
+def upcast(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, the dtype the model takes its norms, rotations,
+    attention, scans and losses in; a float64 tensor stays float64, so a
+    model whose parameters and inputs are float64 runs in float64 from
+    end to end (the tests' witness of its float32 rounding)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def synchronize(device: torch.device):
     """Wait for the work queued on the device's current stream, so a host
     clock read after it measures the work and not its launch.  Only that

@@ -120,6 +120,14 @@ class Engine:
         layout.  ``prefix_cache`` (paged only) enables shared-prefix KV
         reuse (refcounted pages aliased through a radix index,
         copy-on-write on divergent writes) for full-attention archs."""
+        if cfg.num_codebooks > 1:
+            # a K-codebook model emits [.., K, V] logits a step; the
+            # engines sample one token a slot, as the JAX Engine does,
+            # whose run_policy fails unpacking the codebook logits
+            raise NotImplementedError(
+                f"{cfg.name}: the engines sample one token stream a slot "
+                f"and this model emits {cfg.num_codebooks} codebooks a "
+                "step; the JAX Engine cannot serve it either")
         self.cfg = cfg
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:

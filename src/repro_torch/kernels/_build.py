@@ -40,6 +40,7 @@ SOURCES = {
     "flash_attention_dq": "flash_attention_bwd",
     "flash_attention_dkv": "flash_attention_bwd",
     "ssd_scan": "ssd_scan",
+    "ssd_scan_bwd": "ssd_scan_bwd",
     "anneal": "anneal",
 }
 KERNELS = tuple(SOURCES)
@@ -61,6 +62,9 @@ SIGNATURES = {
     "flash_attention_dkv": [_P] * 8 + [_I] * 8 + [_P],
     # + the C·Bᵀ workspace, and the plan's slices
     "ssd_scan": [_P] * 9 + [_I] * 7 + [_P],
+    # x, dt, A, B, C, init_state, dy, dfinal, the states workspace, dx,
+    # ddt, the dA / dB / dC partials, dinit; b, s, nh, hd, ds
+    "ssd_scan_bwd": [_P] * 15 + [_I] * 5 + [_P],
     # reqc, n_valid, draws, the three outputs, the workspace; the shapes,
     # iters and the scoring path; T0, T_thres, tau
     "anneal": [_P] * 7 + [_I] * 7 + [_F] * 3 + [_P],

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import upcast
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
@@ -32,7 +33,7 @@ def masked_scores(q, k, causal: bool, window: int):
     rep = h // k.shape[2]
     if rep > 1:
         k = k.repeat_interleave(rep, dim=2)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+    scores = torch.einsum("bqhd,bkhd->bhqk", upcast(q), upcast(k)) \
         * hd ** -0.5
     qpos = torch.arange(s, device=q.device)[:, None]
     kpos = torch.arange(s, device=q.device)[None, :]
@@ -53,7 +54,7 @@ def flash_attention_fwd_lse_plain(q, k, v, *, causal: bool = True,
         v = v.repeat_interleave(rep, dim=2)
     scores, _ = masked_scores(q, k, causal, window)
     p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, upcast(v)).to(q.dtype)
     return out, torch.logsumexp(scores, dim=-1)
 
 

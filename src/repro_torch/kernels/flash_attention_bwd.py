@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import upcast
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (  # noqa: F401  (K5a plain)
     check_inputs, flash_attention_fwd_lse_plain, masked_scores)
@@ -26,7 +27,8 @@ FWD, DQ, DKV = ("flash_attention_fwd_lse", "flash_attention_dq",
 def attention_delta(out, dout) -> torch.Tensor:
     """Δ = rowsum(out ⊙ dout) in f32, [B,H,S] (the JAX backward computes
     it outside its kernels too)."""
-    return (out.float() * dout.float()).sum(-1).transpose(1, 2).contiguous()
+    return (upcast(out) * upcast(dout)).sum(-1).transpose(1, 2) \
+        .contiguous()
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
@@ -42,9 +44,9 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
     scale = hd ** -0.5
     scores, mask = masked_scores(q, k, causal, window)
     p = torch.where(mask, torch.exp(scores - lse[..., None]), 0.0)
-    dof, qf = dout.float(), q.float()
-    kf = k.float().repeat_interleave(rep, dim=2)
-    vf = v.float().repeat_interleave(rep, dim=2)
+    dof, qf = upcast(dout), upcast(q)
+    kf = upcast(k).repeat_interleave(rep, dim=2)
+    vf = upcast(v).repeat_interleave(rep, dim=2)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     ds = p * (dp - attention_delta(out, dout)[..., None]) * scale
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)

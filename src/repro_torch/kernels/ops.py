@@ -94,18 +94,12 @@ def decode_attention_q8(q, k_cache, k_scale, v_cache, v_scale, n_valid):
 def ssd_scan(x, dt, A, B, C, *, chunk: int, init_state=None):
     """Mamba2 SSD chunk scan from ``init_state`` (zeros when None).
     -> (y [b,s,nh,hd] in x's dtype, final_state [b,nh,hd,ds] f32).
-    Forward only: the kernel has no backward yet, so a call that would
-    need gradients raises rather than return a result autograd cannot
-    see through."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (x, dt, A, B, C, init_state)):
-        raise NotImplementedError("the SSD scan has no backward kernel: "
-                                  "training SSM layers is ROADMAP.md M10b")
-    if x.device.type == "cpu":
-        return _ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
-                                   init_state=init_state)
-    return _ssd.ssd_scan_cuda(x, dt, A, B, C, init_state=init_state)
+
+    Differentiable through :class:`~repro_torch.kernels.ssd_scan.SSDScanFn`:
+    the forward is the plain version on the CPU and the K4 kernel on the
+    card, with or without grad; the backward (float32 only) is the plain
+    VJP on the CPU and the SSD backward kernel on the card."""
+    return _ssd.SSDScanFn.apply(x, dt, A, B, C, init_state, chunk)
 
 
 def ragged_dot(x, w, group_sizes):

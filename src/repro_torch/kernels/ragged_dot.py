@@ -29,9 +29,11 @@ def ragged_dot_plain(x, w, group_sizes):
     """x: [T, K]; w: [G, K, N]; group_sizes: [G] int (sum <= T).
     -> [T, N] in x's dtype, one product per group over its rows (rows
     past the last group are zero, as in ``jax.lax.ragged_dot``)."""
-    parts, start = [], 0
+    # one unbind, not w[g] per group: the backward then stacks the
+    # groups' gradients once instead of summing a [G, K, N] zeros per group
+    parts, start, ws = [], 0, w.unbind(0)
     for g, n in enumerate(group_sizes.tolist()):
-        parts.append(x[start:start + n] @ w[g])
+        parts.append(x[start:start + n] @ ws[g])
         start += n
     if start < x.shape[0]:
         parts.append(x.new_zeros((x.shape[0] - start, w.shape[-1])))

@@ -6,11 +6,13 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
       --reduced --steps 20 --batch 8 --seq 128 --device cpu
 
-Random weights from seed 0; batch ``step`` is ``token_stream(seq, vocab,
-seed=step, batch=batch)`` with ``labels = tokens``, as the JAX launcher
-trains.  Dense GQA decoders only (VLM and multi-codebook batches, and SSM
-layers: ROADMAP M10b).  The mesh dry-run (``launch/dryrun.py`` of the JAX
-package) waits for M11.
+Random weights from seed 0; batches as the JAX launcher draws them
+(:func:`make_batch`): a VLM (``uses_extra_embeds``) trains on float32
+``embeds`` and labels from ``np.random.default_rng(0)``, a K-codebook
+model on ``[B, S, K]`` tokens from that generator (labels = tokens),
+every other arch (dense, MoE, Mamba2, hybrid) on ``token_stream(seq,
+vocab, seed=step, batch=batch)`` with ``labels = tokens``.  The mesh
+dry-run (``launch/dryrun.py`` of the JAX package) waits for M11.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import argparse
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_reduced
@@ -26,6 +29,25 @@ from repro_torch.device import resolve_device, synchronize
 from repro_torch.models.model import init_params
 from repro_torch.train import optimizer as opt
 from repro_torch.train.train_step import train_step
+
+
+def make_batch(cfg, batch: int, seq: int, step: int,
+               rng: np.random.Generator):
+    """Batch ``step`` of the JAX launcher (``repro/launch/train.py``), as
+    numpy arrays: float32 ``embeds`` [B, S, d] and int32 labels from
+    ``rng`` for a VLM; int32 [B, S, K] tokens from ``rng`` with K
+    codebooks; else ``token_stream``.  Labels are the tokens."""
+    if cfg.uses_extra_embeds:
+        return {"embeds": rng.normal(0, 1, (batch, seq, cfg.d_model))
+                .astype(np.float32),
+                "labels": rng.integers(0, cfg.vocab_size, (batch, seq))
+                .astype(np.int32)}
+    if cfg.num_codebooks:
+        toks = rng.integers(0, cfg.vocab_size,
+                            (batch, seq, cfg.num_codebooks)).astype(np.int32)
+    else:
+        toks = token_stream(seq, cfg.vocab_size, seed=step, batch=batch)
+    return {"tokens": toks, "labels": toks}
 
 
 def main(argv=None):
@@ -47,9 +69,6 @@ def main(argv=None):
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     if args.reduced:
         cfg = dataclasses.replace(cfg, dtype="float32")
-    if cfg.uses_extra_embeds:
-        raise NotImplementedError(f"{cfg.name}: VLM (embeds) training: "
-                                  "ROADMAP M10b")
     dev = resolve_device(args.device)
     params = init_params(cfg, seed=0, device=dev)
     ocfg = opt.AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1))
@@ -60,13 +79,13 @@ def main(argv=None):
         params, state, start = restore(args.resume, params, state)
         print(f"resumed from {args.resume} at step {start}")
 
+    rng = np.random.default_rng(0)
     synchronize(dev)
     t0 = time.perf_counter()
     for step in range(args.steps):
-        toks = torch.from_numpy(token_stream(
-            args.seq, cfg.vocab_size, seed=step, batch=args.batch)).to(dev)
-        params, state, metrics = train_step(
-            cfg, ocfg, params, state, {"tokens": toks, "labels": toks})
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+            cfg, args.batch, args.seq, step, rng).items()}
+        params, state, metrics = train_step(cfg, ocfg, params, state, batch)
         if step % 10 == 0 or step == args.steps - 1:
             loss = float(metrics["loss"])
             synchronize(dev)

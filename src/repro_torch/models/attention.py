@@ -1,18 +1,23 @@
-"""GQA attention on the dense and paged KV caches (the GQA half of
-``src/repro/models/attention.py``).
+"""Attention on the dense and paged KV caches (counterpart of
+``src/repro/models/attention.py``): GQA and MLA.
 
-Execution paths:
-  * ``gqa_full`` — whole-prompt prefill with a causal (optionally
-    sliding-window) mask; the flash-attention kernel serves it whenever
-    ``s >= 16``, ``s % 16 == 0`` and there is no logit softcap (the
-    engine pads prompts to pow-2 buckets >= 16, so every whole-prompt
-    prefill qualifies), the einsum path otherwise;
+GQA execution paths:
+  * ``gqa_full`` — whole-sequence prefill or training with a causal
+    (optionally sliding-window) mask; the flash-attention kernel serves
+    every sequence of at least 16 tokens without a logit softcap (its
+    ragged last tile is masked, so no length is padded for it; under
+    grad, the differentiable training kernels), the einsum path
+    otherwise;
   * ``gqa_continue`` / ``gqa_continue_paged`` — a chunk (or prefix-hit
     suffix) attending to the slot's dense ring or gathered pages plus
     itself;
   * ``gqa_decode`` / ``gqa_decode_paged`` — one new token per slot, on
     the dense or paged flash-decode kernel (float or int8 caches;
     softcap archs take the einsum form).
+
+Every projection promotes as ``jnp.dot`` does (``layers.dot``): float32
+activations (a VLM's float32 ``embeds``) through bf16 weights run in
+float32, attention inputs included.
 
 int8 caches (``k_scale`` in the layer dict) store each new token
 quantized per (token, kv head) and dequantize inside attention.  Kernel
@@ -35,7 +40,8 @@ from repro_torch.kernels import ops
 from repro_torch.models.cache import (dequantize_kv, gather_pages,
                                       paged_prefill_write, paged_token_write,
                                       quantize_kv)
-from repro_torch.models.layers import apply_rope, normal, rmsnorm, rope_cos_sin
+from repro_torch.models.layers import (apply_rope, dot, normal, rmsnorm,
+                                       rope_cos_sin)
 
 NEG_INF = -1e30
 
@@ -82,9 +88,9 @@ def _project_qkv(params, cfg, x, positions):
     """Q/K/V projections, optional qk-norm, RoPE.  x: [B, S, D]."""
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ params["wq"]).reshape(b, s, h, hd)
-    k = (x @ params["wk"]).reshape(b, s, kv, hd)
-    v = (x @ params["wv"]).reshape(b, s, kv, hd)
+    q = dot(x, params["wq"]).reshape(b, s, h, hd)
+    k = dot(x, params["wk"]).reshape(b, s, kv, hd)
+    v = dot(x, params["wv"]).reshape(b, s, kv, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
@@ -104,7 +110,7 @@ def gqa_full(params, cfg, x, positions):
         out = ops.flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=True,
                                   window=cfg.sliding_window)
-        return out.reshape(b, s, h * hd) @ params["wo"], (k, v)
+        return dot(out.reshape(b, s, h * hd), params["wo"]), (k, v)
     rep = h // kv
     qg = q.reshape(b, s, kv, rep, hd)
     mask = _causal_mask(s, s, 0, cfg.sliding_window, x.device)
@@ -115,7 +121,7 @@ def gqa_full(params, cfg, x, positions):
     scores = scores.float().masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v).reshape(b, s, h * hd)
-    return out @ params["wo"], (k, v)
+    return dot(out, params["wo"]), (k, v)
 
 
 def _chunk_attend(params, cfg, x, positions, k_prefix, v_prefix, start_pos):
@@ -167,7 +173,7 @@ def _chunk_attend(params, cfg, x, positions, k_prefix, v_prefix, start_pos):
     out = torch.einsum("bgrql,blgd->bqgrd", probs[..., :L],
                        v_prefix.to(probs.dtype)) + \
         torch.einsum("bgrqc,bcgd->bqgrd", probs[..., L:], v)
-    return out.reshape(b, c, h * hd) @ params["wo"], k, v
+    return dot(out.reshape(b, c, h * hd), params["wo"]), k, v
 
 
 def _masked_softmax_attend(qg, k_eff, v_eff, valid, softcap, dtype):
@@ -248,7 +254,7 @@ def gqa_decode(params, cfg, x, positions, layer_cache, cache_pos,
         o = ops.decode_attention(q[:, 0].contiguous(), layer_cache["k"],
                                  layer_cache["v"], n_valid)
     out = o.to(x.dtype).reshape(b, 1, h * hd)
-    return out @ params["wo"], layer_cache
+    return dot(out, params["wo"]), layer_cache
 
 
 def gqa_continue(params, cfg, x, positions, layer_cache, start_pos):
@@ -364,7 +370,7 @@ def gqa_decode_paged(params, cfg, x, positions, layer_cache, block_tables,
             q[:, 0].contiguous(), layer_cache["k"], layer_cache["v"],
             block_tables, lengths.to(torch.int32), window=cfg.sliding_window)
     out = o.to(x.dtype).reshape(b, 1, h * hd)
-    return out @ params["wo"], layer_cache
+    return dot(out, params["wo"]), layer_cache
 
 
 # =================================================================== MLA
@@ -396,9 +402,9 @@ def _mla_project(params, cfg, x, positions):
     m = cfg.mla
     b, s, _ = x.shape
     nope, rope_d = m.qk_nope_head_dim, m.qk_rope_head_dim
-    q = (x @ params["wq"]).reshape(b, s, cfg.num_heads, nope + rope_d)
-    c_kv = rmsnorm(x @ params["w_dkv"], params["kv_norm"], cfg.norm_eps)
-    k_pe = (x @ params["w_krope"]).reshape(b, s, 1, rope_d)
+    q = dot(x, params["wq"]).reshape(b, s, cfg.num_heads, nope + rope_d)
+    c_kv = rmsnorm(dot(x, params["w_dkv"]), params["kv_norm"], cfg.norm_eps)
+    k_pe = dot(x, params["w_krope"]).reshape(b, s, 1, rope_d)
     cos, sin = rope_cos_sin(positions, rope_d, cfg.rope_theta)
     return (q[..., :nope], apply_rope(q[..., nope:], cos, sin), c_kv,
             apply_rope(k_pe, cos, sin)[:, :, 0])
@@ -413,8 +419,8 @@ def mla_full(params, cfg, x, positions):
     h = cfg.num_heads
     nope, rope_d, vhd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
     q_nope, q_pe, c_kv, k_pe = _mla_project(params, cfg, x, positions)
-    k_nope = (c_kv @ params["w_uk"]).reshape(b, s, h, nope)
-    v = (c_kv @ params["w_uv"]).reshape(b, s, h, vhd)
+    k_nope = dot(c_kv, params["w_uk"]).reshape(b, s, h, nope)
+    v = dot(c_kv, params["w_uv"]).reshape(b, s, h, vhd)
     # 1/sqrt(nope + rope_d) with the root rounded to x's dtype, as the
     # JAX package scales (a 0-d CPU tensor: a scalar to the device op)
     scale = 1.0 / torch.tensor(float(nope + rope_d)).sqrt().to(x.dtype)
@@ -424,7 +430,7 @@ def mla_full(params, cfg, x, positions):
     probs = torch.softmax(scores.float().masked_fill(~mask, NEG_INF),
                           dim=-1).to(x.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, h * vhd)
-    return out @ params["wo"], (c_kv, k_pe)
+    return dot(out, params["wo"]), (c_kv, k_pe)
 
 
 def _mla_attend(params, cfg, q_nope, q_pe, ckv, kpe, n_valid, dtype):
@@ -452,7 +458,7 @@ def _mla_attend(params, cfg, q_nope, q_pe, ckv, kpe, n_valid, dtype):
     ctx = torch.einsum("bhl,blr->bhr", probs, ckv).to(dtype)
     out = torch.einsum("bhr,rhd->bhd", ctx,
                        params["w_uv"].reshape(rank, h, vhd))
-    return out.reshape(b, 1, h * vhd) @ params["wo"]
+    return dot(out.reshape(b, 1, h * vhd), params["wo"])
 
 
 def mla_decode(params, cfg, x, positions, layer_cache, cache_pos,

@@ -39,7 +39,8 @@ updated copy back, the port writes **in place** (O(tokens) scatters);
 the functions below mutate and return the same tensors.  An
 attention-free (SSM-only) arch never takes the paged pool, as in the
 JAX engine; hybrid stacks (Mamba2 + attention, zamba2) take either
-layout.  Multi-codebook heads wait for ROADMAP.md M10b.
+layout.  A multi-codebook (musicgen) model's caches are those of its
+attention decoder; the engines do not serve it.
 """
 from __future__ import annotations
 
@@ -69,12 +70,9 @@ def paged_slot_len(cfg: ModelConfig, max_len: int, block_size: int,
 
 def require_ported(cfg: ModelConfig, paged: bool = False):
     """Raise ``NotImplementedError`` unless the port runs ``cfg`` on the
-    given layout: GQA and MLA decoders (dense FFN or MoE) and hybrid SSM
-    + attention stacks on either, attention-free Mamba2 (SSM) stacks on
-    the dense layout only."""
-    if cfg.num_codebooks > 1:
-        raise NotImplementedError(f"{cfg.name}: multi-codebook heads are not "
-                                  "ported (ROADMAP.md M10b)")
+    given layout: GQA and MLA decoders (dense FFN or MoE), multi-codebook
+    (musicgen) decoders and hybrid SSM + attention stacks on either,
+    attention-free Mamba2 (SSM) stacks on the dense layout only."""
     if paged and not cfg.attn_layers:
         raise NotImplementedError(
             f"{cfg.name}: an attention-free stack has no pages; its SSM "

@@ -10,25 +10,37 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import upcast
+
+
+def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the wider of the two dtypes, as ``jnp.dot`` promotes:
+    float32 activations (a VLM's float32 ``embeds`` batch) meet a bf16
+    weight as float32, where ``torch.matmul`` refuses mixed dtypes."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
 
 # ---------------------------------------------------------------- norms
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
     dt = x.dtype
-    x = x.float()
+    x = upcast(x)
     var = torch.mean(x * x, dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
-    return (x * weight.float()).to(dt)
+    return (x * upcast(weight)).to(dt)
 
 
 def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
     dt = x.dtype
-    x = x.float()
+    x = upcast(x)
     mu = torch.mean(x, dim=-1, keepdim=True)
     var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
     x = (x - mu) * torch.rsqrt(var + eps)
-    return (x * weight.float() + bias.float()).to(dt)
+    return (x * upcast(weight) + upcast(bias)).to(dt)
 
 
 def apply_norm(x, params, cfg):
@@ -82,7 +94,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     """x: [..., seq, heads, head_dim]; cos/sin: [..., seq, head_dim/2]."""
     dt = x.dtype
     half = x.shape[-1] // 2
-    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    x1, x2 = upcast(x[..., :half]), upcast(x[..., half:])
     c = cos[..., None, :]                  # broadcast over heads
     s = sin[..., None, :]
     out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
@@ -91,12 +103,12 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 # ---------------------------------------------------------------- mlp
 def swiglu(x, w_gate, w_up, w_down):
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    return dot(F.silu(dot(x, w_gate)) * dot(x, w_up), w_down)
 
 
 def gelu_mlp(x, w_up, w_down):
     # jax.nn.gelu defaults to the tanh approximation
-    return F.gelu(x @ w_up, approximate="tanh") @ w_down
+    return dot(F.gelu(dot(x, w_up), approximate="tanh"), w_down)
 
 
 def normal(shape, std: float, dtype: torch.dtype, device: torch.device,

@@ -3,7 +3,9 @@
 an MLP or, on the MoE layers of an MoE config, a mixture of experts
 (``moe_ffn``); attention-free Mamba2 (SSM) stacks over the dense cache;
 hybrid stacks of Mamba2 blocks and one shared attention+MLP block
-(zamba2) over either.
+(zamba2) over either.  Audio (musicgen) models embed K codebooks, summed,
+and emit K logit heads; VLM backbones take precomputed ``embeds`` (and
+M-RoPE ``positions``) in place of token ids.
 
 Parameters are a plain dict of tensors with the JAX package's layout
 (``x @ w``, ``w: [d_in, d_out]``; norm scales and the MoE router
@@ -32,10 +34,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.cache import (require_ported, write_prefill,
-                                      write_prefill_paged)
+from repro_torch.models.cache import write_prefill, write_prefill_paged
 from repro_torch.models.config import SSM, ModelConfig
-from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, \
+from repro_torch.models.layers import apply_mlp, apply_norm, dot, init_mlp, \
     init_norm, normal
 from repro_torch.models.moe import init_moe, moe_ffn
 
@@ -45,7 +46,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
     """Random parameters at ``cfg``'s shapes, drawn on ``device`` (default
     ``cuda``) in ``cfg.dtype`` from a seeded generator on that device
     (norm scales and the SSM blocks' ``A_log``/``dt_bias``/``D``/``norm``
-    float32, as in the JAX package).  An attention block takes MLA where
+    float32, as in the JAX package; with ``cfg.num_codebooks`` K > 1,
+    ``embed [K, V, d]`` and ``lm_head [K, d, V]``).  An attention block
+    takes MLA where
     ``cfg.mla`` is set, and an MoE FFN in place of its MLP on the MoE
     layers (those not in ``cfg.moe.dense_layers``; the dense ones are
     ``cfg.moe.d_ff_dense`` wide when it is set).  With
@@ -53,20 +56,21 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
     one attention block is drawn at the first attention layer and stored
     as ``params["shared_block"]``, with ``{}`` at every attention
     position of ``params["layers"]`` (the JAX tree)."""
-    require_ported(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev)
         generator.manual_seed(seed)
     dtype = torch_dtype(cfg.dtype)
     s = cfg.d_model ** -0.5
-    params = {"embed": normal((cfg.vocab_size, cfg.d_model), s, dtype, dev,
-                              generator),
+    # K codebooks (musicgen): one table and one head per codebook
+    lead = (cfg.num_codebooks,) if cfg.num_codebooks > 1 else ()
+    params = {"embed": normal(lead + (cfg.vocab_size, cfg.d_model), s, dtype,
+                              dev, generator),
               "final_norm": init_norm(cfg, cfg.d_model, dev),
               "layers": []}
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal((cfg.d_model, cfg.vocab_size), s, dtype,
-                                   dev, generator)
+        params["lm_head"] = normal(lead + (cfg.d_model, cfg.vocab_size), s,
+                                   dtype, dev, generator)
     for i, kind in enumerate(cfg.layer_pattern):
         if kind == SSM:
             params["layers"].append({
@@ -103,13 +107,25 @@ def _blocks(params):
 
 
 def embed_tokens(params, cfg, tokens):
+    """tokens [B, S] -> [B, S, d]; with K codebooks tokens [B, S, K] and
+    the K embeddings summed in codebook order, as the JAX package sums
+    them."""
+    if cfg.num_codebooks > 1:
+        return sum(params["embed"][k][tokens[..., k].long()]
+                   for k in range(cfg.num_codebooks))
     return params["embed"][tokens.long()]
 
 
 def lm_head(params, cfg, x):
+    """[B, S, d] -> logits [B, S, V] (K codebooks: [B, S, K, V])."""
+    if cfg.num_codebooks > 1:
+        w = params["embed"].transpose(1, 2) if cfg.tie_embeddings \
+            else params["lm_head"]
+        return torch.stack([dot(x, w[k]) for k in range(cfg.num_codebooks)],
+                           dim=2)
     if cfg.tie_embeddings:
-        return x @ params["embed"].T
-    return x @ params["lm_head"]
+        return dot(x, params["embed"].T)
+    return dot(x, params["lm_head"])
 
 
 def _ffn_residual(block, cfg, x):
@@ -143,6 +159,13 @@ def _default_positions(cfg, batch, seq, offset, device):
     return pos
 
 
+def _decode_positions(cfg, cache_pos, batch):
+    pos = cache_pos[:, None]
+    if cfg.mrope_sections:
+        pos = pos[..., None].expand(batch, 1, 3)
+    return pos
+
+
 def _attn_block_decode(block, cfg, x, positions, layer_cache, cache_pos,
                        active=None):
     h, _ = (attn.mla_decode if cfg.mla is not None else attn.gqa_decode)(
@@ -168,9 +191,16 @@ def _remat_layer(block, cfg, x, positions):
     return x, loss
 
 
-def forward_full(params, cfg: ModelConfig, *, tokens, cache=None,
-                 last_only: bool = False, remat: bool = False):
-    """Train / prefill pass over a whole sequence. tokens: [B, S].
+def _remat_ssm(block, cfg, x):
+    return _ssm_block_full(block, cfg, x)[0]
+
+
+def forward_full(params, cfg: ModelConfig, *, tokens=None, embeds=None,
+                 positions=None, cache=None, last_only: bool = False,
+                 remat: bool = False):
+    """Train / prefill pass over a whole sequence. tokens: [B, S] ([B, S,
+    K] with K codebooks), or ``embeds`` [B, S, d]; ``positions`` [B, S]
+    ([B, S, 3] M-RoPE ids), by default 0..S-1.
 
     With ``cache`` (a dense cache of :func:`init_cache`), each layer's
     K/V (SSM layers: the final conv and recurrent state) are written
@@ -178,24 +208,27 @@ def forward_full(params, cfg: ModelConfig, *, tokens, cache=None,
     ``last_only`` applies the LM head to the final position only.
     ``remat`` recomputes each layer in the backward pass instead of
     keeping its activations (``torch.utils.checkpoint``, the counterpart
-    of the JAX ``jax.checkpoint`` per layer); it cannot write a cache.
-    Returns (logits [B, S or 1, V], cache_or_None, aux) — ``aux`` is the
+    of the JAX ``jax.checkpoint`` per layer, SSM layers and the shared
+    block included); it cannot write a cache.
+    Returns (logits [B, S or 1, V] ([B, S or 1, K, V]), cache_or_None,
+    aux) — ``aux`` is the
     MoE load-balance loss summed over the layers and divided by the
     number of attention layers, as in the JAX package (0.0 for models
     without MoE layers)."""
     if remat and cache is not None:
         raise ValueError("remat recomputes layers in the backward pass and "
                          "cannot write a cache")
-    if remat and cfg.ssm_layers:
-        raise NotImplementedError("training SSM layers (remat through the "
-                                  "SSD scan) is not ported: ROADMAP.md "
-                                  "M10b")
-    x = embed_tokens(params, cfg, tokens)
+    x = embeds if embeds is not None else embed_tokens(params, cfg,
+                                                          tokens)
     b, s = x.shape[0], x.shape[1]
-    positions = _default_positions(cfg, b, s, 0, x.device)
+    if positions is None:
+        positions = _default_positions(cfg, b, s, 0, x.device)
     aux_total = 0.0
     for i, (kind, block) in enumerate(zip(cfg.layer_pattern,
                                           _blocks(params))):
+        if kind == SSM and remat:
+            x = checkpoint(_remat_ssm, block, cfg, x, use_reentrant=False)
+            continue
         if kind == SSM:
             x, state = _ssm_block_full(block, cfg, x)
             if cache is not None:
@@ -218,9 +251,11 @@ def forward_full(params, cfg: ModelConfig, *, tokens, cache=None,
     return logits, cache, aux_total / max(1, len(cfg.attn_layers))
 
 
-def forward_decode(params, cfg: ModelConfig, *, tokens, cache, active=None):
+def forward_decode(params, cfg: ModelConfig, *, tokens=None, embeds=None,
+                   positions=None, cache, active=None):
     """One-token decode step for every slot of a dense cache.
-    tokens: [B, 1].
+    tokens: [B, 1] ([B, 1, K] with K codebooks), or ``embeds`` [B, 1, d];
+    ``positions`` [B, 1] ([B, 1, 3]), by default each slot's ``pos``.
 
     New K/V are ring-written in place; ``active`` ([B] bool, optional)
     limits the writes to those slots, so an inactive slot's rows keep
@@ -229,12 +264,12 @@ def forward_decode(params, cfg: ModelConfig, *, tokens, cache, active=None):
     V], new_cache) where ``new_cache`` shares the layer tensors and
     carries ``pos + 1`` for every slot (the engine keeps the old ``pos``
     of inactive slots, as the JAX engine does)."""
-    x = embed_tokens(params, cfg, tokens)
+    x = embeds if embeds is not None else embed_tokens(params, cfg,
+                                                          tokens)
     b = x.shape[0]
     cache_pos = cache["pos"]
-    positions = cache_pos[:, None]
-    if cfg.mrope_sections:
-        positions = positions[..., None].expand(b, 1, 3)
+    if positions is None:
+        positions = _decode_positions(cfg, cache_pos, b)
     for kind, block, layer_cache in zip(cfg.layer_pattern, _blocks(params),
                                         cache["layers"]):
         if kind == SSM:
@@ -269,7 +304,8 @@ def _refuse_mla_chunk(cfg):
                                   "path (nor has the JAX package's)")
 
 
-def forward_chunk(params, cfg: ModelConfig, *, tokens, cache):
+def forward_chunk(params, cfg: ModelConfig, *, tokens=None, embeds=None,
+                  cache):
     """Chunked-prefill step (Sarathi-style): a chunk of C tokens against
     a dense cache already holding ``cache["pos"]`` tokens (uniform across
     the batch).  The chunk's K/V are ring-written in place (SSM layers:
@@ -277,7 +313,8 @@ def forward_chunk(params, cfg: ModelConfig, *, tokens, cache):
     replaces) and ``pos`` advances by C.  Returns (logits of the chunk's
     last position [B,1,V], cache)."""
     _refuse_mla_chunk(cfg)
-    x = embed_tokens(params, cfg, tokens)
+    x = embeds if embeds is not None else embed_tokens(params, cfg,
+                                                          tokens)
     b, c = x.shape[0], x.shape[1]
     pos0 = cache["pos"][0].clone()
     positions = (pos0 + torch.arange(c, device=x.device,
@@ -300,8 +337,8 @@ def forward_chunk(params, cfg: ModelConfig, *, tokens, cache):
     return logits, cache
 
 
-def forward_decode_paged(params, cfg: ModelConfig, *, tokens, cache,
-                         active=None):
+def forward_decode_paged(params, cfg: ModelConfig, *, tokens=None,
+                         embeds=None, positions=None, cache, active=None):
     """One-token decode step for every slot. tokens: [B, 1].
 
     New K/V are written in place into the pages (an inactive slot's
@@ -312,13 +349,13 @@ def forward_decode_paged(params, cfg: ModelConfig, *, tokens, cache,
     (logits [B, 1, V], new_cache) where ``new_cache`` shares the page
     tensors and carries ``pos + 1`` for every slot (the engine keeps the
     old ``pos`` of inactive slots, as the JAX engine does)."""
-    x = embed_tokens(params, cfg, tokens)
+    x = embeds if embeds is not None else embed_tokens(params, cfg,
+                                                          tokens)
     b = x.shape[0]
     cache_pos = cache["pos"]
     block_tables = cache["block_tables"]
-    positions = cache_pos[:, None]
-    if cfg.mrope_sections:
-        positions = positions[..., None].expand(b, 1, 3)
+    if positions is None:
+        positions = _decode_positions(cfg, cache_pos, b)
     for kind, block, layer_cache in zip(cfg.layer_pattern, _blocks(params),
                                         cache["layers"]):
         if kind == SSM:
@@ -335,8 +372,9 @@ def forward_decode_paged(params, cfg: ModelConfig, *, tokens, cache,
                                      "layers": cache["layers"]}
 
 
-def forward_prefill_paged(params, cfg: ModelConfig, *, tokens, cache,
-                          slot: int = 0, length: Optional[int] = None):
+def forward_prefill_paged(params, cfg: ModelConfig, *, tokens=None,
+                          embeds=None, positions=None, cache, slot: int = 0,
+                          length: Optional[int] = None):
     """Whole-prompt prefill of ONE request written in place into
     ``slot``'s pages (an O(prompt) scatter per layer through the slot's
     block table; padded positions land on the null page).  An SSM layer
@@ -345,11 +383,13 @@ def forward_prefill_paged(params, cfg: ModelConfig, *, tokens, cache,
 
     tokens: [1, Lpad]; ``length``: actual prompt length.  Returns
     (last-token logits [V], cache)."""
-    x = embed_tokens(params, cfg, tokens)
+    x = embeds if embeds is not None else embed_tokens(params, cfg,
+                                                          tokens)
     b, s = x.shape[0], x.shape[1]
     if length is None:
         length = s
-    positions = _default_positions(cfg, b, s, 0, x.device)
+    if positions is None:
+        positions = _default_positions(cfg, b, s, 0, x.device)
     for i, (kind, block) in enumerate(zip(cfg.layer_pattern,
                                           _blocks(params))):
         if kind == SSM:
@@ -363,8 +403,9 @@ def forward_prefill_paged(params, cfg: ModelConfig, *, tokens, cache,
     return logits[0, 0], cache
 
 
-def forward_chunk_paged(params, cfg: ModelConfig, *, tokens, cache,
-                        slot: int = 0, length: Optional[int] = None):
+def forward_chunk_paged(params, cfg: ModelConfig, *, tokens=None,
+                        embeds=None, cache, slot: int = 0,
+                        length: Optional[int] = None):
     """Chunked-prefill step for ONE slot against the paged pool
     (Sarathi-style): the chunk attends to the slot's gathered pages plus
     itself, then is scattered into its pages in place.
@@ -379,7 +420,8 @@ def forward_chunk_paged(params, cfg: ModelConfig, *, tokens, cache,
     the result back into the slot, as the JAX package does.  Returns
     (valid-final logits [1,1,V], cache)."""
     _refuse_mla_chunk(cfg)
-    x = embed_tokens(params, cfg, tokens)
+    x = embeds if embeds is not None else embed_tokens(params, cfg,
+                                                          tokens)
     b, c = x.shape[0], x.shape[1]
     if length is None:
         length = c

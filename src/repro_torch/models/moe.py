@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import normal
+from repro_torch.models.layers import dot, normal
 
 
 def init_moe(cfg, dtype: torch.dtype, device: torch.device,
@@ -102,6 +102,6 @@ def moe_ffn(params, cfg, x):
     loss = load_balance_loss(probs, None, e.top_k)
     if e.num_shared_experts:
         sh = params["shared"]
-        out = out + (F.silu(x @ sh["w_gate"]) * (x @ sh["w_up"])) \
-            @ sh["w_down"]
+        out = out + dot(F.silu(dot(x, sh["w_gate"])) * dot(x, sh["w_up"]),
+                        sh["w_down"])
     return out, loss

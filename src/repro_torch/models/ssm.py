@@ -17,8 +17,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import upcast
 from repro_torch.kernels import ops
-from repro_torch.models.layers import normal, rmsnorm
+from repro_torch.models.layers import dot, normal, rmsnorm
 
 
 def init_mamba2(cfg, dtype: torch.dtype, device: torch.device,
@@ -91,21 +92,21 @@ def mamba2_full(params, cfg, x, conv_state=None, ssm_state=None):
     b, s, d = x.shape
     di = s_cfg.d_inner(d)
     nh, hd, ds = s_cfg.n_heads(d), s_cfg.head_dim, s_cfg.d_state
-    zxbcdt = x @ params["in_proj"]
+    zxbcdt = dot(x, params["in_proj"])
     z, xbc, dt = _split_in_proj(cfg, zxbcdt)
     xbc, new_conv = _causal_conv_full(xbc, params["conv_w"],
                                       params["conv_b"], conv_state)
-    xin = xbc[..., :di].reshape(b, s, nh, hd).float().contiguous()
-    Bm = xbc[..., di: di + ds].float().contiguous()
-    Cm = xbc[..., di + ds:].float().contiguous()
-    dt = _softplus(dt.float() + params["dt_bias"]).contiguous()
+    xin = upcast(xbc[..., :di].reshape(b, s, nh, hd)).contiguous()
+    Bm = upcast(xbc[..., di: di + ds]).contiguous()
+    Cm = upcast(xbc[..., di + ds:]).contiguous()
+    dt = _softplus(upcast(dt) + params["dt_bias"]).contiguous()
     A = -torch.exp(params["A_log"])
     y, final = ops.ssd_scan(xin, dt, A, Bm, Cm, chunk=s_cfg.chunk_size,
                             init_state=ssm_state)
     y = y + params["D"][None, None, :, None] * xin
     y = y.to(x.dtype).reshape(b, s, di)
     y = rmsnorm(y * F.silu(z), params["norm"], cfg.norm_eps)
-    return y @ params["out_proj"], (new_conv, final)
+    return dot(y, params["out_proj"]), (new_conv, final)
 
 
 def mamba2_decode(params, cfg, x, conv_state, ssm_state):
@@ -119,7 +120,7 @@ def mamba2_decode(params, cfg, x, conv_state, ssm_state):
     assert s == 1
     di = s_cfg.d_inner(d)
     nh, hd, ds = s_cfg.n_heads(d), s_cfg.head_dim, s_cfg.d_state
-    zxbcdt = x @ params["in_proj"]
+    zxbcdt = dot(x, params["in_proj"])
     z, xbc, dt = _split_in_proj(cfg, zxbcdt)
     window = torch.cat([conv_state, xbc], dim=1)            # [B, K, C]
     y = torch.einsum("bkc,kc->bc", window, params["conv_w"])
@@ -137,5 +138,5 @@ def mamba2_decode(params, cfg, x, conv_state, ssm_state):
     yv = yv + params["D"][None, :, None] * xin
     yv = yv.reshape(b, 1, di).to(x.dtype)
     yv = rmsnorm(yv * F.silu(z), params["norm"], cfg.norm_eps)
-    return yv @ params["out_proj"], new_conv, new_state
+    return dot(yv, params["out_proj"]), new_conv, new_state
 

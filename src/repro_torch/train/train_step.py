@@ -3,13 +3,15 @@
 
 Gradients come from ``torch.autograd.grad`` over the parameter leaves
 (each set to require grad for the call only), where JAX takes
-``value_and_grad``; attention inside runs the differentiable flash
-kernels (:mod:`repro_torch.kernels.flash_attention_bwd`).  MoE configs
-add the routers' load-balance loss (``AUX_LOSS_WEIGHT``), as the JAX
-``lm_loss`` does (held to it on the CPU; MoE training on the card is
-queued with ROADMAP M10b).  VLM and multi-codebook batches, and SSM
-layers (Mamba2 and the zamba2 hybrid: the SSD scan has no backward
-kernel), wait for M10b.
+``value_and_grad``.  Every arch the JAX launcher trains trains here:
+attention runs the differentiable flash kernels
+(:mod:`repro_torch.kernels.flash_attention_bwd`), Mamba2 layers the
+differentiable SSD scan (:class:`repro_torch.kernels.ssd_scan.SSDScanFn`,
+whose backward is a kernel of its own), MoE layers the grouped product
+under autograd, and MoE configs add the routers' load-balance loss
+(``AUX_LOSS_WEIGHT``), as the JAX ``lm_loss`` does.  A batch carries
+``tokens`` ([B, S], or [B, S, K] with K codebooks) or a VLM's ``embeds``
+([B, S, d]), and ``labels`` shaped like the tokens.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from functools import partial
 
 import torch
 
+from repro_torch.device import upcast
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import forward_full
 from repro_torch.train import optimizer as opt
@@ -27,15 +30,14 @@ AUX_LOSS_WEIGHT = 0.01
 def lm_loss(params, cfg: ModelConfig, tokens, labels, mask=None,
             embeds=None, remat: bool = True):
     """Mean next-token cross entropy (+ MoE aux) over positions whose
-    label is not -100 (and whose ``mask`` is > 0).  labels: [B,S]."""
-    if embeds is not None:
-        raise NotImplementedError("embeds (VLM) batches: ROADMAP M10b")
-    if labels.dim() != 2:
-        raise NotImplementedError("multi-codebook labels: ROADMAP M10b")
-    logits, _, aux = forward_full(params, cfg, tokens=tokens, remat=remat)
+    label is not -100 (and whose ``mask`` is > 0).  labels: [B,S] (or
+    [B,S,K] for K codebooks: the mean over every codebook's positions);
+    ``embeds`` [B,S,d] stands in for ``tokens``."""
+    logits, _, aux = forward_full(params, cfg, tokens=tokens, embeds=embeds,
+                                  remat=remat)
     valid = labels >= 0
     safe = torch.clamp(labels, min=0).long()
-    lg = logits.float()
+    lg = upcast(logits)
     target = torch.gather(lg, -1, safe[..., None])[..., 0]
     # the shift is for range only: the exact derivative through m is 0
     m = torch.amax(lg, dim=-1).detach()
@@ -59,7 +61,11 @@ def loss_and_grads(cfg: ModelConfig, params, batch, remat: bool = True):
         loss, metrics = lm_loss(params, cfg, batch.get("tokens"),
                                 batch["labels"], mask=batch.get("mask"),
                                 embeds=batch.get("embeds"), remat=remat)
-        grads = iter(torch.autograd.grad(loss, flat))
+        # a leaf the loss does not reach (a VLM's token table under an
+        # embeds batch) gets zeros, as jax.value_and_grad gives it
+        grads = iter([torch.zeros_like(t) if g is None else g
+                      for g, t in zip(torch.autograd.grad(
+                          loss, flat, allow_unused=True), flat)])
     finally:
         for t in flat:
             t.requires_grad_(False)
@@ -69,7 +75,8 @@ def loss_and_grads(cfg: ModelConfig, params, batch, remat: bool = True):
 
 def train_step(cfg: ModelConfig, opt_cfg: opt.AdamWConfig, params,
                opt_state, batch, remat: bool = True):
-    """batch: {"tokens": [B,S], "labels": [B,S]} (optional "mask").
+    """batch: {"tokens": [B,S] (or [B,S,K]), "labels": shaped like the
+    tokens} or {"embeds": [B,S,d], "labels": [B,S]} (optional "mask").
 
     Updates ``params`` and ``opt_state`` in place and returns them with
     the metrics (``loss``, ``lm_loss``, ``aux_loss``, ``grad_norm``,

@@ -136,9 +136,10 @@ def test_init_params_tree_matches_jax(layers):
 
 def test_require_ported_layouts():
     """The hybrid runs on both layouts; SSM-only stacks stay off the
-    paged pool, multi-codebook heads stay unported, MLA / MoE (DeepSeek-
-    V2-Lite, DBRX) run on both layouts with the reference's KV bytes per
-    token; the hybrid's count the six attention layers only, as JAX's."""
+    paged pool, the engines refuse multi-codebook heads (the model
+    forwards take them), MLA / MoE (DeepSeek-V2-Lite, DBRX) run on both
+    layouts with the reference's KV bytes per token; the hybrid's count
+    the six attention layers only, as JAX's."""
     full = torch_get_config("zamba2-1.2b")
     for cfg in (full, TCFG):
         require_ported(cfg)
@@ -153,8 +154,13 @@ def test_require_ported_layouts():
         require_ported(torch_get_config(arch), paged=True)
         assert kv_bytes_per_token(torch_get_config(arch)) == jax_kv_bytes(
             get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md M10b"):
-        require_ported(torch_get_config("musicgen-medium"))
+    mcfg = torch_get_config("musicgen-medium")
+    require_ported(mcfg)
+    require_ported(mcfg, paged=True)
+    for paged in (True, False):
+        with pytest.raises(NotImplementedError, match="JAX Engine"):
+            Engine(mcfg, {"embed": torch.zeros(1)}, paged=paged,
+                   device="cpu")
 
 
 def _ssm_close(tc, jc, slots=slice(None)):

@@ -244,8 +244,14 @@ def test_cpu_wrappers_run_plain_and_launch_nothing():
     got = ops.ssd_scan(sx, sdt, sa, sb, sc, chunk=8)
     want = ssd_scan_plain(sx, sdt, sa, sb, sc, chunk=8)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # the scan's gradient on CPU tensors: the plain VJP, no launch
+    sxg = sx.clone().requires_grad_()
+    dx, = torch.autograd.grad(ops.ssd_scan(sxg, sdt, sa, sb, sc,
+                                           chunk=8)[0].sum(), sxg)
+    assert bool(torch.isfinite(dx).all())
     assert ops.launch_counts() == dict.fromkeys(
         ("decode_attention_paged", "decode_attention_paged_q8",
          "decode_attention", "decode_attention_q8", "flash_attention",
          "flash_attention_fwd_lse", "flash_attention_dq",
-         "flash_attention_dkv", "ssd_scan", "anneal", "ragged_dot"), 0)
+         "flash_attention_dkv", "ssd_scan", "ssd_scan_bwd", "anneal",
+         "ragged_dot"), 0)

@@ -41,7 +41,8 @@ from repro_torch.models import ssm
 from repro_torch.models.cache import init_cache, init_paged_cache
 from repro_torch.models.model import (forward_chunk, forward_decode,
                                       forward_full, init_params)
-from repro_torch.train.train_step import lm_loss
+from repro_torch.train import optimizer as opt
+from repro_torch.train.train_step import loss_and_grads
 
 torch.set_num_threads(2)
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -335,10 +336,11 @@ def test_init_params_and_bridge_keep_the_mamba_layout():
 
 
 def test_unported_ssm_paths_raise():
-    """Mamba2 has no paged pool and is not trained (remat, or a gradient
-    through the SSD scan), naming ROADMAP.md M10; the zamba2 hybrid now
-    builds on both layouts, and training it raises naming M10b (the SSD
-    scan has no backward kernel)."""
+    """Mamba2 has no paged pool (naming ROADMAP.md M10); it trains (remat
+    through the SSD scan, a gradient through it: the scan's autograd
+    Function), and so does the zamba2 hybrid, which builds on both
+    layouts.  Remat recomputes the same ops: the same loss and
+    gradients."""
     hcfg = dataclasses.replace(torch_get_reduced("zamba2-1.2b"),
                                dtype="float32")
     hp = init_params(hcfg, seed=0, device="cpu")
@@ -347,14 +349,21 @@ def test_unported_ssm_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md M10"):
         init_paged_cache(TCFG, 1, 32, 3, 16, device="cpu")
     tp = init_params(TCFG, seed=0, device="cpu")
-    toks = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md M10"):
-        forward_full(tp, TCFG, tokens=toks, remat=True)
-    tp["layers"][0]["mamba"]["in_proj"].requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md M10"):
-        forward_full(tp, TCFG, tokens=toks)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md M10b"):
-        lm_loss(hp, hcfg, toks, toks)
-    hp["layers"][0]["mamba"]["in_proj"].requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md M10b"):
-        forward_full(hp, hcfg, tokens=toks)
+    toks = torch.randint(0, TCFG.vocab_size, (1, 40),
+                         generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        want = forward_full(tp, TCFG, tokens=toks)[0]
+        got = forward_full(tp, TCFG, tokens=toks, remat=True)[0]
+    assert torch.equal(got, want)
+    leaf = tp["layers"][0]["mamba"]["in_proj"].requires_grad_()
+    g, = torch.autograd.grad(forward_full(tp, TCFG, tokens=toks)[0].sum(),
+                             leaf)
+    leaf.requires_grad_(False)
+    assert bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0)
+    for cfg, params in ((TCFG, tp), (hcfg, hp)):
+        batch = {"tokens": toks, "labels": toks}
+        l0, _, g0 = loss_and_grads(cfg, params, batch, remat=False)
+        l1, _, g1 = loss_and_grads(cfg, params, batch, remat=True)
+        assert np.isfinite(float(l0)) and float(l0) == float(l1)
+        assert all(torch.equal(a, b) for a, b in zip(opt.leaves(g0),
+                                                     opt.leaves(g1)))

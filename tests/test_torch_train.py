@@ -191,10 +191,19 @@ def test_bf16_step_keeps_dtypes_and_unported_batches_raise():
     assert params["layers"][0]["attn"]["wq"].dtype == torch.bfloat16
     assert params["layers"][0]["attn"]["q_norm"].dtype == torch.float32
     assert all(t.dtype == torch.float32 for t in opt.leaves(state.mu))
-    with pytest.raises(NotImplementedError, match="M10"):
-        lm_loss(params, cfg, None, toks, embeds=torch.zeros(1))
-    with pytest.raises(NotImplementedError, match="M10"):
-        lm_loss(params, cfg, toks, toks[..., None])
+    # the batches that waited for the VLM and codebook paths now train: a
+    # float32 embeds batch through the bf16 model (promoted to float32,
+    # as JAX promotes it), and [B, S, K] labels on a 4-codebook model
+    embeds = torch.from_numpy(np.random.default_rng(5).normal(
+        0, 1, (B, S, cfg.d_model)).astype(np.float32))
+    loss, m = lm_loss(params, cfg, None, toks, embeds=embeds)
+    assert loss.dtype == torch.float32 and np.isfinite(float(loss))
+    mcfg = get_reduced("musicgen-medium")
+    mtoks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, mcfg.vocab_size, (B, S, 4)).astype(np.int32))
+    loss, m = lm_loss(init_params(mcfg, seed=0, device="cpu"), mcfg, mtoks,
+                      mtoks)
+    assert np.isfinite(float(loss))
 
 
 def test_train_cli_on_cpu(tmp_path):
