@@ -53,12 +53,17 @@ Phases (any failure exits non-zero before the last line):
            equal across two launches, timed at the serve shapes (B1 S96;
            B1 S32 from a state) and at B4 S2048, eager and as device
            time from CUDA-graph replays; the SSD scan's backward (K4b,
-           csrc/ssd_scan_bwd.cu) against the plain VJP over 32-row
+           csrc/ssd_scan_bwd.cu: C·Bᵀ, the states, then the chunks in
+           reverse in clusters) against the plain VJP over 32-row
            chunks at Mamba2's and Zamba2's heads, S 96/100/2048 and the
            edges (S 1, nh 7, odd hd and ds), with and without an initial
            state and a final-state cotangent, each gradient within 5e-5
-           of its max |plain|, bitwise equal across two launches, 0
-           spill; timed at B4 S2048 with its f32 operations bound
+           of its max |plain|, bitwise equal across two launches, HMMA in
+           every kernel function, 0 spill; timed at B4 S2048 (eager and
+           as device time from CUDA-graph replays) with its operations
+           bound at the f32 CUDA-core peak and at the 3xTF32 rate, the
+           bytes it moves (workspaces and partials included) and its
+           clusters in flight
   anneal   the batched annealer's kernel (csrc/anneal.cu: one launch
            anneals every instance x chain) against its plain version on
            the same draws, on both scoring paths (incremental and full
@@ -371,7 +376,7 @@ def tensor_core_counts():
     counts = {}
     for source in ("flash_attention", "flash_attention_bwd",
                    "decode_attention", "decode_attention_paged",
-                   "ssd_scan"):
+                   "ssd_scan", "ssd_scan_bwd"):
         sass = subprocess.run(
             [tool, "-sass", str(_build.library_path(source))],
             capture_output=True, text=True, timeout=300, check=True).stdout
@@ -401,7 +406,18 @@ TC_FAMILIES = {
     "decode_attention_q8": ("decode_attention", SPLIT_Q8, "HMMA"),
     "decode_attention_paged": ("decode_attention_paged", SPLIT_BF16, "HMMA"),
     "decode_attention_paged_q8": ("decode_attention_paged", SPLIT_Q8,
-                                  "HMMA")}
+                                  "HMMA"),
+    # the SSD backward's three kernel functions (C·Bᵀ, the states, the
+    # chunks in reverse), each at ds 64 and 128: not per head_dim
+    "ssd_scan_bwd": ("ssd_scan_bwd", ("ssd_cb_kernel<",
+                                      "ssd_bwd_state_kernel<",
+                                      "ssd_bwd_chunk_kernel<"), "HMMA")}
+# the function instances each TC_FAMILIES entry that is not an attention
+# kernel must have, every one, and nothing else, in its library
+TC_INSTANCES = {"ssd_scan_bwd": {
+    "ssd_cb_kernel<float>", "ssd_bwd_state_kernel<64>",
+    "ssd_bwd_state_kernel<128>", "ssd_bwd_chunk_kernel<64>",
+    "ssd_bwd_chunk_kernel<128>"}}
 # the scalar flash blocks, which only the float32 parity path may reach
 SCALAR_FAMILIES = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
 # the scalar decode block keeps float32-q instances only (over float32 or
@@ -411,7 +427,8 @@ SCALAR_DECODE_BF16 = "decode_kernel<__nv_bfloat16,"
 
 def check_tensor_cores(tc):
     """Fail unless every bf16 instance of each TC_FAMILIES entry (hd 64,
-    80 and 128) has its tensor-core instruction in its SASS, every scalar
+    80 and 128; the SSD backward's: TC_INSTANCES, every function of its
+    library) has its tensor-core instruction in its SASS, every scalar
     flash instance is float32, no scalar decode instance takes bf16 q
     (over bf16 or int8 K/V) and ptxas reports a 0-byte stack frame and 0
     spills for every int8 split-KV decode instance.  -> {kernel:
@@ -423,6 +440,14 @@ def check_tensor_cores(tc):
     for name, (source, family, op) in TC_FAMILIES.items():
         fns = {fn: n for fn, n in tc[source].items()
                if fn.startswith(family)}
+        if name in TC_INSTANCES:
+            if set(tc[source]) != TC_INSTANCES[name] or not all(
+                    n[op] for n in fns.values()):
+                raise AssertionError(f"{name}: functions {tc[source]} "
+                                     f"must be {TC_INSTANCES[name]}, each "
+                                     f"with {op}")
+            per_kernel[name] = fns
+            continue
         hds = {int(fn[len(family):].split(",")[0].rstrip(">"))
                for fn in fns}
         if hds != set(HEAD_DIMS) or not all(n[op] for n in fns.values()):
@@ -1171,11 +1196,12 @@ def check_ssd_kernel(results):
 def ssd_bwd_flops(b, s, nh, hd, ds, q=SSD_KQ):
     """The flops of the SSD backward over chunks of ``q`` rows, reckoned
     as :func:`ssd_flops` does: per batch row and chunk of n rows, the
-    n x n tile C·Bᵀ once (2n²·ds: B and C are shared by every head; the
-    kernel recomputes it per head, its own choice), and per head the
-    tile dy·uᵀ (2n²·hd), the tiles' products with dy, B and C (2n²·hd +
-    4n²·ds), and five n x hd x ds products (the recomputed state, dS'·B,
-    Sᵀ·dy, dS'ᵀ·u and the carried dS: 10n·hd·ds)."""
+    n x n tile C·Bᵀ once (2n²·ds: B and C are shared by every head, and
+    the kernel computes it once into a workspace every head reads, as K4
+    does), and per head the tile dy·uᵀ (2n²·hd), the tiles' products with
+    dy, B and C (2n²·hd + 4n²·ds), and five n x hd x ds products (the
+    recomputed state, dS'·B, Sᵀ·dy, dS'ᵀ·u and the carried dS:
+    10n·hd·ds)."""
     rows = [min(q, s - r) for r in range(0, s, q)]
     return b * sum(2 * n * n * ds
                    + nh * (4 * n * n * hd + 4 * n * n * ds
@@ -1186,8 +1212,9 @@ def ssd_bwd_flops(b, s, nh, hd, ds, q=SSD_KQ):
 def ssd_bwd_cost(x, B, st, dfinal):
     """Bounds of one backward: x, dt, A, B, C, dy (and the initial state
     and dfinal) read once, dx, ddt, dA, dB, dC (and dinit) written once,
-    all float32; operations at the f32 CUDA-core peak, which the kernel's
-    f32 FMAs run on.  -> ((bound ms, bound_by), flops)."""
+    all float32.  -> ((bound ms, bound_by) at the f32 CUDA-core peak,
+    (bound ms, bound_by) at the rate of the f32-accurate 3xTF32
+    tensor-core products the kernel issues (495/3 TFLOP/s), flops)."""
     b, s, nh, hd = x.shape
     ds = B.shape[-1]
     state = b * nh * hd * ds
@@ -1196,14 +1223,45 @@ def ssd_bwd_cost(x, B, st, dfinal):
     n_out = x.numel() + b * s * nh + nh + 2 * b * s * ds \
         + state * (st is not None)
     flops = ssd_bwd_flops(b, s, nh, hd, ds)
-    return bound(4 * (n_in + n_out), flops, "float32"), flops
+    t_bytes = 4 * (n_in + n_out) / PEAK_BYTES * 1e3
+    t_tc = flops / PEAK_3XTF32 * 1e3
+    tc = (t_bytes, "bytes") if t_bytes >= t_tc else (t_tc, "operations")
+    return bound(4 * (n_in + n_out), flops, "float32"), tc, flops
+
+
+def ssd_bwd_bytes(b, s, nh, hd, ds, slices, group, with_state=False,
+                  with_dfinal=False):
+    """The bytes the backward moves through device memory on the plan
+    (slices, group), every array of each launch read once and
+    written once: C·Bᵀ (B, C in; the cb workspace out), the states (x,
+    dt, B, the initial state in; the states workspace [b, nc, nh, hd,
+    ds] out), the chunks (x, dt, B, C, cb, the states, dy, dfinal in; dx,
+    dinit and the partials out: ddt and dA per column slice, dB and dC
+    per cluster of heads), and the wrapper's sums of the partials.
+    -> {part: bytes}."""
+    from repro_torch.kernels import ssd_scan as ss
+    nc = -(-s // ss.CHUNK)
+    x, row, bc = b * s * nh * hd, b * s * nh, b * s * ds
+    state, cb = b * nh * hd * ds, b * nc * ss.CHUNK ** 2
+    states = b * nc * nh * hd * ds
+    part = b * s * (nh // group) * ds
+    parts = slices * (row + b * nh) + 2 * part
+    out = {"cb": 2 * bc + cb,
+           "states": x + row + bc + state * with_state + states,
+           "chunks": (2 * x + row + 2 * bc + cb + states
+                      + state * with_dfinal + x + state * with_state
+                      + parts),
+           "sums": parts + row + nh + 2 * bc}
+    return {k: 4 * v for k, v in out.items()}
 
 
 # (label, b, s, nh, hd, ds): Mamba2-780M's heads (nh 48, hd 64, ds 128)
 # and Zamba2-1.2B's (nh 64, hd 64, ds 64), at whole 32-row chunks (96), a
 # ragged last chunk (100), the train length (2048) and the train phase's
 # shape (B4 S2048); then the edges: one
-# row, a head and state narrower than a warp's columns, odd widths
+# row, a head and state narrower than a warp's columns, odd widths (hd 20
+# and 33: no whole number of 32-column slices; 7 and 5 heads: clusters of
+# one head); a batch of one at the train length
 SSD_BWD_CASES = [
     ("mamba2 B1 S96", 1, 96, SSM_NH, SSM_HD, SSM_DS),
     ("mamba2 B2 S100", 2, 100, SSM_NH, SSM_HD, SSM_DS),
@@ -1216,6 +1274,7 @@ SSD_BWD_CASES = [
     ("B1 S1", 1, 1, SSM_NH, SSM_HD, SSM_DS),
     ("B3 S65 nh7 hd20 ds36", 3, 65, 7, 20, 36),
     ("B1 S100 hd33 ds37", 1, 100, 5, 33, 37),
+    ("mamba2 B1 S2048", 1, 2048, SSM_NH, SSM_HD, SSM_DS),
 ]
 # K4b, each gradient: 5e-5 of its max |plain| (the forward's f32 bound),
 # the plain VJP taken over the kernel's own 32-row chunks.  Over 256-row
@@ -1260,8 +1319,10 @@ def check_ssd_bwd_kernel(results):
     on the card over SSD_BWD_CASES, with and without an initial state
     and a final-state cotangent: each gradient within SSD_BWD_TOL of its
     max |plain|, two launches bitwise equal, 0 spills; timed at the
-    Mamba2-780M and Zamba2-1.2B train shapes (B4 S2048), where the timed
-    inputs' outputs are held to the plain VJP too."""
+    Mamba2-780M and Zamba2-1.2B train shapes (B4 S2048), eager and as
+    device time from CUDA-graph replays, beside both bounds, the bytes
+    it moves and its plan (the timed inputs' outputs are held to the
+    plain VJP too)."""
     import re
     import torch
     from repro_torch.kernels import _build
@@ -1319,18 +1380,37 @@ def check_ssd_bwd_kernel(results):
             f"{shape} (timed inputs)", out["kernel"], out["plain"]))
         r["max_err_share_of_max"] = r["max_abs_err"]
         del out
-        (b_ms, b_by), flops = ssd_bwd_cost(x, B, None, None)
-        row = {"shape": shape, "ms": k_ms,
+        dev_ms = graph_ms(lambda: ss.ssd_scan_bwd_cuda(x, d, A, B, C, dy), 5)
+        (b_ms, b_by), (tc_ms, tc_by), flops = ssd_bwd_cost(x, B, None, None)
+        slices, group = ss.cuda_bwd_plan(b, nh, hd, ds)
+        moved = ssd_bwd_bytes(b, s, nh, hd, ds, slices, group)
+        clusters = ss.clusters_in_flight(nh, ds, slices, group, b)
+        row = {"shape": shape, "ms": k_ms, "device_ms": dev_ms,
                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "bound_share": b_ms / k_ms, "gflop": flops / 1e9,
-               "tflops": flops / k_ms / 1e9, "library_ms": None}
+               "bound_share": b_ms / k_ms, "bound_3xtf32_ms": tc_ms,
+               "bound_3xtf32_by": tc_by, "bound_3xtf32_share": tc_ms / k_ms,
+               "gflop": flops / 1e9, "tflops": flops / k_ms / 1e9,
+               "device_tflops": flops / dev_ms / 1e9,
+               "bytes_moved": moved, "gb_moved": sum(moved.values()) / 1e9,
+               "plan": {"slices": slices, "group": group,
+                        "blocks": b * nh * slices,
+                        "clusters": b * nh // group,
+                        "clusters_in_flight": clusters},
+               "library_ms": None}
         if key == "mamba2":
             r.update(row)
         else:
             r[key] = row
-        log(f"  ssd_scan_bwd {row['shape']}: kernel {k_ms:.3f} ms "
-            f"({row['tflops']:.2f} TFLOP/s, {100 * row['bound_share']:.1f}% "
-            f"of its bound {b_ms:.4f} ms, {b_by}, f32 CUDA cores), plain "
+        log(f"  ssd_scan_bwd {row['shape']}: kernel {k_ms:.3f} ms eager, "
+            f"{dev_ms:.3f} ms device ({row['device_tflops']:.2f} TFLOP/s); "
+            f"bound {b_ms:.4f} ms ({b_by}, f32 CUDA cores, "
+            f"{100 * row['bound_share']:.1f}%) / {tc_ms:.4f} ms ({tc_by}, "
+            f"3xTF32, {100 * row['bound_3xtf32_share']:.1f}%), "
+            f"{flops / 1e9:.1f} GFLOP; moves {row['gb_moved']:.3f} GB ("
+            + ", ".join(f"{k} {v / 1e6:.1f} MB" for k, v in moved.items())
+            + f"), {1e3 * row['gb_moved'] / k_ms:.0f} GB/s; plan {slices} "
+            f"slices x clusters of {group} heads, {b * nh * slices} blocks, "
+            f"{clusters} clusters in flight of {b * nh // group}; plain "
             f"{p_ms:.3f} ms")
 
 

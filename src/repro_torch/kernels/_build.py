@@ -62,9 +62,10 @@ SIGNATURES = {
     "flash_attention_dkv": [_P] * 8 + [_I] * 8 + [_P],
     # + the C·Bᵀ workspace, and the plan's slices
     "ssd_scan": [_P] * 9 + [_I] * 7 + [_P],
-    # x, dt, A, B, C, init_state, dy, dfinal, the states workspace, dx,
-    # ddt, the dA / dB / dC partials, dinit; b, s, nh, hd, ds
-    "ssd_scan_bwd": [_P] * 15 + [_I] * 5 + [_P],
+    # x, dt, A, B, C, init_state, dy, dfinal, the C·Bᵀ and states
+    # workspaces, dx, the ddt / dA / dB / dC partials, dinit; b, s, nh,
+    # hd, ds, and the plan's slices and head group
+    "ssd_scan_bwd": [_P] * 16 + [_I] * 7 + [_P],
     # reqc, n_valid, draws, the three outputs, the workspace; the shapes,
     # iters and the scoring path; T0, T_thres, tau
     "anneal": [_P] * 7 + [_I] * 7 + [_F] * 3 + [_P],
@@ -78,6 +79,8 @@ HELPERS = {
     # the launch plan at (N, max_batch, incremental): threads a block and
     # where the request rows and the state sit
     "anneal_plan": ("anneal", [_I] * 3, ctypes.c_int),
+    # the SSD backward's clusters in flight at (nh, ds, slices, group, b)
+    "ssd_scan_bwd_clusters": ("ssd_scan_bwd", [_I] * 5, ctypes.c_int),
 }
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()

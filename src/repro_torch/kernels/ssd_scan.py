@@ -25,11 +25,15 @@ The kernel is two launches per call, counted as one: ``C·Bᵀ`` once per
 (batch, 32-row chunk) into a float32 workspace, then the scan, whose
 blocks each own (batch, head, 32 columns of head_dim) as
 :func:`scan_plan` says; all four products are 3xTF32 tensor-core
-products (``csrc/ssd_scan.cu``).
+products (``csrc/ssd_scan.cu``).  The backward is three launches,
+counted as one: the same ``C·Bᵀ``, the states before each chunk, then
+the chunks in reverse in thread-block clusters of column slices and
+heads, as :func:`cuda_bwd_plan` says (``csrc/ssd_scan_bwd.cu``).
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Callable, Optional
 
 import torch
 
@@ -44,6 +48,10 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM, MAX_D_STATE = 64, 128
 CHUNK = 32
 SLICE = 32
+# the backward's columns of head_dim a block owns, and the largest
+# thread-block cluster it forms (csrc/ssd_scan_bwd.cu: kP, kMaxCluster)
+BWD_SLICE = 32
+MAX_CLUSTER = 8
 
 
 def scan_plan(head_dim: int) -> int:
@@ -55,6 +63,47 @@ def scan_plan(head_dim: int) -> int:
     on 132 SMs, are within 3% of 32 columns at batch 1 and ~20% slower
     at B4 x 2048; 64-column blocks are ~45% slower at batch 1."""
     return -(-head_dim // SLICE)
+
+
+def bwd_plan(num_heads: int, head_dim: int, batch: int = 1,
+             in_flight: Optional[Callable[[int, int], int]] = None):
+    """The backward's plan, from static shapes only: ``slices`` blocks of
+    ``BWD_SLICE`` columns a head (the last may run past head_dim,
+    masked), and thread-block clusters of the slices of ``group`` heads
+    of one batch row.  A cluster sums its blocks' dB and dC partials, so
+    the kernel writes ``num_heads // group`` of each.  Of the groups 4,
+    2, 1 that divide ``num_heads`` with ``slices * group <=
+    MAX_CLUSTER``: the one whose ``batch * num_heads // group`` clusters
+    run in the fewest rounds of ``in_flight(slices, group)`` (the
+    clusters the card holds at once), the largest on a tie; the largest
+    without ``in_flight``.  -> (slices, group)."""
+    slices = -(-head_dim // BWD_SLICE)
+    groups = [g for g in (4, 2, 1)
+              if num_heads % g == 0 and slices * g <= MAX_CLUSTER]
+    if in_flight is None:
+        return slices, groups[0]
+
+    def rounds(g):
+        clusters = batch * num_heads // g
+        return -(-clusters // max(1, in_flight(slices, g)))
+    return slices, min(groups, key=rounds)
+
+
+@functools.lru_cache(maxsize=None)
+def clusters_in_flight(num_heads: int, d_state: int, slices: int,
+                       group: int, batch: int) -> int:
+    """The clusters of the backward's reverse launch that the card holds
+    at once on that plan (``cudaOccupancyMaxActiveClusters``: a host-side
+    query that launches and reads back nothing)."""
+    return _build.load("ssd_scan_bwd_clusters")(num_heads, d_state, slices,
+                                                group, batch)
+
+
+def cuda_bwd_plan(batch: int, num_heads: int, head_dim: int, d_state: int):
+    """:func:`bwd_plan` on the card: fewest rounds of clusters in flight.
+    -> (slices, group)."""
+    return bwd_plan(num_heads, head_dim, batch, lambda sl, g:
+                    clusters_in_flight(num_heads, d_state, sl, g, batch))
 
 
 def _ssd_chunked(x, dt, A, B, C, chunk: int, init_state):
@@ -229,24 +278,28 @@ def check_bwd_inputs(x, dt, A, B, C, init_state, dy, dfinal):
 def ssd_scan_bwd_cuda(x, dt, A, B, C, dy, *,
                       init_state: Optional[torch.Tensor] = None,
                       dfinal: Optional[torch.Tensor] = None):
-    """Launch the backward kernel on the current stream.  It writes dx,
-    ddt, and per-head partials of dA, dB and dC (B and C are shared by
-    every head, A by every batch row), which are summed here over heads
-    and batch rows by ``torch.sum``, in a fixed order (no atomics
-    anywhere: the result repeats bit for bit).  The states before each
-    32-row chunk go to a float32 workspace ``[b, nc, nh, hd, ds]``.
-    Nothing is read back to the host.  Raises on anything the kernel
-    does not take; never falls back.  -> (dx, ddt, dA, dB, dC, dinit),
-    dinit None when ``init_state`` is."""
+    """Launch the backward kernel on the current stream, on the plan of
+    :func:`cuda_bwd_plan`.  It writes dx, dinit and partials: ddt and dA per
+    column slice, dB and dC per cluster of ``group`` heads (B and C are
+    shared by every head, A by every batch row), which are summed here by
+    ``torch.sum`` in a fixed order (no atomics anywhere: the result
+    repeats bit for bit).  Workspaces: C·Bᵀ per 32-row chunk and the
+    states before each chunk, float32 ``[b, nc, nh, hd, ds]``.  Nothing is
+    read back to the host.  Raises on anything the kernel does not take;
+    never falls back.  -> (dx, ddt, dA, dB, dC, dinit), dinit None when
+    ``init_state`` is."""
     b, s, nh, hd, ds = check_bwd_inputs(x, dt, A, B, C, init_state, dy,
                                         dfinal)
+    slices, group = cuda_bwd_plan(b, nh, hd, ds)
+    nc = -(-s // CHUNK)
     f32 = dict(dtype=torch.float32, device=x.device)
-    states = torch.empty((b, -(-s // CHUNK), nh, hd, ds), **f32)
+    cb = torch.empty((b, nc, CHUNK, CHUNK), **f32)
+    states = torch.empty((b, nc, nh, hd, ds), **f32)
     dx = torch.empty_like(x)
-    ddt = torch.empty_like(dt)
-    dA = torch.empty((b, nh), **f32)
-    dB = torch.empty((b, s, nh, ds), **f32)
-    dC = torch.empty((b, s, nh, ds), **f32)
+    ddt = torch.empty((slices, b, s, nh), **f32)
+    dA = torch.empty((slices, b, nh), **f32)
+    dB = torch.empty((b, s, nh // group, ds), **f32)
+    dC = torch.empty((b, s, nh // group, ds), **f32)
     dinit = None if init_state is None else torch.empty((b, nh, hd, ds),
                                                         **f32)
 
@@ -255,12 +308,13 @@ def ssd_scan_bwd_cuda(x, dt, A, B, C, dy, *,
     err = _build.load(BWD)(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
         C.data_ptr(), ptr(init_state), dy.data_ptr(), ptr(dfinal),
-        states.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
-        dB.data_ptr(), dC.data_ptr(), ptr(dinit), b, s, nh, hd, ds,
+        cb.data_ptr(), states.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+        dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), ptr(dinit), b, s, nh,
+        hd, ds, slices, group,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(BWD, err)
     _build.LAUNCHES[BWD] += 1
-    return dx, ddt, dA.sum(0), dB.sum(2), dC.sum(2), dinit
+    return (dx, ddt.sum(0), dA.sum((0, 1)), dB.sum(2), dC.sum(2), dinit)
 
 
 class SSDScanFn(torch.autograd.Function):

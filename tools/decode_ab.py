@@ -2,11 +2,12 @@
 """A/B times of the port's kernels between two checkouts of this
 repository, on one NVIDIA GPU: the bf16 decode kernels (default), the
 int8 decode kernels (``--kernels q8``), the SSD chunk scan
-(``--kernels ssd``) or the batched annealer (``--kernels anneal``).
+(``--kernels ssd``), its backward (``--kernels ssd_bwd``) or the batched
+annealer (``--kernels anneal``).
 
     git archive <commit> | tar -x -C build/other
-    python3 tools/decode_ab.py build/other [--kernels q8|ssd|anneal] \
-        [--out ab.json]
+    python3 tools/decode_ab.py build/other \
+        [--kernels q8|ssd|ssd_bwd|anneal] [--out ab.json]
 
 ``decode``: the paged decode (``decode_attention_paged``, K1) and the
 dense decode (``decode_attention``, K6) at the serve shape (Qwen2.5-7B
@@ -19,7 +20,11 @@ three shapes ``chip_smoke.py`` times (Mamba2-780M widths, nh 48, hd 64,
 ds 128, float32 x, B and C as the model hands them: B1 S96; B1 S32 from
 a state; B4 S2048), and one full-depth Mamba2-780M prefill of a
 2048-token prompt (B1, 48 layers, bf16 random weights from seed 0, into
-a dense cache, the LM head on the last position).  ``anneal``: the
+a dense cache, the LM head on the last position).  ``ssd_bwd``: the
+scan's backward (``ssd_scan_bwd_cuda``, K4b) at the train shapes of
+Mamba2-780M (B4 S2048 nh 48 hd 64 ds 128) and Zamba2-1.2B (B4 S2048 nh 64
+hd 64 ds 64), float32, no initial state or final-state cotangent, as
+``SSDScanFn`` calls it in training.  ``anneal``: the
 batched-annealer kernel (``anneal_chains_cuda``) at ``chip_smoke.py``'s
 ``ANNEAL_BENCH`` and ``ANNEAL_FLOOR`` shapes (N 64 / 128 / 256 x 8
 chains, 4 instances x 64 x 2 chains, N 8 x 8 chains; max_batch 8,
@@ -51,6 +56,8 @@ CALLS, REPLAYS = 50, 5
 SSD_SHAPES = (("B1 S96", 1, 96, False, 50),
               ("B1 S32 +state", 1, 32, True, 50),
               ("B4 S2048", 4, 2048, False, 5))
+# the SSD backward's shapes: (label, nh, ds) at B4 S2048, hd 64
+SSD_BWD_SHAPES = (("mamba2 B4 S2048", 48, 128), ("zamba2 B4 S2048", 64, 64))
 PROMPT = 2048
 
 
@@ -154,14 +161,15 @@ def q8_worker(tree: str) -> dict:
     return _decode_worker(tree, q8=True)
 
 
-def _ssd_inputs(b, s, with_state):
-    """``chip_smoke.py``'s SSD inputs in float32, from seed 11."""
+def _ssd_inputs(b, s, with_state, **widths):
+    """``chip_smoke.py``'s SSD inputs in float32, from seed 11 (the
+    Mamba2-780M widths unless ``nh``, ``hd``, ``ds`` say otherwise)."""
     import torch
     sys.path.insert(0, HERE)
     from chip_smoke import ssd_inputs
     gen = torch.Generator(device="cuda")
     gen.manual_seed(11)
-    return ssd_inputs(b, s, torch.float32, with_state, gen)
+    return ssd_inputs(b, s, torch.float32, with_state, gen, **widths)
 
 
 def _prefill_ms(runs=3):
@@ -209,6 +217,26 @@ def ssd_worker(tree: str) -> dict:
     return out
 
 
+def ssd_bwd_worker(tree: str) -> dict:
+    import torch
+    sys.path.insert(0, os.path.join(tree, "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ssd_scan as ss
+    _build.build(["ssd_scan_bwd"])
+    out = {"tree": tree}
+    for label, nh, ds in SSD_BWD_SHAPES:
+        x, dt, A, B, C, _ = _ssd_inputs(4, 2048, False, nh=nh, hd=64, ds=ds)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(12)
+        dy = torch.randn(x.shape, device="cuda", generator=gen)
+
+        def fn():
+            return ss.ssd_scan_bwd_cuda(x, dt, A, B, C, dy)
+        out[f"ssd_scan_bwd {label}"] = {"eager_ms": eager_ms(fn, 5),
+                                        "device_ms": device_ms(fn, 5)}
+    return out
+
+
 def anneal_worker(tree: str) -> dict:
     sys.path.insert(0, os.path.join(tree, "src"))
     sys.path.insert(0, HERE)
@@ -235,7 +263,7 @@ def anneal_worker(tree: str) -> dict:
 
 
 WORKERS = {"decode": decode_worker, "q8": q8_worker, "ssd": ssd_worker,
-           "anneal": anneal_worker}
+           "ssd_bwd": ssd_bwd_worker, "anneal": anneal_worker}
 
 
 def main(argv=None) -> int:
