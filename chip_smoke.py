@@ -27,7 +27,10 @@ Phases (any failure exits non-zero before the last line):
            (lengths 1 to 2048, a wrapped ring under a window of 1024,
            group 12, hd 80, int8 also hd 64, zamba2-1.2b's shared block
            at group 1 (32 q / 32 kv heads of hd 64), K1 also at
-           dbrx-132b's group 6 (48 q / 8 kv heads of hd 128), the timed
+           dbrx-132b's group 6 (48 q / 8 kv heads of hd 128) and, with
+           K2, at one tensor-parallel rank's heads (Qwen2.5-7B at tp 2
+           and 4: 14 / 2 and 7 / 1, DBRX at tp 2: 24 / 4; both kernels
+           also timed there, the serve shapes), the timed
            B16 x 2048; K1 and K6 also timed at zamba2's serve shape), each
            bitwise equal across two launches and its split plan printed;
            int8 with NaN scales and random values in every pool row past
@@ -135,7 +138,9 @@ Phases (any failure exits non-zero before the last line):
            paged and on the dense engine (the SSD scan once per SSM layer
            per prefill pass); a timed full-depth B1 2048-token prefill;
            one ServeLoop run of the stream phase's trace on its pool
-           (paged fcfs); then 4 layers (SSM, ATTN, SSM, ATTN) in float32,
+           (paged fcfs, at STREAM_DEPTH: the first 10 of the 38 layers,
+           one of them attention); then 4 layers (SSM, ATTN, SSM, ATTN)
+           in float32,
            cuda vs cpu: both engines' tokens under fcfs and slo-preempt +
            chunked:32, prefill + 4 decode logits within 1e-4 of max
   moe      MoE and MLA: DeepSeek-V2-Lite at its published config (27
@@ -147,7 +152,8 @@ Phases (any failure exits non-zero before the last line):
            and on the dense engine; a timed full-depth B1 2048-token
            prefill (three grouped products per MoE layer, no other
            launch); one ServeLoop run of the stream phase's trace on its
-           pool (paged fcfs); a ServeLoop asked for chunked:16 must
+           pool (paged fcfs, at STREAM_DEPTH: 7 of the 27 layers); a
+           ServeLoop asked for chunked:16 must
            raise; one dispatch_decode round under sync debug mode
            "error"; then DBRX at its published width and 4 of its 40
            layers (48 q / 8 kv heads, 16 experts top-4, ff 10752): paged
@@ -186,12 +192,40 @@ Phases (any failure exits non-zero before the last line):
            Mamba2-780M at 2 layers in float32: the dense engine's tokens
            under fcfs and slo-preempt + chunked:32, and the logits of one
            prefill and 4 decode steps, bounded
+  mesh     tensor-parallel paged serving (Engine(mesh=...)): two ranks,
+           spawned processes on the one card over gloo (every model this
+           process holds freed, then a tp 1 run of each model in this
+           process): Qwen2.5-7B at its published width and
+           MESH_QWEN_LAYERS of its 28 layers (bf16; the depth cut so that
+           the script keeps inside its time limit) under fcfs and
+           slo-reanneal:jax (the annealer on rank 0 while rank 1
+           follows) through run_policy and fcfs through a ServeLoop on
+           sample_serve_workload(8), the serve phase's engine (4 slots x
+           256 tokens); DBRX at its published width and 4 of 40 layers
+           on the MoE FFN's expert-parallel (8 experts a rank) and
+           baseline (every expert on every rank) branches; Qwen, and
+           DBRX on both branches, at 2 layers in float32 (TF32 off):
+           tokens identical to tp 1 and first-step logits within 1e-4 of
+           max |logit|; the grouped product on one rank's 8 of DBRX's 16
+           experts, the other rank's pairs sorted past the last group
+           (the group sizes sum to fewer than the rows) and selected
+           away, against its plain version in bf16 and float32.  Every
+           request completes with its budget of in-vocabulary tokens; on
+           each rank K1's and K2's launches equal the tp 1 run's (they
+           see kv/tp heads); bf16 runs print the share of tokens
+           matching tp 1 and the first-step logit gap; per run tok/s,
+           decode host ms a round, each rank's collectives (calls,
+           seconds, share of the run) and peak memory, all labelled as
+           two processes time-sharing one card; then an NCCL all_reduce
+           over two ranks on the one card, which NCCL must refuse as a
+           duplicate GPU (its error printed)
 Each path (paged serve, dense serve, h2o-danube serve, the five
 streaming paths, Mamba2 serve, the hybrid's paged, dense and stream
 paths, DeepSeek's paged, dense and stream paths, DBRX's paged path,
 int8, train and the five train paths of TRAIN_ARCHS) is driven with
 the launch counts set to 0 just before it
-and read just after; every kernel must launch on the path that runs it
+and read just after (the mesh phase's runs on every rank, counted in
+each rank's process); every kernel must launch on the path that runs it
 (and the MoE paths' grouped product, a library call, is counted the
 same way).  The line before the last is the kernels JSON; the last
 line is
@@ -212,7 +246,7 @@ from concurrent.futures import ProcessPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "anneal", "serve", "stream", "ssm",
-          "hybrid", "moe", "int8", "train", "parity")
+          "hybrid", "moe", "int8", "train", "parity", "mesh")
 PEAK_BYTES = 3.35e12                       # H100 SXM HBM3, bytes/s
 PEAK_FLOPS = {"bfloat16": 989e12,          # dense tensor-core bf16
               "float32": 67e12}            # float32 outside tensor cores
@@ -243,6 +277,10 @@ H, KV, HD, PAGE = 28, 4, 128, 16
 ZAMBA2_HEADS = dict(h=32, kv=32, hd=64)
 # dbrx-132b's attention (configs/dbrx_132b.py): GQA group 6, hd 128
 DBRX_HEADS = dict(h=48, kv=8, hd=128)
+# one tensor-parallel rank's attention heads (q, kv; hd 128): Qwen2.5-7B
+# at tp 2 and 4, DBRX at tp 2
+MESH_HEADS = (("qwen2.5-7b tp2", 14, 2), ("qwen2.5-7b tp4", 7, 1),
+              ("dbrx tp2", 24, 4))
 # Mamba2-780M's SSD widths (configs/mamba2_780m.py); the chunk whose
 # flops the f32 CUDA-core bound counts (64 rows: PR 15's yardstick, kept
 # so that it compares across kernel versions), and the kernel's own chunk
@@ -336,7 +374,9 @@ PATHS = {"serve_paged": ("decode_attention_paged", "flash_attention"),
          "train_hybrid": ("ssd_scan", "ssd_scan_bwd") + TRAIN_KERNELS,
          "train_audio": TRAIN_KERNELS,
          "train_vlm": TRAIN_KERNELS,
-         "train_moe": ("ragged_dot",)}
+         "train_moe": ("ragged_dot",),
+         # each tensor-parallel rank, every run of the mesh phase
+         "serve_mesh": ("decode_attention_paged", "flash_attention")}
 # the int8 KV library yardstick: no single PyTorch call dequantizes int8
 # K/V with per-row scales inside attention
 NO_LIBRARY = {
@@ -841,6 +881,10 @@ FLASH_CASES = [
     # dbrx-132b: GQA group 6 (48 q / 8 kv heads of hd 128)
     ("B2 S100 g6 hd128", 2, 100, 48, 8, 128, 0),
     ("S256 g6 hd128 (dbrx serve)", 1, 256, 48, 8, 128, 0),
+    # one tensor-parallel rank's heads (phase mesh)
+    ("S128 g7 hd128 H14 KV2 (qwen2.5-7b tp2 rank)", 1, 128, 14, 2, 128, 0),
+    ("S100 g7 hd128 H7 KV1 (qwen2.5-7b tp4 rank)", 1, 100, 7, 1, 128, 0),
+    ("S256 g6 hd128 H24 KV4 (dbrx tp2 rank)", 1, 256, 24, 4, 128, 0),
     ("B4 S2048 g2 hd128 (train)", 4, 2048, 16, 8, 128, 0),
 ]
 
@@ -1466,6 +1510,11 @@ def phase_kernels(results):
             ("B4 L2048 g6 H48 KV8 hd128",
              lambda dt: decode_inputs(4, [1, 100, 1000, 2048], 128, dt, 0,
                                       gen, **DBRX_HEADS)),
+            # one tensor-parallel rank's heads (phase mesh)
+            *((f"B4 L2048 g{h // kv} H{h} KV{kv} ({label} rank)",
+               lambda dt, h=h, kv=kv: decode_inputs(
+                   4, [1, 100, 1000, 2048], 128, dt, 0, gen, h=h, kv=kv))
+              for label, h, kv in MESH_HEADS),
             ("B16 len2048 (timed)",
              lambda dt: decode_inputs(16, [2048] * 16, 128, dt, 0, gen)),
         ]),
@@ -1743,6 +1792,32 @@ def phase_kernels(results):
             f"{r['bound_ms']:.6f} ms ({r['bound_by']}), plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms (device "
             f"{r['library_device_ms']})")
+    # K1 and K2 at one tensor-parallel rank's heads (phase mesh): the
+    # serve engine's 4 slots over a 256-token ring, a 128-token prompt
+    for label, h, kv in MESH_HEADS:
+        a, kw = decode_inputs(4, [40, 90, 150, 220], 16, bf, 0, gen,
+                              n_blocks=65, h=h, kv=kv)
+        r1 = results["decode_attention_paged"].setdefault("mesh", {})[
+            label] = dict(shape=f"B4 H{h} KV{kv} hd128 L256 "
+                                "len[40,90,150,220] bf16",
+                          **timed(dap.decode_attention_paged_plain,
+                                  dap.decode_attention_paged_cuda, a, kw,
+                                  decode_cost, None, 50, "bfloat16",
+                                  graph=True))
+        a = flash_train_inputs(1, 128, h, kv, 128, bf, gen)[:3]
+        kw = {"causal": True, "window": 0}
+        r2 = results["flash_attention"].setdefault("mesh", {})[label] = dict(
+            shape=f"B1 S128 H{h} KV{kv} hd128 causal bf16",
+            **timed(fa.flash_attention_plain, fa.flash_attention_cuda, a,
+                    kw, flash_cost, sdpa_fn(a), 50, "bfloat16"))
+        for name, r in (("decode_attention_paged", r1),
+                        ("flash_attention", r2)):
+            log(f"  {name} at a {label} rank's heads ({r['shape']}): "
+                f"kernel {r['ms']:.4f} ms"
+                + (f", device {r['device_ms']:.4f}" if "device_ms" in r
+                   else "")
+                + f", bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
+                f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}")
     for name, r in results.items():
         log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
             f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
@@ -1907,12 +1982,12 @@ STREAM_N = 64           # requests a stream run serves: ~16 s of arrivals
 # sequences of up to 4096 tokens, 15.0 GB of bf16 K/V (paged or dense)
 STREAM_SLOTS, STREAM_SEQ = 64, 4096
 TURNS = (True, False, False, True)   # paged fcfs: overlap on / off
-# the stream phase's Qwen2.5-7B and Mamba2-780M at a quarter of their
-# published depth (published widths, the first layers), so that the
-# whole script keeps inside its time limit with the hybrid and moe
-# phases beside it: each run's wall is set by the trace's longest
-# request, a chain of decode rounds whose host dispatch grows with the
-# layers
+# the stream phase's Qwen2.5-7B and Mamba2-780M, and the stream runs of
+# the hybrid and moe phases (Zamba2-1.2B, DeepSeek-V2-Lite: since the
+# mesh phase joined), at a quarter of their published depth (published
+# widths, the first layers), so that the whole script keeps inside its
+# time limit: each run's wall is set by the trace's longest request, a
+# chain of decode rounds whose host dispatch grows with the layers
 STREAM_DEPTH = 0.25
 
 
@@ -2092,6 +2167,16 @@ def _cut_depth(cfg):
     return dataclasses.replace(cfg, num_layers=round(cfg.num_layers
                                                      * STREAM_DEPTH),
                                layer_pattern=())
+
+
+def _stream_cut(cfg, params):
+    """``cfg`` and ``params`` at ``STREAM_DEPTH`` of the layers: the first
+    layers of the published stack (its pattern's prefix; a hybrid's shared
+    block kept), published widths, no new weights."""
+    n = round(cfg.num_layers * STREAM_DEPTH)
+    return (dataclasses.replace(cfg, num_layers=n,
+                                layer_pattern=cfg.layer_pattern[:n]),
+            dict(params, layers=params["layers"][:n]))
 
 
 def phase_stream(ctx):
@@ -2441,22 +2526,25 @@ def phase_hybrid(ctx):
     prefill = long_prefill(cfg, params, results, key="prefill_hybrid")
     pairs = sample_trace_workload(HYBRID_STREAM_N, cfg.vocab_size,
                                   rate=STREAM_RATE, seed=1)
+    scfg, sparams = _stream_cut(cfg, params)
     log(f"  hybrid stream: {HYBRID_STREAM_N} of the stream phase's "
         f"{STREAM_N} requests at {STREAM_RATE} req/s, pool {STREAM_SLOTS} "
-        f"slots x {STREAM_SEQ} tokens")
+        f"slots x {STREAM_SEQ} tokens, at {scfg.num_layers} of "
+        f"{cfg.num_layers} layers ({scfg.layer_pattern.count('attn')} "
+        "through the shared attention block)")
     stream = count_path(results, "serve_stream_hybrid", lambda: [
         _stream_run(lambda: ServeLoop(Engine(
-            cfg, params, max_slots=STREAM_SLOTS, max_seq_len=STREAM_SEQ,
+            scfg, sparams, max_slots=STREAM_SLOTS, max_seq_len=STREAM_SEQ,
             device="cuda"), "fcfs", model=model), pairs,
             "zamba2 paged fcfs stall")])
-    stream[0]["model"] = cfg.name
+    stream[0]["model"] = f"{cfg.name} at {scfg.num_layers} layers"
     _log_stream(card, smi, stream)
     widths = set(stream[0]["dispatch_widths"])
     if not widths or not widths <= {1 << k for k in range(
             STREAM_SLOTS.bit_length())} or stream[0]["overlap_frac"] <= 0:
         raise AssertionError(f"hybrid stream: widths {widths}, overlapped "
                              f"share {stream[0]['overlap_frac']}")
-    del params
+    del params, sparams
     torch.cuda.empty_cache()
     ctx["hybrid"] = {"serve": runs, "prefill": prefill, "stream": stream,
                      "parity": _hybrid_parity()}
@@ -2777,19 +2865,21 @@ def phase_moe(ctx):
     lap("deepseek prefill, chunked refusal, sync-free round")
     pairs = sample_trace_workload(MOE_STREAM_N, cfg.vocab_size,
                                   rate=STREAM_RATE, seed=1)
+    scfg, sparams = _stream_cut(cfg, params)
     log(f"  deepseek stream: {MOE_STREAM_N} of the stream phase's "
         f"{STREAM_N} requests at {STREAM_RATE} req/s, pool {STREAM_SLOTS} "
-        f"slots x {STREAM_SEQ} tokens")
+        f"slots x {STREAM_SEQ} tokens, at {scfg.num_layers} of "
+        f"{cfg.num_layers} layers")
     stream = count_path(results, "serve_stream_mla", lambda: [
         _stream_run(lambda: ServeLoop(Engine(
-            cfg, params, max_slots=STREAM_SLOTS, max_seq_len=STREAM_SEQ,
+            scfg, sparams, max_slots=STREAM_SLOTS, max_seq_len=STREAM_SEQ,
             device="cuda"), "fcfs", model=model), pairs,
             "deepseek paged fcfs stall")])
-    stream[0]["model"] = cfg.name
+    stream[0]["model"] = f"{cfg.name} at {scfg.num_layers} layers"
     _log_stream(card, smi, stream)
     out["deepseek_stream"] = stream
     lap("deepseek stream")
-    del params, blocks
+    del params, sparams, blocks
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3933,6 +4023,424 @@ def phase_anneal(ctx):
     log("  anneal rows: " + json.dumps(rows))
 
 
+MESH_TP = 2
+# the serve phase's engine (``_serve_run``) and workload
+MESH_ENGINE = dict(max_slots=4, max_seq_len=256)
+# Qwen2.5-7B's mesh runs at half its depth (published widths, 14 of 28
+# layers), so that the script keeps inside its time limit: each decode
+# round makes two gloo reductions a layer, staged through the host
+MESH_QWEN_LAYERS = 14
+MESH_LAYERS = {"qwen2.5-7b": MESH_QWEN_LAYERS, "dbrx-132b": DBRX_LAYERS}
+PARITY_LAYERS = 2
+# the mesh phase's runs, in order; consecutive runs of one model share
+# its weights.  "ref": a tp 1 run of the same model, engine and
+# workload in this process, whose K1 / K2 launches each rank must match
+MESH_JOBS = (
+    dict(name="qwen fcfs", arch="qwen2.5-7b", kind="policy", policy="fcfs",
+         ref=True),
+    dict(name="qwen slo-reanneal:jax", arch="qwen2.5-7b", kind="policy",
+         policy="slo-reanneal:jax"),
+    dict(name="qwen ServeLoop fcfs", arch="qwen2.5-7b", kind="loop",
+         policy="fcfs"),
+    dict(name="qwen f32 2 layers fcfs", arch="qwen2.5-7b", kind="policy",
+         policy="fcfs", layers=PARITY_LAYERS, dtype="float32", ref=True),
+    dict(name="dbrx expert-parallel fcfs", arch="dbrx-132b", kind="policy",
+         policy="fcfs", ep=True, ref=True),
+    dict(name="dbrx baseline fcfs", arch="dbrx-132b", kind="policy",
+         policy="fcfs", ep=False, ref=True),
+    dict(name="dbrx f32 2 layers expert-parallel fcfs", arch="dbrx-132b",
+         kind="policy", policy="fcfs", layers=PARITY_LAYERS,
+         dtype="float32", ep=True, ref=True),
+    dict(name="dbrx f32 2 layers baseline fcfs", arch="dbrx-132b",
+         kind="policy", policy="fcfs", layers=PARITY_LAYERS,
+         dtype="float32", ep=False, ref=True),
+)
+
+
+def _mesh_cfg(job):
+    """A mesh job's config: published widths, ``MESH_LAYERS`` or the
+    job's depth, the job's dtype."""
+    from repro_torch.configs import get_config
+    cfg = get_config(job["arch"])
+    layers = job.get("layers") or MESH_LAYERS[job["arch"]]
+    kw = dict(num_layers=layers, layer_pattern=()) if layers else {}
+    if job.get("dtype"):
+        kw["dtype"] = job["dtype"]
+    return dataclasses.replace(cfg, **kw) if kw else cfg
+
+
+def _ref_key(job):
+    """Mesh runs that one tp 1 run serves as reference (DBRX's two MoE
+    branches compute the same function)."""
+    return (job["arch"], job.get("layers"), job.get("dtype"), job["kind"],
+            job["policy"])
+
+
+def _weights_key(job):
+    return (job["arch"], job.get("layers"), job.get("dtype"),
+            job.get("ep", False))
+
+
+def _time_collectives(stats):
+    """Count the tp group's collectives (``all_reduce``, ``broadcast``)
+    and their host seconds, each timed between two synchronizes of the
+    current stream (gloo stages a CUDA tensor through the host and the
+    call returns once the sum is back): the rank's time in collectives,
+    what it waited for before them excluded."""
+    import torch
+    import torch.distributed as dist
+    for name in ("all_reduce", "broadcast"):
+        fn = getattr(dist, name)
+
+        def timed(*args, _fn=fn, **kw):
+            torch.cuda.current_stream().synchronize()
+            t = time.perf_counter()
+            out = _fn(*args, **kw)
+            torch.cuda.current_stream().synchronize()
+            stats["s"] += time.perf_counter() - t
+            stats["n"] += 1
+            return out
+        setattr(dist, name, timed)
+
+
+def _mesh_run(eng, job, cfg):
+    """Rank 0's side (or the tp 1 reference): the job's requests through
+    ``run_policy`` or a ``ServeLoop``; the tokens, their budgets and the
+    clock the run took."""
+    from repro_torch.core.latency_model import PAPER_TABLE2
+    from repro_torch.core.policies import make
+    from repro_torch.data.synthetic import sample_serve_workload
+    from repro_torch.launch.serve import _to_rts
+    pairs = sample_serve_workload(8, cfg.vocab_size, seed=1)
+    budgets = {r.req_id: r.output_len for r, _ in pairs}
+    if job["kind"] == "loop":
+        from repro_torch.serving import ServeLoop
+        loop = ServeLoop(eng, job["policy"], model=PAPER_TABLE2)
+        loop.start(warm_lengths=[len(p) for _, p in pairs])
+        t0 = time.perf_counter()
+        loop.submit_trace(pairs)
+        out = loop.serve()
+        seconds = time.perf_counter() - t0
+    else:
+        pol = make(job["policy"], model=PAPER_TABLE2,
+                   max_batch=eng.max_slots, device=eng.device)
+        out = eng.run_policy(_to_rts(pairs), pol, discipline="stall")
+        seconds = eng.clock
+    return {"tokens": {rid: v["tokens"] for rid, v in out.items()},
+            "budgets": budgets, "seconds": seconds}
+
+
+def _first_prefill(eng):
+    """Keep the logits of the engine's first prefill step (the row the
+    first token is drawn from), as float32 numpy."""
+    first = {}
+    run = eng._do_prefill
+
+    def hooked(*args):
+        row = run(*args)
+        if "row" not in first:
+            first["row"] = row.float().cpu().numpy()
+        return row
+    eng._do_prefill = hooked
+    return first
+
+
+def mesh_rank(mesh, jobs):
+    """One rank of the mesh phase: each job's engine on this rank's shard
+    of the weights (drawn whole from seed 0 on the card, one rank at a
+    time, then cut to the rank's slice), rank 0 driving it and the other
+    ranks following.  Per job and rank: launch counts, collectives,
+    peak memory, page shape; on rank 0 the run's tokens, clock, decode
+    ms a round and first prefill logits."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.profiler import LatencyProfiler
+    from repro_torch.distributed.sharding import (ParallelismConfig,
+                                                  param_specs,
+                                                  placement_specs,
+                                                  shard_params)
+    from repro_torch.engine.engine import Engine
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    stats = {"s": 0.0, "n": 0}
+    _time_collectives(stats)
+    out, params, key = [], None, None
+    for job in jobs:
+        cfg = _mesh_cfg(job)
+        par = ParallelismConfig(fsdp=False,
+                                expert_parallel=job.get("ep", False))
+        torch.cuda.reset_peak_memory_stats()
+        if _weights_key(job) != key:
+            params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            for r in range(mesh.size):
+                if r == mesh.rank:
+                    full = init_params(cfg, seed=0, device=mesh.device)
+                    params = shard_params(full, placement_specs(
+                        param_specs(full, cfg, mesh, par), cfg, mesh, par),
+                        mesh)
+                    del full
+                    torch.cuda.synchronize()
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                dist.barrier(group=mesh.control_group)
+            key = _weights_key(job)
+            draw_s = time.perf_counter() - t0
+        else:
+            draw_s = 0.0
+        prof = LatencyProfiler()
+        eng = Engine(cfg, params, device=mesh.device, mesh=mesh,
+                     parallelism=par, profiler=prof, **MESH_ENGINE)
+        first = _first_prefill(eng)
+        ops.reset_launch_counts()
+        stats.update(s=0.0, n=0)
+        res = {"name": job["name"], "rank": mesh.rank, "draw_s": draw_s,
+               "pages": tuple(eng.cache["layers"][0]["k"].shape),
+               "params_gb": sum(t.numel() * t.element_size()
+                                for t in _leaves(params)) / 1e9}
+        t0 = time.perf_counter()
+        if mesh.rank == 0:
+            res.update(_mesh_run(eng, job, cfg))
+            eng.close()
+            res["first"] = first.get("row")
+            rounds = [s[2] for s in prof.decode_samples]
+            res["decode_ms"] = 1e3 * float(np.mean(rounds)) if rounds \
+                else None
+            res["rounds"] = len(rounds)
+        else:
+            eng.follow()
+        torch.cuda.synchronize()
+        res.update(wall_s=time.perf_counter() - t0,
+                   counts=ops.launch_counts(), coll_s=stats["s"],
+                   coll_n=stats["n"],
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        out.append(res)
+        del eng
+    return out
+
+
+def nccl_probe(mesh):
+    """One NCCL all_reduce over the ranks (two of them on one card)."""
+    import torch
+    import torch.distributed as dist
+    x = torch.ones(1, device=mesh.device)
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    return float(x)
+
+
+def _mesh_reference(job):
+    """The job at tp 1 in this process: the same config, weights (seed
+    0), engine and workload; its tokens, launch counts and first prefill
+    logits."""
+    import torch
+    from repro_torch.core.profiler import LatencyProfiler
+    from repro_torch.engine.engine import Engine
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import init_params
+    cfg = _mesh_cfg(job)
+    params = init_params(cfg, seed=0, device="cuda")
+    eng = Engine(cfg, params, device="cuda", profiler=LatencyProfiler(),
+                 **MESH_ENGINE)
+    first = _first_prefill(eng)
+    ops.reset_launch_counts()
+    res = _mesh_run(eng, job, cfg)
+    torch.cuda.synchronize()
+    res.update(counts=ops.launch_counts(), first=first["row"])
+    del eng, params
+    return res
+
+
+def _check_mesh_job(job, ranks, ref, smi):
+    """The checks of one mesh run (module docstring, phase mesh)."""
+    import numpy as np
+    lead = ranks[0]
+    cfg = _mesh_cfg(job)
+    for rid, toks in lead["tokens"].items():
+        if len(toks) != lead["budgets"][rid] or not all(
+                0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"mesh {job['name']}: request {rid} got "
+                                 f"{len(toks)} of {lead['budgets'][rid]} "
+                                 "tokens, or one out of the vocabulary")
+    for r in ranks:
+        for name in PATHS["serve_mesh"]:
+            if r["counts"][name] <= 0:
+                raise AssertionError(f"mesh {job['name']}: rank {r['rank']} "
+                                     f"never launched {name}")
+        if ref is not None:
+            for name in PATHS["serve_mesh"]:
+                if r["counts"][name] != ref["counts"][name]:
+                    raise AssertionError(
+                        f"mesh {job['name']}: rank {r['rank']} launched "
+                        f"{name} {r['counts'][name]} times, the tp 1 run "
+                        f"{ref['counts'][name]}")
+    if job["policy"] == "slo-reanneal:jax" and lead["counts"]["anneal"] < 1:
+        raise AssertionError("mesh slo-reanneal:jax: rank 0 never annealed")
+    ntok = sum(len(t) for t in lead["tokens"].values())
+    coll = [r["coll_s"] / lead["seconds"] for r in ranks]
+    log(f"  mesh {smi} | {len(ranks)} ranks on one card | {job['name']}: "
+        f"tp {len(ranks)}, "
+        f"{cfg.num_layers} layers {cfg.dtype}, pages {lead['pages']} a "
+        f"rank: completed {len(lead['tokens'])}/8, {ntok} tokens, "
+        f"{ntok / lead['seconds']:.1f} tok/s over {lead['seconds']:.3f} s "
+        f"({'wall' if job['kind'] == 'loop' else 'engine clock'}), "
+        + (f"decode {lead['decode_ms']:.2f} host ms a round over "
+           f"{lead['rounds']} rounds, " if lead.get("decode_ms") else "")
+        + "collectives " + " / ".join(
+            f"{r['coll_n']} calls {r['coll_s']:.3f} s" for r in ranks)
+        + " (share of the run: " + " / ".join(f"{c:.3f}" for c in coll)
+        + "); peak GB a rank " + " / ".join(
+            f"{r['peak_gb']:.2f}" for r in ranks)
+        + f"; weights GB a rank {lead['params_gb']:.2f}; launches rank 0 "
+        + json.dumps({k: v for k, v in lead["counts"].items() if v})
+        + (f", tp 1 {json.dumps({k: v for k, v in ref['counts'].items() if v})}"
+           if ref is not None else ""))
+    if ref is None:
+        return
+    same = sum(a == b for rid in ref["tokens"]
+               for a, b in zip(lead["tokens"][rid], ref["tokens"][rid]))
+    total = sum(len(t) for t in ref["tokens"].values())
+    gap = float(np.max(np.abs(lead["first"] - ref["first"])))
+    scale = float(np.max(np.abs(ref["first"])))
+    if cfg.dtype == "float32":
+        if lead["tokens"] != ref["tokens"] or gap > 1e-4 * scale:
+            raise AssertionError(f"mesh {job['name']}: tp {len(ranks)} vs "
+                                 f"tp 1 tokens identical="
+                                 f"{lead['tokens'] == ref['tokens']}, first "
+                                 f"logits gap {gap:.3e} of max {scale:.3e}")
+        log(f"  mesh {job['name']}: tp {len(ranks)} vs tp 1 greedy tokens "
+            f"identical ({total}), first-step logits max gap {gap:.3e} of "
+            f"max |logit| {scale:.3e} (bound 1e-4 of it)")
+    else:
+        log(f"  mesh {job['name']}: tp {len(ranks)} vs tp 1 tokens "
+            f"matching {same}/{total} ({same / total:.3f}), first-step "
+            f"logits max gap {gap:.3e} of max |logit| {scale:.3e} (bf16: "
+            "each rank's row-parallel partial sums are rounded to bf16 "
+            "before the float32 sum, where tp 1 rounds the whole product "
+            "once, so one flipped argmax changes every later token of "
+            "that request; reported, not bounded)")
+
+
+def _ragged_past_check():
+    """The grouped product as the expert-parallel branch calls it: one
+    rank's 8 of DBRX's 16 experts (gate/up and down widths), the rows of
+    a decode round's routed pairs whose experts live on the other rank
+    sorted past the last group, so the group sizes sum to fewer than the
+    rows.  ``torch._grouped_mm`` leaves those rows unwritten; selected
+    away (``torch.where``, as ``moe._experts`` does), the result must
+    equal the plain version (zeros past the last group) within ``TOL``,
+    in bf16 and float32."""
+    import torch
+    from repro_torch.kernels import ragged_dot as rd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    e, d, ff, k, t = 16, 6144, 10752, 4, 8
+    local = e // MESH_TP
+    routed = torch.topk(torch.rand((t, e), generator=gen, device="cuda"),
+                        k, dim=-1).indices.reshape(-1)
+    gs = (routed[:, None] == torch.arange(local, device="cuda")).sum(
+        0, dtype=torch.int32)
+    n = int(gs.sum())
+    if not 0 < n < t * k:
+        raise AssertionError(f"ragged_dot past the last group: {n} of "
+                             f"{t * k} rows in the groups, the case needs "
+                             "rows on both sides")
+    keep = torch.arange(t * k, device="cuda")[:, None] < n
+    for dn, dt in (("bfloat16", torch.bfloat16),
+                   ("float32", torch.float32)):
+        for shape, rows_in, cols in (("gate/up", d, ff), ("down", ff, d)):
+            w = (torch.randn((local, rows_in, cols), generator=gen,
+                             device="cuda") * rows_in ** -0.5).to(dt)
+            x = torch.randn((t * k, rows_in), generator=gen,
+                            device="cuda").to(dt)
+            got = rd.ragged_dot_cuda(x, w, gs)
+            got = torch.where(keep, got, torch.zeros_like(got))
+            want = rd.ragged_dot_plain(x, w, gs)
+            err = (got.float() - want.float()).abs()
+            ok = bool((err <= TOL[dn] + TOL[dn] * want.float().abs()).all())
+            log(f"  ragged_dot dbrx-132b {shape:<7} one rank's {local} of "
+                f"{e} experts, {n} of {t * k} rows in the groups (the rest "
+                f"past the last group, selected away) {dn:<8} "
+                f"max_abs_err={float(err.max()):.3e} tol={TOL[dn]:g} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"ragged_dot past the last group "
+                                     f"{shape} {dn} disagrees")
+            del w
+    torch.cuda.empty_cache()
+
+
+def phase_mesh(ctx):
+    """Tensor-parallel paged serving: two ranks (spawned processes) on
+    the one card over gloo, K1 and K2 on each rank's kv heads."""
+    import gc
+
+    import torch
+    from repro_torch.launch.mesh import spawn
+    smi, results = ctx["smi"], ctx["results"]
+    log(f"  mesh phase on {smi}: {MESH_TP} processes time-sharing one "
+        "card over a host-staged gloo reduction; every time below is "
+        "that, not tensor-parallel speed")
+    log(f"  mesh: Qwen2.5-7B at its published width and {MESH_QWEN_LAYERS} "
+        "of its 28 layers, cut so that the script keeps inside its time "
+        f"limit; DBRX at {DBRX_LAYERS} of its 40 layers")
+    # the tp 1 runs and the ranks need the card: free every model this
+    # process holds
+    for k in [k for k in ctx if k not in ("card", "smi", "results")]:
+        del ctx[k]
+    gc.collect()
+    torch.cuda.empty_cache()
+    _ragged_past_check()
+    refs = {}
+    for job in MESH_JOBS:
+        if job.get("ref") and _ref_key(job) not in refs:
+            refs[_ref_key(job)] = _mesh_reference(job)
+            gc.collect()
+            torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = spawn(mesh_rank, MESH_TP, (list(MESH_JOBS),), device="cuda",
+                backend="gloo", timeout=300, deadline=900)
+    log(f"  mesh ranks done in {time.perf_counter() - t0:.1f} s "
+        f"(spawn to results)")
+    for i, job in enumerate(MESH_JOBS):
+        ranks = [out[r][i] for r in range(MESH_TP)]
+        _check_mesh_job(job, ranks, refs[_ref_key(job)] if job.get("ref")
+                        else None, smi)
+        for r in ranks:
+            for name, n in r["counts"].items():
+                if n and name in KERNELS:
+                    res = results.setdefault(name,
+                                             {"name": name, **KERNELS[name]})
+                    res.setdefault("launches_by_path", {})[
+                        f"serve_mesh rank {r['rank']} {job['name']}"] = n
+                    res["launches"] = sum(res["launches_by_path"].values())
+    try:
+        got = spawn(nccl_probe, MESH_TP, device="cuda", backend="nccl",
+                    timeout=60, deadline=120)
+    except RuntimeError as e:
+        # a rank's traceback, whose last line is NCCL's own error
+        lines = [ln for ln in str(e).splitlines() if ln.strip()]
+        if "Duplicate GPU detected" not in lines[-1]:
+            raise AssertionError("mesh: the NCCL run over two ranks on one "
+                                 "card failed, but not as a duplicate "
+                                 f"GPU: {lines[-1].strip()}") from e
+        log(f"  mesh: NCCL refuses {MESH_TP} ranks on one card: "
+            f"{lines[-1].strip()}")
+    else:
+        raise AssertionError(f"mesh: NCCL accepted {MESH_TP} ranks on one "
+                             f"card (all_reduce gave {got}), so the mesh "
+                             "phase's gloo runs are not what one card "
+                             "allows")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3981,7 +4489,8 @@ def main(argv=None) -> int:
                       ("moe", lambda: phase_moe(ctx)),
                       ("int8", lambda: phase_int8(ctx)),
                       ("train", lambda: phase_train(ctx)),
-                      ("parity", lambda: phase_parity(ctx))):
+                      ("parity", lambda: phase_parity(ctx)),
+                      ("mesh", lambda: phase_mesh(ctx))):
         if phase not in phases:
             continue
         t = time.perf_counter()

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import tree_map
 from repro_torch.train.optimizer import AdamWState
 
 
@@ -24,18 +25,31 @@ def _tensor(x, device: torch.device) -> torch.Tensor:
     return torch.tensor(arr, device=device)
 
 
-def from_jax_params(tree, device=None):
+def from_jax_params(tree, device=None, mesh=None, *, cfg=None,
+                    parallelism=None):
     """Map a pytree of arrays (``jax.tree.map(np.asarray, params)``) onto
-    torch tensors on ``device`` (default ``cuda``), keeping its structure."""
-    dev = resolve_device(device)
+    torch tensors on ``device`` (default ``cuda``), keeping its structure.
 
-    def conv(node):
-        if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return type(node)(conv(v) for v in node)
-        return _tensor(node, dev)
-    return conv(tree)
+    With ``mesh`` (a rank's :class:`~repro_torch.launch.mesh.Mesh`) and
+    the model's ``cfg``: only this rank's slice of each leaf, as
+    ``Engine(mesh=...)`` places it (``distributed.sharding``:
+    ``param_specs`` then ``placement_specs``, under ``parallelism``,
+    default the serving one), so a rank never copies the whole tree."""
+    dev = resolve_device(device)
+    if mesh is None:
+        return tree_map(lambda a: _tensor(a, dev), tree)
+    if cfg is None:
+        raise ValueError("from_jax_params needs the model's cfg to slice "
+                         "the params for a mesh")
+    from repro_torch.distributed.sharding import (ParallelismConfig,
+                                                  leaf_index, param_specs,
+                                                  placement_specs)
+    par = parallelism or ParallelismConfig(fsdp=False)
+    arrays = tree_map(np.asarray, tree)
+    specs = placement_specs(param_specs(arrays, cfg, mesh, par), cfg, mesh,
+                            par)
+    return tree_map(lambda a, spec: _tensor(np.ascontiguousarray(
+        a[leaf_index(a.shape, spec, mesh)]), dev), arrays, specs)
 
 
 def from_jax_opt_state(state, device=None):

@@ -58,7 +58,27 @@ with on-device sampling over a pow-2 slot prefix, queued on the current
 stream without any read back to the host, so the loop can schedule the
 next tick while the card computes.
 
-Not ported yet (ROADMAP M11): the device mesh.
+**Tensor parallel** (``mesh=``, a rank's
+:class:`~repro_torch.launch.mesh.Mesh`; paged layout, GQA archs with or
+without MoE): one process per rank, each holding its slice of the params
+(``distributed.sharding``: ``param_specs`` adjusted by
+``placement_specs``) and of the page arrays (``[N, P, kv/tp, hd]``), so
+the hand-written paged kernels run unchanged on each rank's whole kv
+heads.  Rank 0 alone owns the host side, which decides by the clock
+(the block pool, the prefix index, the profiler, any policy or loop
+driving it); every other rank runs :meth:`Engine.follow`, which replays
+rank 0's device work in the same order: rank 0 sends, over the mesh's
+gloo control group, each device step (prefill, chunk, decode round,
+dispatched round, warm-up) together with the host-side writes queued
+since the last one (block-table rows, ``pos``, copy-on-write page
+copies, a token draw).  Each rank draws from the same whole logits with
+its own identically seeded generator, so every rank samples the same
+ids and the next round's inputs stay on the device; a dispatched round
+also broadcasts the caller's feed from rank 0 over the tp group, so the
+ranks decode the same tokens whoever wrote it.  Every collective has the
+mesh's timeout: ranks that disagree fail instead of hanging.  Rank 0
+calls :meth:`Engine.close` when done, which ends the other ranks'
+:meth:`Engine.follow`.
 """
 from __future__ import annotations
 
@@ -86,9 +106,14 @@ from repro_torch.engine.sampling import sample
 from repro_torch.models.cache import (copy_page, init_cache,
                                       init_paged_cache, paged_slot_len)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import (forward_chunk, forward_chunk_paged,
-                                      forward_decode, forward_decode_paged,
-                                      forward_full, forward_prefill_paged)
+from repro_torch.models.model import (check_mesh_ported, forward_chunk,
+                                      forward_chunk_paged, forward_decode,
+                                      forward_decode_paged, forward_full,
+                                      forward_prefill_paged, init_params)
+
+# engine methods a warm-up may run on a mesh (every rank runs it)
+MIRRORED_WARM_UPS = ("_prefill_step", "_chunk_step", "_decode_step",
+                     "_decode_dispatch")
 
 
 def _bucket(n: int, lo: int = 16) -> int:
@@ -98,6 +123,24 @@ def _bucket(n: int, lo: int = 16) -> int:
     return b
 
 
+def _to_host(a):
+    """A warm-up argument as rank 0 sends it: tensors as numpy arrays,
+    a generator as a marker (the receiver makes a fresh one)."""
+    if isinstance(a, torch.Tensor):
+        return ("tensor", a.cpu().numpy())
+    if isinstance(a, torch.Generator):
+        return ("generator",)
+    return ("value", a)
+
+
+def _from_host(a, device):
+    if a[0] == "tensor":
+        return torch.from_numpy(a[1]).to(device)
+    if a[0] == "generator":
+        return torch.Generator(device=device)
+    return a[1]
+
+
 class Engine:
     def __init__(self, cfg: ModelConfig, params, max_slots: int = 8,
                  max_seq_len: int = 512, eos_token: int = -1,
@@ -105,8 +148,10 @@ class Engine:
                  profiler: Optional[LatencyProfiler] = None,
                  chunked_prefill: int = 0, paged: Optional[bool] = None,
                  block_size: int = 16, num_blocks: Optional[int] = None,
-                 prefix_cache: bool = True, device=None):
-        """``device`` (default ``cuda``) must hold ``params``.
+                 prefix_cache: bool = True, device=None, mesh=None,
+                 parallelism=None):
+        """``device`` (default ``cuda``; under a mesh, the mesh's) must hold
+        ``params``.
 
         ``chunked_prefill > 0``: split prompts into chunks of that size,
         each riding a tick beside the running decode round (Sarathi).
@@ -119,7 +164,18 @@ class Engine:
         ``paged=False`` keeps the dense ``max_slots x max_seq_len``
         layout.  ``prefix_cache`` (paged only) enables shared-prefix KV
         reuse (refcounted pages aliased through a radix index,
-        copy-on-write on divergent writes) for full-attention archs."""
+        copy-on-write on divergent writes) for full-attention archs.
+
+        ``mesh`` (this rank's :class:`~repro_torch.launch.mesh.Mesh` of
+        ``(1, tp)``, from ``launch.mesh.make_host_mesh`` or ``spawn``)
+        runs the engine tensor-parallel (module docstring): every rank
+        builds it with the same arguments and the whole ``params`` (or
+        already its own slice); rank 0 then drives it and the others call
+        :meth:`follow`.  Requires the paged layout, as the JAX engine
+        does.  ``parallelism`` overrides the
+        :class:`~repro_torch.distributed.sharding.ParallelismConfig`
+        (default: tp on the ``model`` axis, no FSDP; ``expert_parallel``
+        picks the MoE FFN's expert-parallel branch)."""
         if cfg.num_codebooks > 1:
             # a K-codebook model emits [.., K, V] logits a step; the
             # engines sample one token a slot, as the JAX Engine does,
@@ -129,6 +185,8 @@ class Engine:
                 f"and this model emits {cfg.num_codebooks} codebooks a "
                 "step; the JAX Engine cannot serve it either")
         self.cfg = cfg
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -146,6 +204,12 @@ class Engine:
         self.slot_req: List[Optional[RuntimeRequest]] = [None] * max_slots
         self.paged = (paged is None or bool(paged)) \
             and bool(cfg.attn_layers)
+        if mesh is not None and not self.paged:
+            raise ValueError("mesh execution requires the paged KV layout "
+                             "(paged=True with an attention arch)")
+        self._init_mesh(mesh, parallelism)
+        cache_kw = dict(mesh=mesh, parallelism=self.parallelism) \
+            if mesh is not None else {}
         if self.paged:
             self.block_size = block_size
             self.slot_len = paged_slot_len(cfg, max_seq_len, block_size)
@@ -158,13 +222,13 @@ class Engine:
                                                   range(max_slots)]
             self.cache = init_paged_cache(cfg, max_slots, max_seq_len,
                                           num_blocks, block_size,
-                                          device=self.device)
+                                          device=self.device, **cache_kw)
             # warm-up target: same slots and tables, two pages (every
             # table entry is the null page), so warming never touches
             # self.cache
             self._scratch = init_paged_cache(cfg, max_slots, max_seq_len,
                                              2, block_size,
-                                             device=self.device)
+                                             device=self.device, **cache_kw)
             # prefix sharing needs position-faithful, block-addressable
             # KV: no window rings, no recurrent (SSM) state
             self.prefix = RadixPrefixIndex(self.pool, block_size) \
@@ -188,6 +252,190 @@ class Engine:
         self.chunked_prefill = 0 if cfg.mla is not None else chunked_prefill
         self._warm = set()
         self.cow_copies = 0          # copy-on-write page splits performed
+        self._row = None             # the logits the next draw reads
+        self._feed = None            # a following rank's dispatch feed
+        if mesh is not None:
+            self._handshake()
+
+    # ------------------------------------------------------------- mesh
+    def _init_mesh(self, mesh, parallelism):
+        """Place ``self.params`` on this rank (its slice under
+        ``placement_specs``; a leaf already at its slice's shape is kept)
+        and build the ctx the forwards run under.  Without a mesh: no
+        ctx, and this process drives the engine alone."""
+        self.mesh = mesh
+        self.ctx = None
+        self.parallelism = None
+        self._queued: List[tuple] = []
+        # rank 0 of a mesh of more than one rank sends its device steps
+        self._peers = mesh is not None and mesh.rank == 0 and mesh.size > 1
+        self._leader = mesh is None or mesh.rank == 0
+        if mesh is None:
+            return
+        from repro_torch.distributed.sharding import (ParallelismConfig,
+                                                      local_shape, make_ctx,
+                                                      param_specs,
+                                                      placement_specs,
+                                                      shard_leaf, tree_map)
+        par = parallelism if parallelism is not None \
+            else ParallelismConfig(fsdp=False)
+        if any(n != 1 for a, n in mesh.shape.items() if a != par.tp_axis):
+            raise NotImplementedError(
+                f"mesh {mesh.shape}: an engine runs on one tp group; "
+                "data-parallel engines (a fleet of mesh engines) are "
+                "ROADMAP M11b")
+        self.parallelism = par
+        self.ctx = make_ctx(mesh, par)
+        check_mesh_ported(self.cfg, self.ctx)
+        full = init_params(self.cfg, device="meta")
+        specs = placement_specs(param_specs(full, self.cfg, mesh, par),
+                                self.cfg, mesh, par)
+
+        def place(t, whole, spec):
+            if tuple(t.shape) == tuple(whole.shape):
+                return shard_leaf(t, spec, mesh)
+            if tuple(t.shape) == local_shape(whole.shape, spec, mesh):
+                return t
+            raise ValueError(f"a parameter of shape {tuple(t.shape)} is "
+                             f"neither whole {tuple(whole.shape)} nor this "
+                             f"rank's slice under {spec}")
+        self.params = tree_map(place, self.params, full, specs)
+
+    def _send(self, ops):
+        import torch.distributed as dist
+        dist.broadcast_object_list([ops], src=0,
+                                   group=self.mesh.control_group)
+
+    def _recv(self):
+        import torch.distributed as dist
+        box = [None]
+        dist.broadcast_object_list(box, src=0,
+                                   group=self.mesh.control_group)
+        return box[0]
+
+    def _handshake(self):
+        """Rank 0 sends what the engine was built with; a rank built
+        otherwise raises before any step could hang."""
+        mine = (self.cfg, self.max_slots, self.max_seq_len,
+                self.num_blocks, self.block_size, self.temperature,
+                self.chunked_prefill, self.prefix is not None,
+                self.parallelism)
+        if self._peers:
+            self._send(mine)
+        elif self.mesh.size > 1:
+            theirs = self._recv()
+            if theirs != mine:
+                raise ValueError(f"rank {self.mesh.rank} built its engine "
+                                 f"as {mine}, rank 0 as {theirs}")
+
+    def _op(self, name: str, *args, flush: bool = False, here=None):
+        """Apply a device op here (``_do_<name>``); on rank 0 of a mesh
+        also queue it for the other ranks, and with ``flush`` (the ops
+        that run collectives) send the queue.  ``args`` are what the
+        other ranks get (host values); ``here``, when given, what this
+        rank runs with instead (its inputs already on the device, copied
+        before a step's clock starts)."""
+        if self._peers:
+            self._queued.append((name, args))
+            if flush:
+                self._flush()
+        return getattr(self, "_do_" + name)(*(args if here is None
+                                               else here))
+
+    def _flush(self):
+        ops, self._queued = self._queued, []
+        self._send(ops)
+
+    @torch.no_grad()
+    def follow(self):
+        """The loop of a rank other than 0: replay rank 0's device steps
+        on this rank's shards until rank 0 calls :meth:`close`."""
+        if self._leader:
+            raise RuntimeError("rank 0 drives the engine; follow() is for "
+                               "the other ranks of a mesh")
+        while True:
+            for name, args in self._recv():
+                if name == "stop":
+                    return
+                getattr(self, "_do_" + name)(*args)
+
+    def close(self):
+        """On rank 0 of a mesh: end the other ranks' :meth:`follow`.
+        Elsewhere nothing."""
+        if self._peers:
+            self._queued.append(("stop", ()))
+            self._flush()
+            self._peers = False
+
+    # device ops: rank 0 runs them and the other ranks replay them
+    def _do_table(self, slot: int, row):
+        """Block-table row of ``slot`` (None: every entry the null
+        page)."""
+        if row is None:
+            self.cache["block_tables"][slot] = 0
+        else:
+            self.cache["block_tables"][slot] = torch.from_numpy(row).to(
+                self.device)
+
+    def _do_table_entry(self, slot: int, bi: int, page: int):
+        self.cache["block_tables"][slot, bi] = page
+
+    def _do_pos(self, slot: int, value: int):
+        self.cache["pos"][slot] = value
+
+    def _do_copy_page(self, src: int, dst: int):
+        copy_page(self.cache, src, dst)
+
+    def _do_warm(self, key, name: str, args):
+        fn = getattr(self, name)
+        self._warm_run(key, fn, [_from_host(a, self.device) for a in args])
+
+    def _on_device(self, a):
+        """A step input on the engine's device (numpy as a follower
+        receives it, or a tensor rank 0 already copied)."""
+        if isinstance(a, np.ndarray):
+            return torch.from_numpy(a).to(self.device)
+        return a
+
+    def _do_prefill(self, toks, n: int, slot: int):
+        logits, _ = self._prefill_step(self.cache, self._on_device(toks),
+                                       n, slot)
+        self._row = logits[None, :]
+        return self._row
+
+    def _do_chunk(self, toks, slot: int, m: int):
+        logits, _ = self._chunk_step(self.cache, self._on_device(toks),
+                                     slot, m)
+        self._row = logits[:, 0]
+        return self._row
+
+    def _do_decode(self, tokens, active):
+        logits, _ = self._decode_step(self.cache, self._on_device(tokens),
+                                      self._on_device(active))
+        self._row = logits
+        return logits
+
+    def _do_sample(self):
+        return sample(self._row, self.generator, self.temperature)
+
+    def _do_dispatch(self, width: int, active_np, feed=None):
+        if feed is None:                     # a following rank's own
+            if self._feed is None:
+                self._feed = torch.zeros((self.max_slots, 1),
+                                         dtype=torch.int32,
+                                         device=self.device)
+            feed = self._feed
+        if self.ctx is not None and self.mesh.size > 1:
+            import torch.distributed as dist
+            dist.broadcast(feed[:width], src=0,
+                           group=self.mesh.group(self.parallelism.tp_axis))
+        active = torch.from_numpy(np.array(active_np, dtype=bool))
+        if self.device.type == "cuda":
+            # a blocking host-to-device copy would wait for the rounds
+            # in flight: copy from pinned memory, queued on the stream
+            active = active.pin_memory().to(self.device, non_blocking=True)
+        return self._decode_dispatch(self.cache, feed[:width], active,
+                                     self.generator)
 
     # ------------------------------------------------------------ steps
     def _decode_step(self, cache, tokens, active):
@@ -199,7 +447,7 @@ class Engine:
         if self.paged:
             logits, new = forward_decode_paged(self.params, self.cfg,
                                                tokens=tokens, cache=cache,
-                                               active=active)
+                                               active=active, ctx=self.ctx)
         else:
             logits, new = forward_decode(self.params, self.cfg,
                                          tokens=tokens, cache=cache,
@@ -233,11 +481,13 @@ class Engine:
 
     def _prefill_step(self, cache, tokens, length, slot):
         return forward_prefill_paged(self.params, self.cfg, tokens=tokens,
-                                     cache=cache, slot=slot, length=length)
+                                     cache=cache, slot=slot, length=length,
+                                     ctx=self.ctx)
 
     def _chunk_step(self, cache, tokens, slot, length):
         return forward_chunk_paged(self.params, self.cfg, tokens=tokens,
-                                   cache=cache, slot=slot, length=length)
+                                   cache=cache, slot=slot, length=length,
+                                   ctx=self.ctx)
 
     def _warm_up(self, key, fn, *args):
         """Run ``fn`` once on the scratch pool, off the engine clock:
@@ -246,6 +496,17 @@ class Engine:
         profiler's samples, and engine state is not touched."""
         if key in self._warm:
             return
+        if self._peers:
+            name = getattr(fn, "__name__", None)
+            if name not in MIRRORED_WARM_UPS:
+                raise ValueError(f"warm-up {fn!r} has no counterpart on the "
+                                 "other ranks of the mesh")
+            self._op("warm", key, name, [_to_host(a) for a in args],
+                     flush=True)
+        else:
+            self._warm_run(key, fn, args)
+
+    def _warm_run(self, key, fn, args):
         with torch.no_grad():
             fn(self._scratch, *args)
         self._scratch["pos"].zero_()
@@ -311,13 +572,13 @@ class Engine:
                           torch.zeros(B, dtype=torch.bool,
                                       device=self.device),
                           torch.Generator(device=self.device))
-        active = torch.from_numpy(np.array(active_np[:B], dtype=bool))
-        if self.device.type == "cuda":
-            # a blocking host-to-device copy would wait for the rounds
-            # in flight: copy from pinned memory, queued on the stream
-            active = active.pin_memory().to(self.device, non_blocking=True)
-        return self._decode_dispatch(self.cache, feed[:B], active,
-                                     self.generator)
+        active = np.array(active_np[:B], dtype=bool)
+        if self._peers:
+            # the feed stays here: the other ranks take it from the
+            # broadcast inside the round
+            self._queued.append(("dispatch", (B, active)))
+            self._flush()
+        return self._do_dispatch(B, active, feed)
 
     def finish_slot(self, rt: RuntimeRequest):
         """Release a finished request's slot: publish its KV-valid span
@@ -409,14 +670,13 @@ class Engine:
         self._slot_blocks[slot] = ids
         row = np.zeros(self.pages_per_slot, np.int32)
         row[:len(ids)] = ids
-        self.cache["block_tables"][slot] = torch.from_numpy(row).to(
-            self.device)
+        self._op("table", slot, row)
 
     def _release_blocks(self, slot: int):
         if self.paged and self._slot_blocks[slot]:
             self.pool.release(self._slot_blocks[slot])
             self._slot_blocks[slot] = []
-            self.cache["block_tables"][slot] = 0
+            self._op("table", slot, None)
 
     def _index_span(self, rt: RuntimeRequest, n_tokens: int):
         """Publish the slot's first ``n_tokens`` KV positions to the
@@ -438,9 +698,9 @@ class Engine:
         if not self.pool.available and self.prefix is not None:
             self.prefix.evict(1)
         new = self.pool.alloc(1)[0]
-        copy_page(self.cache, old, new)
+        self._op("copy_page", old, new)
         self._slot_blocks[slot][bi] = new
-        self.cache["block_tables"][slot, bi] = new
+        self._op("table_entry", slot, bi, new)
         self.pool.release([old])
         self.cow_copies += 1
         return new
@@ -504,7 +764,7 @@ class Engine:
             # first step: claim the pages (aliasing any prefix indexed
             # since admission) and skip the cached span
             self._assign_blocks(rt, slot)
-            self.cache["pos"][slot] = rt.cached_tokens
+            self._op("pos", slot, rt.cached_tokens)
             rt.prefill_pos = rt.cached_tokens
         ctx = self._context_tokens(rt)
         n = len(ctx)
@@ -526,50 +786,50 @@ class Engine:
         else:
             # dense chunks run at exact length (never bucketed)
             toks = np.asarray(ctx[done:done + m], np.int32)[None]
-        toks = torch.from_numpy(toks).to(self.device)
+        ids = torch.from_numpy(toks).to(self.device)
         if whole and not self.paged:
             # dense whole-context fast path: one bucketed (SSM: exact-
             # length) prefill into a fresh single-slot cache (it touches
             # no engine state, so it warms as is), copied into the slot
             self._warm_up(("prefill", L),
-                          lambda _s, t: self._prefill_one(t, n), toks)
+                          lambda _s, t: self._prefill_one(t, n), ids)
             synchronize(self.device)
             t0 = time.perf_counter()
-            logits, cache1 = self._prefill_one(toks, n)
+            logits, cache1 = self._prefill_one(ids, n)
             self._write_slot(slot, cache1)
-            row = logits[None, :]
+            self._row = logits[None, :]
         elif whole:
             # whole-context fast path: one bucketed prefill
-            self._warm_up(("prefill", L), self._prefill_step, toks, n, slot)
+            self._warm_up(("prefill", L), self._prefill_step, ids, n, slot)
             synchronize(self.device)
             t0 = time.perf_counter()
-            logits, _ = self._prefill_step(self.cache, toks, n, slot)
-            row = logits[None, :]
+            self._op("prefill", toks, n, slot, flush=True,
+                     here=(ids, n, slot))
         elif self.paged:
             # chunk / prefix-hit suffix: padded to a pow-2 bucket whose
             # padded rows are never written and never attended
-            self._warm_up(("chunk", L), self._chunk_step, toks, slot, m)
+            self._warm_up(("chunk", L), self._chunk_step, ids, slot, m)
             synchronize(self.device)
             t0 = time.perf_counter()
-            logits, _ = self._chunk_step(self.cache, toks, slot, m)
-            row = logits[:, 0]
+            self._op("chunk", toks, slot, m, flush=True,
+                     here=(ids, slot, m))
         else:
             # dense chunk walk over a private single-slot cache, copied
             # into the slot when the final chunk completes; each new
             # chunk length warms on a scratch single-slot cache
             self._warm_up(("chunk", m), lambda _s, t: self._prefill_chunk(
                 init_cache(self.cfg, 1, self.max_seq_len,
-                           device=self.device), t), toks)
+                           device=self.device), t), ids)
             cache1 = self._partial.get(slot)
             if cache1 is None:
                 cache1 = self._partial[slot] = init_cache(
                     self.cfg, 1, self.max_seq_len, device=self.device)
             synchronize(self.device)
             t0 = time.perf_counter()
-            logits, _ = self._prefill_chunk(cache1, toks)
+            logits, _ = self._prefill_chunk(cache1, ids)
             if last:
                 self._write_slot(slot, self._partial.pop(slot))
-            row = logits[:, 0]
+            self._row = logits[:, 0]
         synchronize(self.device)
         dt = time.perf_counter() - t0
         self.clock += dt
@@ -582,7 +842,7 @@ class Engine:
         self._index_span(rt, n)
         if rt.ttft_time is None:            # preserved across preemptions
             rt.ttft_time = self.clock
-        tok = int(sample(row, self.generator, self.temperature)[0])
+        tok = int(self._op("sample")[0])
         self._push_token(rt, tok)
         return True
 
@@ -638,18 +898,19 @@ class Engine:
                 tokens[i, 0] = rt.generated[-1]
         b = len(running)
         accum = max(rt.input_len + len(rt.generated) for rt in running)
-        tokens = torch.from_numpy(tokens).to(self.device)
+        ids = torch.from_numpy(tokens).to(self.device)
         active = torch.from_numpy(active_np).to(self.device)
-        self._warm_up("decode", self._decode_step, tokens, active)
+        self._warm_up("decode", self._decode_step, ids, active)
         synchronize(self.device)
         t0 = time.perf_counter()
-        logits, _ = self._decode_step(self.cache, tokens, active)
+        self._op("decode", tokens, active_np, flush=True,
+                 here=(ids, active))
         synchronize(self.device)
         dt = time.perf_counter() - t0
         self.clock += dt
         if self.profiler is not None:
             self.profiler.observe_decode(b, accum, dt)
-        toks = sample(logits, self.generator, self.temperature).tolist()
+        toks = self._op("sample").tolist()
         for i, rt in enumerate(list(self.slot_req)):
             if rt is not None and rt.phase is Phase.RUNNING:
                 self._push_token(rt, int(toks[i]))

@@ -1,4 +1,10 @@
-"""Token sampling (counterpart of ``src/repro/engine/sampling.py``)."""
+"""Token sampling (counterpart of ``src/repro/engine/sampling.py``).
+
+On a tensor-parallel mesh every rank calls :func:`sample` on the same
+whole logits (put back together on every rank) with a generator of its
+own, seeded alike and drawn from in the same order, so every rank draws
+the same ids at any temperature and the next round's inputs never cross
+the host."""
 from __future__ import annotations
 
 from typing import Optional

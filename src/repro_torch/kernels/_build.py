@@ -9,6 +9,9 @@ source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
 source or header is rebuilt and an unchanged one is reused.  Nothing is built at import: the first call of a kernel builds
 it, and :func:`build` builds several in parallel ahead of time (callers
 that time work build first, so the build never lands on their clock).
+A build holds an exclusive lock on ``build_dir()/.lock``, so processes
+reaching a kernel's first use together (the ranks of a tensor-parallel
+mesh) build each library once and never write the same file at once.
 
 ``LAUNCHES`` counts kernel launches by name; each CUDA wrapper adds one
 where it launches, and nowhere else.
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -125,11 +129,21 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     (``-Xptxas=-v``: registers, shared memory, spills) beside its
     library."""
     sources = dict.fromkeys(SOURCES[n] for n in names)
-    todo = [s for s in sources if not library_path(s).exists()]
     t0 = time.perf_counter()
+    if all(library_path(s).exists() for s in sources):
+        return {"seconds": time.perf_counter() - t0, "built": 0}
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        # another process may have built them while this one waited
+        todo = [s for s in sources if not library_path(s).exists()]
+        _compile(todo, out_dir)
+    return {"seconds": time.perf_counter() - t0, "built": len(todo)}
+
+
+def _compile(todo: List[str], out_dir: Path):
     if todo:
-        out_dir = build_dir()
-        out_dir.mkdir(parents=True, exist_ok=True)
         exe = nvcc()
         procs = []
         for n in todo:
@@ -151,7 +165,6 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
                 os.replace(tmp, final)
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return {"seconds": time.perf_counter() - t0, "built": len(todo)}
 
 
 def kernel_label(mangled: str) -> str:

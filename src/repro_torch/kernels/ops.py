@@ -4,6 +4,13 @@ Counterpart of ``src/repro/kernels/ops.py``.  The implementation is picked by
 the device of the tensors given: a CPU tensor runs the plain PyTorch
 version, a CUDA tensor launches the hand-written kernel or the call
 raises.  There is no mode switch and no fallback.
+
+The reference's ``set_tp_shards`` has no counterpart: it sends paged
+decode under tp > 1 to the jnp gather because ``pallas_call`` does not
+partition under GSPMD.  Here each tensor-parallel rank is a process
+whose pages hold whole kv heads of its shard, so K1 and K2 run on them
+unchanged, and a tp > 1 call on a CUDA tensor launches the kernel like
+any other.
 """
 from __future__ import annotations
 

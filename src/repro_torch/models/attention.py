@@ -24,6 +24,15 @@ quantized per (token, kv head) and dequantize inside attention.  Kernel
 calls go through :mod:`repro_torch.kernels.ops`, which picks the CUDA
 kernel or its plain version by the tensors' device.
 
+Under a mesh (``ctx``, a ``ShardingCtx``) the paged paths and ``gqa_full``
+work on this rank's heads: where both the q and the kv heads divide the
+tp axis, ``nh/tp`` q heads over ``kv/tp`` kv heads (the contiguous
+column shards of ``wq``/``wk``/``wv`` make rank r's q heads the groups of
+its kv heads, checked in :func:`_local_heads`), so the kernels see whole
+kv heads of the rank's pages and run unchanged, and the row-parallel
+``wo`` product is summed over the ranks; elsewhere the rank holds every
+head and the block runs replicated (``sharding.placement_specs``).
+
 MLA (multi-head latent attention, DeepSeek-V2) follows the JAX package's
 arithmetic in plain PyTorch, as the JAX package runs it in jnp with no
 Pallas kernel: ``mla_full`` expands the latent and attends over q·k of
@@ -40,8 +49,9 @@ from repro_torch.kernels import ops
 from repro_torch.models.cache import (dequantize_kv, gather_pages,
                                       paged_prefill_write, paged_token_write,
                                       quantize_kv)
-from repro_torch.models.layers import (apply_rope, dot, normal, rmsnorm,
-                                       rope_cos_sin)
+from repro_torch.models.layers import (apply_rope, dot, heads_split, normal,
+                                       rmsnorm, rope_cos_sin, tp_all_reduce,
+                                       tp_rank, tp_size)
 
 NEG_INF = -1e30
 
@@ -84,10 +94,47 @@ def _causal_mask(q_len: int, kv_len: int, q_offset, window: int,
     return m
 
 
-def _project_qkv(params, cfg, x, positions):
-    """Q/K/V projections, optional qk-norm, RoPE.  x: [B, S, D]."""
-    b, s, _ = x.shape
+def _local_heads(params, cfg, ctx):
+    """(q heads, kv heads, split) this rank computes: ``1/tp`` of each
+    where both divide the tp axis (``split``), else all of them.  Checks
+    that the rank's weights hold exactly those heads and that its q
+    heads are the whole GQA groups of its kv heads.  Without a mesh,
+    every head, unchecked."""
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if ctx is None:
+        return h, kv, False
+    tp = tp_size(ctx)
+    split = heads_split(cfg, tp)
+    if split:
+        r, group = tp_rank(ctx), h // kv
+        h, kv = h // tp, kv // tp
+        q_heads = range(r * h, (r + 1) * h)
+        if sorted({i // group for i in q_heads}) != \
+                list(range(r * kv, (r + 1) * kv)):
+            raise AssertionError(f"rank {r}'s q heads {q_heads} are not "
+                                 f"the groups of its kv heads")
+    shapes = (params["wq"].shape[1], params["wk"].shape[1],
+              params["wo"].shape[0])
+    if shapes != (h * hd, kv * hd, h * hd):
+        raise ValueError(f"attention weights {shapes} do not hold {h} q / "
+                         f"{kv} kv heads of {hd} (tp {tp})")
+    return h, kv, split
+
+
+def _out_proj(params, out, ctx, split: bool):
+    """``wo`` over this rank's heads, summed over the ranks when the
+    heads are split (a row-parallel product)."""
+    y = dot(out, params["wo"])
+    return tp_all_reduce(y, ctx) if split else y
+
+
+def _project_qkv(params, cfg, x, positions, heads=None):
+    """Q/K/V projections, optional qk-norm, RoPE, over ``heads`` (q, kv)
+    heads: this rank's (:func:`_local_heads`), default all of them.
+    x: [B, S, D]."""
+    b, s, _ = x.shape
+    h, kv = heads or (cfg.num_heads, cfg.num_kv_heads)
+    hd = cfg.head_dim
     q = dot(x, params["wq"]).reshape(b, s, h, hd)
     k = dot(x, params["wk"]).reshape(b, s, kv, hd)
     v = dot(x, params["wv"]).reshape(b, s, kv, hd)
@@ -98,19 +145,22 @@ def _project_qkv(params, cfg, x, positions):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def gqa_full(params, cfg, x, positions):
+def gqa_full(params, cfg, x, positions, ctx=None):
     """Full-sequence attention.
 
     x: [B, S, D]; positions: [B, S] (or [B, S, 3] for M-RoPE).
-    Returns (out [B,S,D], (k, v) [B,S,kv,hd] for cache writing)."""
+    Returns (out [B,S,D], (k, v) [B,S,kv,hd] for cache writing; under a
+    mesh the rank's kv heads)."""
     b, s, _ = x.shape
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q, k, v = _project_qkv(params, cfg, x, positions)
+    h, kv, split = _local_heads(params, cfg, ctx)
+    hd = cfg.head_dim
+    q, k, v = _project_qkv(params, cfg, x, positions, (h, kv))
     if _use_attn_kernel(cfg, s):
         out = ops.flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=True,
                                   window=cfg.sliding_window)
-        return dot(out.reshape(b, s, h * hd), params["wo"]), (k, v)
+        return _out_proj(params, out.reshape(b, s, h * hd), ctx, split), \
+            (k, v)
     rep = h // kv
     qg = q.reshape(b, s, kv, rep, hd)
     mask = _causal_mask(s, s, 0, cfg.sliding_window, x.device)
@@ -121,10 +171,11 @@ def gqa_full(params, cfg, x, positions):
     scores = scores.float().masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v).reshape(b, s, h * hd)
-    return dot(out, params["wo"]), (k, v)
+    return _out_proj(params, out, ctx, split), (k, v)
 
 
-def _chunk_attend(params, cfg, x, positions, k_prefix, v_prefix, start_pos):
+def _chunk_attend(params, cfg, x, positions, k_prefix, v_prefix, start_pos,
+                  ctx=None):
     """Chunk-continuation attention over a materialized prefix.
 
     A chunk of C tokens at absolute positions [start_pos, start_pos+C)
@@ -137,10 +188,11 @@ def _chunk_attend(params, cfg, x, positions, k_prefix, v_prefix, start_pos):
     0-d tensor.  Returns (out [B,C,D], k_chunk, v_chunk [B,C,kv,hd]).
     """
     b, c, _ = x.shape
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    h, kv, split = _local_heads(params, cfg, ctx)
+    hd = cfg.head_dim
     L = k_prefix.shape[1]
     assert c <= L, "chunk larger than the cache ring"
-    q, k, v = _project_qkv(params, cfg, x, positions)
+    q, k, v = _project_qkv(params, cfg, x, positions, (h, kv))
     dev = x.device
     sp = torch.as_tensor(start_pos, device=dev).long()
     window = cfg.sliding_window
@@ -173,7 +225,7 @@ def _chunk_attend(params, cfg, x, positions, k_prefix, v_prefix, start_pos):
     out = torch.einsum("bgrql,blgd->bqgrd", probs[..., :L],
                        v_prefix.to(probs.dtype)) + \
         torch.einsum("bgrqc,bcgd->bqgrd", probs[..., L:], v)
-    return dot(out.reshape(b, c, h * hd), params["wo"]), k, v
+    return _out_proj(params, out.reshape(b, c, h * hd), ctx, split), k, v
 
 
 def _masked_softmax_attend(qg, k_eff, v_eff, valid, softcap, dtype):
@@ -279,7 +331,7 @@ def gqa_continue(params, cfg, x, positions, layer_cache, start_pos):
 
 
 def gqa_continue_paged(params, cfg, x, positions, layer_cache, block_tables,
-                       start_pos, n=None):
+                       start_pos, n=None, ctx=None):
     """Chunked-prefill continuation on the paged pool (single slot).
 
     x: [1, C, D]; the prefix is gathered through the block table, the
@@ -300,7 +352,7 @@ def gqa_continue_paged(params, cfg, x, positions, layer_cache, block_tables,
         v_prefix = dequantize_kv(v_prefix, gather_pages(
             layer_cache["v_scale"], block_tables), x.dtype)
     out, k, v = _chunk_attend(params, cfg, x, positions, k_prefix, v_prefix,
-                              start_pos)
+                              start_pos, ctx)
     bt = block_tables[0]
     for name, val in _kv_vals(layer_cache, k[0], v[0]).items():
         paged_prefill_write(layer_cache[name], val, bt, n, start=start_pos)
@@ -323,7 +375,7 @@ def _paged_write_token(layer_cache, k, v, block_tables, cache_pos):
 
 
 def gqa_decode_paged(params, cfg, x, positions, layer_cache, block_tables,
-                     cache_pos):
+                     cache_pos, ctx=None):
     """One-token decode against the paged KV pool.
 
     x: [B, 1, D]; layer_cache: {"k","v"[,"k_scale","v_scale"]} pages
@@ -332,10 +384,12 @@ def gqa_decode_paged(params, cfg, x, positions, layer_cache, block_tables,
     attention runs through the block table — the paged flash-decode
     kernel (int8 pages: its q8 variant), or for softcap archs a gather of
     the live pages.
+    Under a mesh the pages hold the rank's kv heads.
     Returns (out [B,1,D], layer_cache)."""
     b = x.shape[0]
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q, k, v = _project_qkv(params, cfg, x, positions)
+    h, kv, split = _local_heads(params, cfg, ctx)
+    hd = cfg.head_dim
+    q, k, v = _project_qkv(params, cfg, x, positions, (h, kv))
     _paged_write_token(layer_cache, k, v, block_tables, cache_pos)
     lengths = cache_pos + 1
     quant = "k_scale" in layer_cache
@@ -370,7 +424,7 @@ def gqa_decode_paged(params, cfg, x, positions, layer_cache, block_tables,
             q[:, 0].contiguous(), layer_cache["k"], layer_cache["v"],
             block_tables, lengths.to(torch.int32), window=cfg.sliding_window)
     out = o.to(x.dtype).reshape(b, 1, h * hd)
-    return dot(out, params["wo"]), layer_cache
+    return _out_proj(params, out, ctx, split), layer_cache
 
 
 # =================================================================== MLA

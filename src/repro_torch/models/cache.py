@@ -144,6 +144,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
             "layers": layers}
 
 
+def cache_spec(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+               window: int = 0, quantized: bool = False):
+    """The dense cache :func:`init_cache` would build, as tensors on the
+    meta device: shapes and dtypes, nothing allocated (the counterpart of
+    the reference's ``jax.eval_shape``)."""
+    return init_cache(cfg, batch, max_len, dtype, window, quantized,
+                      device=torch.device("meta"))
+
+
 def quantize_kv(x):
     """x: [..., hd] -> (int8 values, bf16 scale [..., 1]).  The scale is
     computed in float32 and the values rounded half to even against it;
@@ -214,13 +223,32 @@ def write_prefill(cache, layer_idx: int, kv_tuple, cfg: ModelConfig):
 def init_paged_cache(cfg: ModelConfig, max_slots: int, max_len: int,
                      num_blocks: int, block_size: int = 16, dtype=None,
                      window: int = 0, quantized: bool = False, *,
-                     device: torch.device):
+                     device: torch.device, mesh=None, parallelism=None):
     """Block-paged KV pool shared by ``max_slots`` request slots, zeroed
     on ``device`` (int8 pages with bf16 scale pages when
     ``quantized``; MLA latent pages are never quantized).  An SSM layer
     of a hybrid stack gets its per-slot conv and recurrent state,
-    identical to the dense layout's."""
+    identical to the dense layout's.
+
+    Under a ``mesh`` (a rank's :class:`~repro_torch.launch.mesh.Mesh`)
+    this rank's shard: each array at the shape its spec
+    (``distributed.sharding.cache_specs``, ``parallelism`` by default the
+    serving one: tp on ``"model"``, no FSDP) gives the rank, i.e. ``[N,
+    P, kv/tp, hd]`` pages where the kv heads divide the tp axis and whole
+    ones where they do not; ``pos`` and ``block_tables`` whole."""
     require_ported(cfg, paged=True)
+    if mesh is not None:
+        from repro_torch.distributed.sharding import (ParallelismConfig,
+                                                      cache_specs,
+                                                      local_shape, tree_map)
+        par = parallelism or ParallelismConfig(fsdp=False)
+        full = init_paged_cache(cfg, max_slots, max_len, num_blocks,
+                                block_size, dtype, window, quantized,
+                                device=torch.device("meta"))
+        specs = cache_specs(full, cfg, mesh, par, max_slots)
+        return tree_map(lambda t, spec: torch.zeros(
+            local_shape(t.shape, spec, mesh), dtype=t.dtype, device=device),
+            full, specs)
     dtype = torch_dtype(cfg.dtype if dtype is None else dtype)
     if num_blocks < 2:
         raise ValueError("num_blocks must be >= 2 (block 0 is the null page)")

@@ -1,7 +1,17 @@
-"""Shared layer primitives: norms, rotary embeddings (incl. M-RoPE), MLPs.
+"""Shared layer primitives: norms, rotary embeddings (incl. M-RoPE), MLPs,
+and the tensor-parallel reductions.
 
 Counterpart of ``src/repro/models/layers.py``; parameters keep the JAX layout
 (``x @ w`` with ``w: [d_in, d_out]``).
+
+Under a mesh (a ``ShardingCtx``, :mod:`repro_torch.models.moe`) each rank
+is a process holding its slice of the weights, and the sums GSPMD inserts
+in the JAX package are explicit here: :func:`tp_all_reduce` after a
+row-parallel product (``wo``, the MLP's ``w_down``), :func:`tp_all_gather`
+where each rank computed a slice of a dim (vocabulary logits, MoE token
+slices).  Both are ``all_reduce`` calls on the ctx's tp group, the one
+collective gloo runs on CUDA tensors; a bf16 tensor is reduced in float32
+and rounded once.  Without a ctx (or at tp 1) they are the identity.
 """
 from __future__ import annotations
 
@@ -21,6 +31,71 @@ def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
     return x @ w
+
+
+# ----------------------------------------------------- tensor parallel
+def tp_size(ctx) -> int:
+    return 1 if ctx is None else ctx.mesh.shape[ctx.tp_axis]
+
+
+def tp_rank(ctx) -> int:
+    return 0 if ctx is None else ctx.mesh.coords[ctx.tp_axis]
+
+
+def heads_split(cfg, tp: int) -> bool:
+    """Whether a tp-way mesh splits the attention heads over its ranks:
+    both the q and the kv heads must divide it (GQA only), so that each
+    rank's contiguous q heads are the groups of its whole kv heads."""
+    return (cfg.mla is None and tp > 1 and cfg.num_kv_heads >= tp
+            and cfg.num_heads % tp == 0 and cfg.num_kv_heads % tp == 0)
+
+
+def tp_split(full: int, local: int, ctx, what: str = "dim") -> bool:
+    """Whether a dim of ``full`` entries is split over the tp axis on
+    this rank (the partition rules split it iff the tp axis divides it,
+    ``sharding._div``), checked against the extent ``local`` the rank
+    holds."""
+    tp = tp_size(ctx)
+    split = tp > 1 and full % tp == 0 and full >= tp
+    want = full // tp if split else full
+    if local != want:
+        raise ValueError(f"{what}: this rank holds {local} of {full}, the "
+                         f"placement rules give it {want} at tp {tp}")
+    return split
+
+
+def _reduce_dtype(x: torch.Tensor) -> torch.dtype:
+    return torch.float32 if x.dtype in (torch.bfloat16, torch.float16) \
+        else x.dtype
+
+
+def tp_all_reduce(x: torch.Tensor, ctx) -> torch.Tensor:
+    """Sum ``x`` over the ctx's tp group (a row-parallel product's
+    partial sums); identity without a ctx."""
+    if tp_size(ctx) == 1:
+        return x
+    import torch.distributed as dist
+    y = x.to(_reduce_dtype(x), copy=True).contiguous()
+    dist.all_reduce(y, group=ctx.mesh.group(ctx.tp_axis))
+    return y.to(x.dtype)
+
+
+def tp_all_gather(x: torch.Tensor, ctx, dim: int) -> torch.Tensor:
+    """Concatenate each rank's ``x`` along ``dim`` in rank order, on
+    every rank: each rank writes its slice into zeros and the group sums
+    them (a sum with zeros is exact, and every rank gets the same
+    bits)."""
+    if tp_size(ctx) == 1:
+        return x
+    import torch.distributed as dist
+    dim = dim % x.dim()
+    n = x.shape[dim]
+    shape = list(x.shape)
+    shape[dim] = n * tp_size(ctx)
+    full = torch.zeros(shape, dtype=_reduce_dtype(x), device=x.device)
+    full.narrow(dim, tp_rank(ctx) * n, n).copy_(x)
+    dist.all_reduce(full, group=ctx.mesh.group(ctx.tp_axis))
+    return full.to(x.dtype)
 
 
 # ---------------------------------------------------------------- norms
@@ -136,7 +211,16 @@ def init_mlp(cfg, d_model: int, d_ff: int, dtype: torch.dtype,
     }
 
 
-def apply_mlp(x, params, cfg):
+def apply_mlp(x, params, cfg, ctx=None, d_ff: int = 0):
+    """The MLP; under a mesh its ``d_ff`` (the whole width) columns of
+    ``w_gate``/``w_up`` and rows of ``w_down`` are split over the tp axis
+    where it divides, and the row-parallel ``w_down`` product is summed
+    over the ranks."""
     if cfg.mlp_type == "swiglu":
-        return swiglu(x, params["w_gate"], params["w_up"], params["w_down"])
-    return gelu_mlp(x, params["w_up"], params["w_down"])
+        y = swiglu(x, params["w_gate"], params["w_up"], params["w_down"])
+    else:
+        y = gelu_mlp(x, params["w_up"], params["w_down"])
+    if ctx is not None and tp_split(d_ff, params["w_down"].shape[0], ctx,
+                                    "MLP width"):
+        y = tp_all_reduce(y, ctx)
+    return y

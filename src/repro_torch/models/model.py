@@ -23,6 +23,17 @@ layer keeps its own K/V in the cache.
 
 MLA archs have no chunked path (``forward_chunk`` / ``forward_chunk_paged``
 refuse them, as the JAX package asserts): the engine prefills them whole.
+
+``forward_full`` and the three paged forwards take a ``ctx``
+(``ShardingCtx``) to run as one rank of a tensor-parallel mesh on that
+rank's slice of the params (``distributed.sharding.shard_params``) and
+pages: attention over its heads, the MLP's and MoE's splits
+(:mod:`repro_torch.models.layers`, :mod:`repro_torch.models.moe`), a
+vocabulary-parallel embedding (rows outside the rank's slice masked, then
+summed) and head (each rank's vocabulary slice of the logits, put back
+together on every rank, so every rank samples the same token).  MLA,
+SSM and hybrid stacks and multi-codebook models have no mesh path yet and
+raise (ROADMAP M11b).
 """
 from __future__ import annotations
 
@@ -37,7 +48,8 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.cache import write_prefill, write_prefill_paged
 from repro_torch.models.config import SSM, ModelConfig
 from repro_torch.models.layers import apply_mlp, apply_norm, dot, init_mlp, \
-    init_norm, normal
+    init_norm, normal, tp_all_gather, tp_all_reduce, tp_rank, tp_size, \
+    tp_split
 from repro_torch.models.moe import init_moe, moe_ffn
 
 
@@ -55,9 +67,12 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
     ``cfg.shared_attn_weights``
     one attention block is drawn at the first attention layer and stored
     as ``params["shared_block"]``, with ``{}`` at every attention
-    position of ``params["layers"]`` (the JAX tree)."""
-    dev = resolve_device(device)
-    if generator is None:
+    position of ``params["layers"]`` (the JAX tree).  ``device="meta"``
+    gives the tree's shapes and dtypes with nothing allocated (the
+    sharding rules read them)."""
+    meta = device is not None and torch.device(device).type == "meta"
+    dev = torch.device("meta") if meta else resolve_device(device)
+    if generator is None and not meta:
         generator = torch.Generator(device=dev)
         generator.manual_seed(seed)
     dtype = torch_dtype(cfg.dtype)
@@ -106,48 +121,90 @@ def _blocks(params):
     return [block or shared for block in params["layers"]]
 
 
-def embed_tokens(params, cfg, tokens):
+def check_mesh_ported(cfg: ModelConfig, ctx=None):
+    """Raise ``NotImplementedError`` if ``cfg`` has no path on a mesh of
+    tp > 1: dense GQA decoders and GQA + MoE run there; MLA, SSM and
+    hybrid stacks and multi-codebook models do not yet (ROADMAP M11b)."""
+    if tp_size(ctx) == 1:
+        return
+    why = ("MLA" if cfg.mla is not None else
+           "SSM layers" if cfg.ssm_layers else
+           f"{cfg.num_codebooks} codebooks" if cfg.num_codebooks > 1
+           else None)
+    if why:
+        raise NotImplementedError(
+            f"{cfg.name}: {why} under a tensor-parallel mesh is not ported "
+            "yet (ROADMAP M11b)")
+
+
+def embed_tokens(params, cfg, tokens, ctx=None):
     """tokens [B, S] -> [B, S, d]; with K codebooks tokens [B, S, K] and
     the K embeddings summed in codebook order, as the JAX package sums
-    them."""
+    them.  Under a mesh whose tp axis splits the vocabulary, each rank
+    looks up the ids in its slice of rows, zeros the others, and the
+    ranks' rows are summed."""
     if cfg.num_codebooks > 1:
         return sum(params["embed"][k][tokens[..., k].long()]
                    for k in range(cfg.num_codebooks))
-    return params["embed"][tokens.long()]
+    emb = params["embed"]
+    if ctx is None or not tp_split(cfg.vocab_size, emb.shape[0], ctx,
+                                   "vocabulary"):
+        return emb[tokens.long()]
+    n = emb.shape[0]
+    ids = tokens.long() - tp_rank(ctx) * n
+    mine = (ids >= 0) & (ids < n)
+    rows = emb[torch.where(mine, ids, torch.zeros_like(ids))]
+    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return tp_all_reduce(rows, ctx)
 
 
-def lm_head(params, cfg, x):
-    """[B, S, d] -> logits [B, S, V] (K codebooks: [B, S, K, V])."""
+def lm_head(params, cfg, x, ctx=None):
+    """[B, S, d] -> logits [B, S, V] (K codebooks: [B, S, K, V]).  Under
+    a mesh whose tp axis splits the vocabulary each rank computes its
+    slice of the logits (tied embeddings: its rows of ``embed``), and
+    the whole logits are put back together on every rank."""
     if cfg.num_codebooks > 1:
         w = params["embed"].transpose(1, 2) if cfg.tie_embeddings \
             else params["lm_head"]
         return torch.stack([dot(x, w[k]) for k in range(cfg.num_codebooks)],
                            dim=2)
-    if cfg.tie_embeddings:
-        return dot(x, params["embed"].T)
-    return dot(x, params["lm_head"])
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = dot(x, w)
+    if ctx is not None and tp_split(cfg.vocab_size, w.shape[1], ctx,
+                                    "vocabulary"):
+        logits = tp_all_gather(logits, ctx, dim=-1)
+    return logits
 
 
-def _ffn_residual(block, cfg, x):
+def _mlp_width(cfg) -> int:
+    """The width of an attention layer's MLP (as ``init_params`` draws
+    it)."""
+    return cfg.moe.d_ff_dense if cfg.moe is not None \
+        and cfg.moe.d_ff_dense else cfg.d_ff
+
+
+def _ffn_residual(block, cfg, x, ctx=None):
     """(x + the block's FFN of its normed input, the MoE load-balance
     loss).  The FFN is the MLP, or the MoE on an MoE layer; the loss is
     0.0 on an MLP layer (the decode paths drop it, as the JAX package
     does)."""
     y = apply_norm(x, block["mlp_norm"], cfg)
     if "moe" in block:
-        y, loss = moe_ffn(block["moe"], cfg, y)
+        y, loss = moe_ffn(block["moe"], cfg, y, ctx)
     else:
-        y, loss = apply_mlp(y, block["mlp"], cfg), 0.0
+        y, loss = apply_mlp(y, block["mlp"], cfg, ctx, _mlp_width(cfg)), 0.0
     return x + y, loss
 
 
-def _attn_block_full(block, cfg, x, positions):
+def _attn_block_full(block, cfg, x, positions, ctx=None):
     """Returns (x, the layer's cache entries, the MoE load-balance loss or
     0.0)."""
-    h, kv_out = (attn.mla_full if cfg.mla is not None else attn.gqa_full)(
-        block["attn"], cfg, apply_norm(x, block["attn_norm"], cfg),
-        positions)
-    x, loss = _ffn_residual(block, cfg, x + h)
+    xin = apply_norm(x, block["attn_norm"], cfg)
+    if cfg.mla is not None:
+        h, kv_out = attn.mla_full(block["attn"], cfg, xin, positions)
+    else:
+        h, kv_out = attn.gqa_full(block["attn"], cfg, xin, positions, ctx)
+    x, loss = _ffn_residual(block, cfg, x + h, ctx)
     return x, kv_out, loss
 
 
@@ -197,7 +254,7 @@ def _remat_ssm(block, cfg, x):
 
 def forward_full(params, cfg: ModelConfig, *, tokens=None, embeds=None,
                  positions=None, cache=None, last_only: bool = False,
-                 remat: bool = False):
+                 remat: bool = False, ctx=None):
     """Train / prefill pass over a whole sequence. tokens: [B, S] ([B, S,
     K] with K codebooks), or ``embeds`` [B, S, d]; ``positions`` [B, S]
     ([B, S, 3] M-RoPE ids), by default 0..S-1.
@@ -214,12 +271,17 @@ def forward_full(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     aux) — ``aux`` is the
     MoE load-balance loss summed over the layers and divided by the
     number of attention layers, as in the JAX package (0.0 for models
-    without MoE layers)."""
+    without MoE layers).  ``ctx``: run as one rank of a mesh (module
+    docstring); not with ``remat``."""
     if remat and cache is not None:
         raise ValueError("remat recomputes layers in the backward pass and "
                          "cannot write a cache")
+    check_mesh_ported(cfg, ctx)
+    if remat and ctx is not None:
+        raise NotImplementedError("training under a mesh is not ported yet "
+                                  "(ROADMAP M11b)")
     x = embeds if embeds is not None else embed_tokens(params, cfg,
-                                                          tokens)
+                                                          tokens, ctx)
     b, s = x.shape[0], x.shape[1]
     if positions is None:
         positions = _default_positions(cfg, b, s, 0, x.device)
@@ -238,14 +300,14 @@ def forward_full(params, cfg: ModelConfig, *, tokens=None, embeds=None,
             x, aux = checkpoint(_remat_layer, block, cfg, x, positions,
                                 use_reentrant=False)
         else:
-            x, kv_out, aux = _attn_block_full(block, cfg, x, positions)
+            x, kv_out, aux = _attn_block_full(block, cfg, x, positions, ctx)
             if cache is not None:
                 write_prefill(cache, i, kv_out, cfg)
         aux_total = aux_total + aux
     if last_only:
         x = x[:, -1:]
     x = apply_norm(x, params["final_norm"], cfg)
-    logits = lm_head(params, cfg, x)
+    logits = lm_head(params, cfg, x, ctx)
     if cache is not None:
         cache["pos"] += s
     return logits, cache, aux_total / max(1, len(cfg.attn_layers))
@@ -338,7 +400,8 @@ def forward_chunk(params, cfg: ModelConfig, *, tokens=None, embeds=None,
 
 
 def forward_decode_paged(params, cfg: ModelConfig, *, tokens=None,
-                         embeds=None, positions=None, cache, active=None):
+                         embeds=None, positions=None, cache, active=None,
+                         ctx=None):
     """One-token decode step for every slot. tokens: [B, 1].
 
     New K/V are written in place into the pages (an inactive slot's
@@ -348,9 +411,11 @@ def forward_decode_paged(params, cfg: ModelConfig, *, tokens=None,
     when given ([B] bool: the JAX engine's ``where`` freeze).  Returns
     (logits [B, 1, V], new_cache) where ``new_cache`` shares the page
     tensors and carries ``pos + 1`` for every slot (the engine keeps the
-    old ``pos`` of inactive slots, as the JAX engine does)."""
+    old ``pos`` of inactive slots, as the JAX engine does).  ``ctx``: one
+    rank of a mesh (module docstring)."""
+    check_mesh_ported(cfg, ctx)
     x = embeds if embeds is not None else embed_tokens(params, cfg,
-                                                          tokens)
+                                                          tokens, ctx)
     b = x.shape[0]
     cache_pos = cache["pos"]
     block_tables = cache["block_tables"]
@@ -362,29 +427,35 @@ def forward_decode_paged(params, cfg: ModelConfig, *, tokens=None,
             x = _ssm_block_decode(block, cfg, x, layer_cache, active)
             continue
         xin = apply_norm(x, block["attn_norm"], cfg)
-        h, _ = (attn.mla_decode_paged if cfg.mla is not None else
-                attn.gqa_decode_paged)(block["attn"], cfg, xin, positions,
-                                       layer_cache, block_tables, cache_pos)
-        x = _ffn_residual(block, cfg, x + h)[0]
+        if cfg.mla is not None:
+            h, _ = attn.mla_decode_paged(block["attn"], cfg, xin, positions,
+                                         layer_cache, block_tables,
+                                         cache_pos)
+        else:
+            h, _ = attn.gqa_decode_paged(block["attn"], cfg, xin, positions,
+                                         layer_cache, block_tables,
+                                         cache_pos, ctx)
+        x = _ffn_residual(block, cfg, x + h, ctx)[0]
     x = apply_norm(x, params["final_norm"], cfg)
-    return lm_head(params, cfg, x), {"pos": cache_pos + 1,
+    return lm_head(params, cfg, x, ctx), {"pos": cache_pos + 1,
                                      "block_tables": block_tables,
                                      "layers": cache["layers"]}
 
 
 def forward_prefill_paged(params, cfg: ModelConfig, *, tokens=None,
                           embeds=None, positions=None, cache, slot: int = 0,
-                          length: Optional[int] = None):
+                          length: Optional[int] = None, ctx=None):
     """Whole-prompt prefill of ONE request written in place into
     ``slot``'s pages (an O(prompt) scatter per layer through the slot's
     block table; padded positions land on the null page).  An SSM layer
     runs from zero state over all ``Lpad`` rows (the engine prefills SSM
     archs at exact length) and writes its final state into the slot.
 
-    tokens: [1, Lpad]; ``length``: actual prompt length.  Returns
-    (last-token logits [V], cache)."""
+    tokens: [1, Lpad]; ``length``: actual prompt length; ``ctx``: one
+    rank of a mesh.  Returns (last-token logits [V], cache)."""
+    check_mesh_ported(cfg, ctx)
     x = embeds if embeds is not None else embed_tokens(params, cfg,
-                                                          tokens)
+                                                          tokens, ctx)
     b, s = x.shape[0], x.shape[1]
     if length is None:
         length = s
@@ -395,17 +466,17 @@ def forward_prefill_paged(params, cfg: ModelConfig, *, tokens=None,
         if kind == SSM:
             x, kv_out = _ssm_block_full(block, cfg, x)
         else:
-            x, kv_out, _ = _attn_block_full(block, cfg, x, positions)
+            x, kv_out, _ = _attn_block_full(block, cfg, x, positions, ctx)
         write_prefill_paged(cache, i, kv_out, cfg, slot, length)
     x = apply_norm(x[:, length - 1:length], params["final_norm"], cfg)
-    logits = lm_head(params, cfg, x)
+    logits = lm_head(params, cfg, x, ctx)
     cache["pos"][slot] = length
     return logits[0, 0], cache
 
 
 def forward_chunk_paged(params, cfg: ModelConfig, *, tokens=None,
                         embeds=None, cache, slot: int = 0,
-                        length: Optional[int] = None):
+                        length: Optional[int] = None, ctx=None):
     """Chunked-prefill step for ONE slot against the paged pool
     (Sarathi-style): the chunk attends to the slot's gathered pages plus
     itself, then is scattered into its pages in place.
@@ -417,11 +488,12 @@ def forward_chunk_paged(params, cfg: ModelConfig, *, tokens=None,
     bucket — padded rows are never written to pages and never attended
     by valid queries.  An SSM layer runs all C rows, padded ones
     included, from the slot's own conv and recurrent state and writes
-    the result back into the slot, as the JAX package does.  Returns
-    (valid-final logits [1,1,V], cache)."""
+    the result back into the slot, as the JAX package does.  ``ctx``:
+    one rank of a mesh.  Returns (valid-final logits [1,1,V], cache)."""
     _refuse_mla_chunk(cfg)
+    check_mesh_ported(cfg, ctx)
     x = embeds if embeds is not None else embed_tokens(params, cfg,
-                                                          tokens)
+                                                          tokens, ctx)
     b, c = x.shape[0], x.shape[1]
     if length is None:
         length = c
@@ -441,9 +513,10 @@ def forward_chunk_paged(params, cfg: ModelConfig, *, tokens=None,
             continue
         xin = apply_norm(x, block["attn_norm"], cfg)
         h, _ = attn.gqa_continue_paged(block["attn"], cfg, xin, positions,
-                                       layer_cache, bt, pos0, n=length)
-        x = _ffn_residual(block, cfg, x + h)[0]
+                                       layer_cache, bt, pos0, n=length,
+                                       ctx=ctx)
+        x = _ffn_residual(block, cfg, x + h, ctx)[0]
     x = apply_norm(x[:, length - 1:length], params["final_norm"], cfg)
-    logits = lm_head(params, cfg, x)
+    logits = lm_head(params, cfg, x, ctx)
     cache["pos"][slot] += length
     return logits, cache

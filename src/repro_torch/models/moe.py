@@ -1,5 +1,5 @@
 """Mixture-of-Experts FFN: a token-choice top-k router over stacked expert
-weights (counterpart of ``src/repro/models/moe.py``, single device).
+weights (counterpart of ``src/repro/models/moe.py``).
 
 Token-expert pairs are sorted stably by expert id and run through three
 grouped products (:func:`repro_torch.kernels.ops.ragged_dot`, the
@@ -17,17 +17,47 @@ nothing back.
 router probabilities differently; at seeded random weights no two
 float32 probabilities of a token tie, and the tests use such weights.
 
-Not ported yet (ROADMAP M11): the ``ShardingCtx`` / ``shard_map``
-branches of ``moe_ffn`` and the expert-parallel ``_local_moe_ep``, which
-need a device mesh.
+Under a mesh (a :class:`ShardingCtx`) ``moe_ffn`` takes the reference's
+two branches, each rank a process:
+
+* **expert parallel** (``ctx.expert_parallel`` and the experts divide the
+  tp axis): a rank holds ``E/tp`` experts, routes every token against the
+  whole router and runs only the pairs its experts own
+  (:func:`_local_moe_ep`; the other pairs are absorbed: their rows come
+  out zero), and one ``all_reduce`` sums the ranks' outputs;
+* **baseline**: each rank holds every expert (the reference's
+  ``shard_map`` gathers them to every device), takes its slice of the
+  sequence where ``s > 1`` divides the tp axis, and the slices are put
+  back together on every rank; the load-balance loss is then the mean of
+  the slices' losses, as the reference's ``pmean``.
+
+The shared experts are an MLP split like any other (columns of
+``w_gate``/``w_up``, rows of ``w_down``, then the sum).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dot, normal
+from repro_torch.models.layers import (normal, swiglu, tp_all_gather,
+                                       tp_all_reduce, tp_rank, tp_size,
+                                       tp_split)
+
+
+class ShardingCtx(NamedTuple):
+    """Mesh context threaded through the model's forward passes (the
+    reference's fields; ``mesh`` is a :class:`repro_torch.launch.mesh.Mesh`
+    holding this rank's coordinates and process groups)."""
+    mesh: object
+    dp_axes: tuple = ("data",)         # axes sharding the batch
+    tp_axis: str = "model"             # axis sharding heads/ffn/experts
+    seq_shard: bool = True             # shard seq over tp_axis inside MoE
+    expert_parallel: bool = False      # expert-parallel MoE (summed)
+    attn_sharding: str = "none"        # "auto": sequence-parallel attention
+    fsdp_axes: tuple = ()              # axes the weights are fsdp-sharded on
 
 
 def init_moe(cfg, dtype: torch.dtype, device: torch.device,
@@ -51,32 +81,78 @@ def init_moe(cfg, dtype: torch.dtype, device: torch.device,
     return p
 
 
-def _local_moe(x2d, router, w_gate, w_up, w_down, top_k: int):
-    """Token-choice top-k MoE over a slab of tokens.  x2d: [T, d].
-    Returns ([T, d] in x2d's dtype, router probabilities [T, E] f32)."""
-    t, d = x2d.shape
-    n_experts = router.shape[1]
+def _route(x2d, router, top_k: int):
+    """Router probabilities [T, E] f32 and each token's top-k experts
+    with their renormalized gates ([T, k] each)."""
     probs = torch.softmax(x2d.float() @ router, dim=-1)        # [T, E]
     gate_vals, expert_idx = torch.topk(probs, top_k, dim=-1)   # [T, k]
-    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    return probs, gate_vals / gate_vals.sum(dim=-1, keepdim=True), \
+        expert_idx
 
-    flat_expert = expert_idx.reshape(-1)                       # [T*k]
-    order = torch.argsort(flat_expert, stable=True)
+
+def _experts(x2d, sort_key, n_groups: int, w_gate, w_up, w_down,
+             top_k: int, keep=None):
+    """The (token, choice) pairs sorted stably by ``sort_key`` ([T*k];
+    pairs keyed ``n_groups`` or more sort last and belong to no group)
+    through the three grouped products.  Returns [T*k, d] in pair
+    order; the rows of pairs where ``keep`` ([T*k] bool) is False are
+    zero."""
+    order = torch.argsort(sort_key, stable=True)
     xs = x2d[order // top_k]                                   # [T*k, d]
-    group_sizes = (flat_expert[:, None] == torch.arange(
-        n_experts, device=x2d.device)).sum(0, dtype=torch.int32)
-
+    group_sizes = (sort_key[:, None] == torch.arange(
+        n_groups, device=x2d.device)).sum(0, dtype=torch.int32)
     g = ops.ragged_dot(xs, w_gate, group_sizes)
     u = ops.ragged_dot(xs, w_up, group_sizes)
     y = ops.ragged_dot(F.silu(g) * u, w_down, group_sizes)    # [T*k, d]
-
     # row r of y is pair order[r]: back to (token, choice) order (each
     # row written once, so no order of writes matters)
     pairs = torch.empty_like(y)
     pairs[order] = y
+    if keep is not None:
+        # rows past the last group are not computed by the grouped
+        # product on the card: select, never multiply, them away
+        pairs = torch.where(keep[:, None], pairs, torch.zeros_like(pairs))
+    return pairs
+
+
+def _combine(pairs, gate_vals, t: int, top_k: int, dtype):
+    """Each token's k outputs weighted by its gates, summed over k in a
+    fixed order (no atomics)."""
+    d = pairs.shape[-1]
     out = (pairs.reshape(t, top_k, d)
-           * gate_vals.to(y.dtype)[..., None]).sum(dim=1)
-    return out.to(x2d.dtype), probs
+           * gate_vals.to(pairs.dtype)[..., None]).sum(dim=1)
+    return out.to(dtype)
+
+
+def _local_moe(x2d, router, w_gate, w_up, w_down, top_k: int):
+    """Token-choice top-k MoE over a slab of tokens.  x2d: [T, d].
+    Returns ([T, d] in x2d's dtype, router probabilities [T, E] f32)."""
+    t = x2d.shape[0]
+    probs, gate_vals, expert_idx = _route(x2d, router, top_k)
+    pairs = _experts(x2d, expert_idx.reshape(-1), router.shape[1], w_gate,
+                     w_up, w_down, top_k)
+    return _combine(pairs, gate_vals, t, top_k, x2d.dtype), probs
+
+
+def _local_moe_ep(x2d, router, w_gate, w_up, w_down, top_k: int, ctx):
+    """Expert-parallel MoE on one rank: every token routed against the
+    whole router, only the pairs owned by this rank's ``E_local =
+    w_gate.shape[0]`` experts run (the rest sort past the last group
+    and come out zero, where the reference absorbs them into a zero
+    dummy expert), and the ranks' outputs are summed over the tp group.
+    Returns ([T, d], router probabilities [T, E] f32)."""
+    t = x2d.shape[0]
+    e_local = w_gate.shape[0]
+    lo = tp_rank(ctx) * e_local
+    probs, gate_vals, expert_idx = _route(x2d, router, top_k)
+    local_id = expert_idx.reshape(-1) - lo                     # [T*k]
+    in_range = (local_id >= 0) & (local_id < e_local)
+    sort_key = torch.where(in_range, local_id,
+                           torch.full_like(local_id, e_local))
+    pairs = _experts(x2d, sort_key, e_local, w_gate, w_up, w_down, top_k,
+                     keep=in_range)
+    out = _combine(pairs, gate_vals, t, top_k, x2d.dtype)
+    return tp_all_reduce(out, ctx), probs
 
 
 def load_balance_loss(probs, expert_idx_probs, top_k: int):
@@ -90,18 +166,47 @@ def load_balance_loss(probs, expert_idx_probs, top_k: int):
     return n_experts * torch.sum(hard.float().mean(dim=0) * p_mean)
 
 
-def moe_ffn(params, cfg, x):
+def moe_ffn(params, cfg, x, ctx=None):
     """MoE FFN over x [B, S, D], shared experts included.  Returns (out,
-    the load-balance loss as a float32 0-d tensor)."""
+    the load-balance loss as a float32 0-d tensor).  With a ``ctx`` of
+    tp > 1, the expert-parallel or the baseline branch (module
+    docstring)."""
     e = cfg.moe
     b, s, d = x.shape
-    out, probs = _local_moe(x.reshape(b * s, d), params["router"],
-                            params["w_gate"], params["w_up"],
-                            params["w_down"], e.top_k)
-    out = out.reshape(b, s, d)
-    loss = load_balance_loss(probs, None, e.top_k)
+    tp = tp_size(ctx)
+    wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
+    if tp > 1 and ctx.expert_parallel and e.num_experts % tp == 0:
+        tp_split(e.num_experts, wg.shape[0], ctx, "experts")
+        out, probs = _local_moe_ep(x.reshape(b * s, d), params["router"],
+                                   wg, wu, wd, e.top_k, ctx)
+        out = out.reshape(b, s, d)
+        loss = load_balance_loss(probs, None, e.top_k)
+    elif tp > 1 and ctx.seq_shard and s > 1 and s % tp == 0:
+        if wg.shape[0] != e.num_experts:
+            raise ValueError("the baseline MoE branch runs every expert on "
+                             f"every rank; this rank holds {wg.shape[0]} "
+                             f"of {e.num_experts}")
+        n = s // tp
+        xs = x[:, tp_rank(ctx) * n:(tp_rank(ctx) + 1) * n]
+        out, probs = _local_moe(xs.reshape(b * n, d), params["router"], wg,
+                                wu, wd, e.top_k)
+        out = tp_all_gather(out.reshape(b, n, d), ctx, dim=1)
+        loss = tp_all_reduce(load_balance_loss(probs, None, e.top_k),
+                             ctx) / tp
+    else:
+        # one token a slot (decode) or a length the tp axis does not
+        # divide: every rank runs every token, as the reference's
+        # shard_map does with an unsharded token axis
+        out, probs = _local_moe(x.reshape(b * s, d), params["router"], wg,
+                                wu, wd, e.top_k)
+        out = out.reshape(b, s, d)
+        loss = load_balance_loss(probs, None, e.top_k)
     if e.num_shared_experts:
         sh = params["shared"]
-        out = out + dot(F.silu(dot(x, sh["w_gate"])) * dot(x, sh["w_up"]),
-                        sh["w_down"])
+        y = swiglu(x, sh["w_gate"], sh["w_up"], sh["w_down"])
+        if ctx is not None and tp_split(
+                e.d_ff_expert * e.num_shared_experts, sh["w_down"].shape[0],
+                ctx, "shared experts"):
+            y = tp_all_reduce(y, ctx)
+        out = out + y
     return out, loss

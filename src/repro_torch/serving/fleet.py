@@ -82,6 +82,12 @@ class EngineFleet:
                  discipline=None, overlap: bool = True, **mapper_kw):
         if not engines:
             raise ValueError("EngineFleet needs at least one engine")
+        if any(eng.mesh is not None and eng.mesh.size > 1
+               for eng in engines):
+            # each engine's other ranks follow it alone, in a loop of
+            # their own: a fleet of mesh engines needs a rank per engine
+            raise NotImplementedError("a fleet of tensor-parallel engines "
+                                      "is not ported yet (ROADMAP M11b)")
         self.loops: List[ServeLoop] = [
             ServeLoop(eng, policy, model=model, discipline=discipline,
                       overlap=overlap, id_base=i * _ID_STRIDE)

@@ -31,7 +31,7 @@ sys.exit(1 if bad else 0)
 # Mamba2 block and the SSD scan kernel's wrapper; the streaming serving
 # loop, the fleet, their streams and metrics, trace replay, the serve
 # launcher; the batched annealer and its kernel's wrapper; the MoE FFN
-# and its grouped product)
+# and its grouped product; the device mesh and the partition rules)
 NEW_MODULES = ("repro_torch.kernels.decode_attention",
                "repro_torch.kernels.decode_attention_q8",
                "repro_torch.kernels.decode_attention_paged",
@@ -50,7 +50,9 @@ NEW_MODULES = ("repro_torch.kernels.decode_attention",
                "repro_torch.launch.serve",
                "repro_torch.core.annealing_torch",
                "repro_torch.kernels.anneal",
-               "repro_torch.models.moe", "repro_torch.kernels.ragged_dot")
+               "repro_torch.models.moe", "repro_torch.kernels.ragged_dot",
+               "repro_torch.launch.mesh", "repro_torch.distributed",
+               "repro_torch.distributed.sharding")
 
 
 def test_import_loads_no_jax_and_no_reference():

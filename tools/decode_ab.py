@@ -2,12 +2,13 @@
 """A/B times of the port's kernels between two checkouts of this
 repository, on one NVIDIA GPU: the bf16 decode kernels (default), the
 int8 decode kernels (``--kernels q8``), the SSD chunk scan
-(``--kernels ssd``), its backward (``--kernels ssd_bwd``) or the batched
-annealer (``--kernels anneal``).
+(``--kernels ssd``), its backward (``--kernels ssd_bwd``), the batched
+annealer (``--kernels anneal``) or the engine's dispatched decode round
+(``--kernels round``).
 
     git archive <commit> | tar -x -C build/other
     python3 tools/decode_ab.py build/other \
-        [--kernels q8|ssd|ssd_bwd|anneal] [--out ab.json]
+        [--kernels q8|ssd|ssd_bwd|anneal|round] [--turns N] [--out ab.json]
 
 ``decode``: the paged decode (``decode_attention_paged``, K1) and the
 dense decode (``decode_attention``, K6) at the serve shape (Qwen2.5-7B
@@ -29,10 +30,20 @@ batched-annealer kernel (``anneal_chains_cuda``) at ``chip_smoke.py``'s
 ``ANNEAL_BENCH`` and ``ANNEAL_FLOOR`` shapes (N 64 / 128 / 256 x 8
 chains, 4 instances x 64 x 2 chains, N 8 x 8 chains; max_batch 8,
 contended SLOs, 100 proposals a level: 6300 a chain), incremental, and
-N 64 on the full path too, with ms a call and us a proposal.  Through each
+N 64 on the full path too, with ms a call and us a proposal.  ``round``:
+the host side of the serving loop's decode round, ``Engine.
+dispatch_decode`` on one card, no mesh: Qwen2.5-7B at the stream
+phase's depth (7 of 28 layers, published widths, bf16 random weights
+from seed 0), the stream phase's paged pool (64 slots x 4096 tokens),
+ROUND_WIDTH active slots chained ROUND_N rounds (each round's ids feed
+the next, nothing read back), ROUND_CHAINS chains; ``dispatch_ms``, the
+host clock around each ``dispatch_decode`` call (the loop's
+``dispatch_ms_per_round``), and ``round_ms``, the host clock over a
+chain and one synchronize, a round: the median chain's, and the
+fastest chain's (``_min``).  Through each
 checkout's own wrappers, each building its kernels in its own
 ``build/``.  Runs in turns: the other checkout, this one, this one, the
-other, each in a process of its own.  Every kernel time is given twice:
+other (``--turns`` times over), each in a process of its own.  Every kernel time is given twice:
 ``eager_ms``, CUDA events around back-to-back calls (the host's
 dispatch lands on the clock when it is slower than the card), and
 ``device_ms``, CUDA events around replays of a CUDA graph of captured
@@ -59,6 +70,8 @@ SSD_SHAPES = (("B1 S96", 1, 96, False, 50),
 # the SSD backward's shapes: (label, nh, ds) at B4 S2048, hd 64
 SSD_BWD_SHAPES = (("mamba2 B4 S2048", 48, 128), ("zamba2 B4 S2048", 64, 64))
 PROMPT = 2048
+# the decode round's chain: active slots (a pow-2 width) and rounds
+ROUND_WIDTH, ROUND_N, ROUND_CHAINS = 32, 100, 5
 
 
 def _inputs(paged: bool, b: int, lengths, L: int):
@@ -262,8 +275,54 @@ def anneal_worker(tree: str) -> dict:
     return out
 
 
+def round_worker(tree: str) -> dict:
+    import dataclasses
+
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.join(tree, "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.engine.engine import Engine
+    from repro_torch.kernels import _build
+    from repro_torch.models.model import init_params
+    _build.build(["decode_attention_paged", "flash_attention"])
+    cfg = dataclasses.replace(get_config("qwen2.5-7b"), num_layers=7,
+                              layer_pattern=())
+    params = init_params(cfg, seed=0, device="cuda")
+    eng = Engine(cfg, params, max_slots=64, max_seq_len=4096,
+                 device="cuda")
+    active = np.zeros(64, dtype=bool)
+    active[:ROUND_WIDTH] = True
+    feed = torch.zeros((64, 1), dtype=torch.int32, device="cuda")
+    out = {"tree": tree}
+    chains = []
+    with torch.no_grad():
+        for _ in range(3):                   # warm-up, then the timed chains
+            feed[:ROUND_WIDTH, 0] = eng.dispatch_decode(feed, active,
+                                                        ROUND_WIDTH)
+        for _ in range(ROUND_CHAINS):
+            torch.cuda.synchronize()
+            spent = 0.0
+            t0 = time.perf_counter()
+            for _ in range(ROUND_N):
+                t = time.perf_counter()
+                ids = eng.dispatch_decode(feed, active, ROUND_WIDTH)
+                spent += time.perf_counter() - t
+                feed[:ROUND_WIDTH, 0] = ids
+            torch.cuda.synchronize()
+            chains.append((spent * 1e3 / ROUND_N,
+                           (time.perf_counter() - t0) * 1e3 / ROUND_N))
+    spent, wall = zip(*chains)
+    out[f"decode round qwen2.5-7b 7 layers width {ROUND_WIDTH}"] = {
+        "dispatch_ms": statistics.median(spent),
+        "dispatch_ms_min": min(spent),
+        "round_ms": statistics.median(wall), "round_ms_min": min(wall)}
+    return out
+
+
 WORKERS = {"decode": decode_worker, "q8": q8_worker, "ssd": ssd_worker,
-           "ssd_bwd": ssd_bwd_worker, "anneal": anneal_worker}
+           "ssd_bwd": ssd_bwd_worker, "anneal": anneal_worker,
+           "round": round_worker}
 
 
 def main(argv=None) -> int:
@@ -273,6 +332,8 @@ def main(argv=None) -> int:
                     help="which kernels to time")
     ap.add_argument("--worker", action="store_true",
                     help="time the checkout given as `other` and exit")
+    ap.add_argument("--turns", type=int, default=1,
+                    help="repeat the four runs (other, this, this, other)")
     ap.add_argument("--out", default=None, help="write the runs here")
     args = ap.parse_args(argv)
     import torch
@@ -289,7 +350,7 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     other = os.path.abspath(args.other)
     runs = []
-    for tree in (other, HERE, HERE, other):
+    for tree in (other, HERE, HERE, other) * args.turns:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), tree, "--worker",
              "--kernels", args.kernels],
