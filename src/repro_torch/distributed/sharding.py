@@ -245,6 +245,13 @@ def _paged_cache_specs(cache_shapes, mesh, par: ParallelismConfig):
             "layers": [layer_spec(lyr) for lyr in cache_shapes["layers"]]}
 
 
+def input_sharding(cfg: ModelConfig, mesh, par: ParallelismConfig,
+                   batch: int):
+    """The spec entry of a batch dim: the data axes where they divide
+    ``batch``, else None (whole on every rank)."""
+    return par.dp_axes if _div(batch, mesh, par.dp_axes) else None
+
+
 def make_ctx(mesh, par: ParallelismConfig) -> ShardingCtx:
     return ShardingCtx(mesh=mesh, dp_axes=par.dp_axes, tp_axis=par.tp_axis,
                        expert_parallel=par.expert_parallel,
@@ -266,7 +273,14 @@ def placement_specs(specs, cfg: ModelConfig, mesh, par: ParallelismConfig):
       q heads alone would leave each rank a few kv heads inside whole
       pages, which the paged kernels take only as a contiguous pool (a
       copy of it a layer).  Where both head counts divide, the rules
-      already split whole heads.
+      already split whole heads.  MLA likewise: where its heads divide
+      the tp axis the rules split ``wq``'s, ``w_uk``'s and ``w_uv``'s
+      columns and ``wo``'s rows by whole heads and keep the latent's
+      weights (``w_dkv``, ``w_krope``, ``kv_norm``) whole; where they do
+      not, the rules may still cut ``h * (nope + rope)`` columns
+      mid-head, and the block runs replicated.  A hybrid's
+      ``shared_block`` is placed as any GQA block; its SSM blocks are
+      FSDP-only in the rules, so whole on every rank without FSDP.
     * MoE without expert parallelism: the reference's ``shard_map``
       gathers every expert to every device at each call (``in_specs``
       ``P()``); each rank holds them whole instead, gathered once."""

@@ -59,15 +59,18 @@ stream without any read back to the host, so the loop can schedule the
 next tick while the card computes.
 
 **Tensor parallel** (``mesh=``, a rank's
-:class:`~repro_torch.launch.mesh.Mesh`; paged layout, GQA archs with or
-without MoE): one process per rank, each holding its slice of the params
+:class:`~repro_torch.launch.mesh.Mesh`; the paged layout, so every arch
+with attention layers: GQA or MLA, MLP or MoE FFN, and hybrids): one
+process per rank, each holding its slice of the params
 (``distributed.sharding``: ``param_specs`` adjusted by
 ``placement_specs``) and of the page arrays (``[N, P, kv/tp, hd]``), so
 the hand-written paged kernels run unchanged on each rank's whole kv
-heads.  Rank 0 alone owns the host side, which decides by the clock
-(the block pool, the prefix index, the profiler, any policy or loop
-driving it); every other rank runs :meth:`Engine.follow`, which replays
-rank 0's device work in the same order: rank 0 sends, over the mesh's
+heads; MLA's latent pages and a hybrid's per-slot SSM state are whole on
+every rank, and every rank runs the SSM layers on them.  Rank 0 alone
+owns the host side, which decides by the clock (the block pool, the
+prefix index, the profiler, any policy or loop driving it); every other
+rank runs :meth:`Engine.follow`, which replays rank 0's device work in
+the same order: rank 0 sends, over the mesh's
 gloo control group, each device step (prefill, chunk, decode round,
 dispatched round, warm-up) together with the host-side writes queued
 since the last one (block-table rows, ``pos``, copy-on-write page
@@ -77,8 +80,12 @@ ids and the next round's inputs stay on the device; a dispatched round
 also broadcasts the caller's feed from rank 0 over the tp group, so the
 ranks decode the same tokens whoever wrote it.  Every collective has the
 mesh's timeout: ranks that disagree fail instead of hanging.  Rank 0
-calls :meth:`Engine.close` when done, which ends the other ranks'
-:meth:`Engine.follow`.
+calls :meth:`Engine.close` when done.  Several engines may share one
+mesh (an :class:`~repro_torch.serving.fleet.EngineFleet` on one tp
+group, the reference's layout): every rank builds them in the same order
+before rank 0 drives any, each step rank 0 sends names its engine, and
+one :meth:`Engine.follow` on each other rank replays the steps of every
+engine built on its mesh until rank 0 has closed each of them.
 """
 from __future__ import annotations
 
@@ -170,7 +177,8 @@ class Engine:
         ``(1, tp)``, from ``launch.mesh.make_host_mesh`` or ``spawn``)
         runs the engine tensor-parallel (module docstring): every rank
         builds it with the same arguments and the whole ``params`` (or
-        already its own slice); rank 0 then drives it and the others call
+        already its own slice: engines on one rank may share another
+        engine's ``params``); rank 0 then drives it and the others call
         :meth:`follow`.  Requires the paged layout, as the JAX engine
         does.  ``parallelism`` overrides the
         :class:`~repro_torch.distributed.sharding.ParallelismConfig`
@@ -272,6 +280,12 @@ class Engine:
         self._leader = mesh is None or mesh.rank == 0
         if mesh is None:
             return
+        # engines built on one mesh are numbered alike on every rank; a
+        # following rank keeps its own until rank 0 stops them
+        self._tag = mesh.engines_built
+        mesh.engines_built += 1
+        if not self._leader:
+            mesh.followers[self._tag] = self
         from repro_torch.distributed.sharding import (ParallelismConfig,
                                                       local_shape, make_ctx,
                                                       param_specs,
@@ -282,8 +296,8 @@ class Engine:
         if any(n != 1 for a, n in mesh.shape.items() if a != par.tp_axis):
             raise NotImplementedError(
                 f"mesh {mesh.shape}: an engine runs on one tp group; "
-                "data-parallel engines (a fleet of mesh engines) are "
-                "ROADMAP M11b")
+                "data-parallel engines (engines on different tp groups) "
+                "are ROADMAP M11b")
         self.parallelism = par
         self.ctx = make_ctx(mesh, par)
         check_mesh_ported(self.cfg, self.ctx)
@@ -301,9 +315,9 @@ class Engine:
                              f"rank's slice under {spec}")
         self.params = tree_map(place, self.params, full, specs)
 
-    def _send(self, ops):
+    def _send(self, msg):
         import torch.distributed as dist
-        dist.broadcast_object_list([ops], src=0,
+        dist.broadcast_object_list([msg], src=0,
                                    group=self.mesh.control_group)
 
     def _recv(self):
@@ -344,24 +358,31 @@ class Engine:
 
     def _flush(self):
         ops, self._queued = self._queued, []
-        self._send(ops)
+        self._send((self._tag, ops))
 
     @torch.no_grad()
     def follow(self):
         """The loop of a rank other than 0: replay rank 0's device steps
-        on this rank's shards until rank 0 calls :meth:`close`."""
+        on this rank's shards, for every engine built on this rank's
+        mesh (each message names its engine), until rank 0 has closed
+        each of them."""
         if self._leader:
             raise RuntimeError("rank 0 drives the engine; follow() is for "
                                "the other ranks of a mesh")
-        while True:
-            for name, args in self._recv():
+        engines = self.mesh.followers
+        while engines:
+            tag, ops = self._recv()
+            eng = engines[tag]
+            for name, args in ops:
                 if name == "stop":
-                    return
-                getattr(self, "_do_" + name)(*args)
+                    del engines[tag]
+                    break
+                getattr(eng, "_do_" + name)(*args)
 
     def close(self):
-        """On rank 0 of a mesh: end the other ranks' :meth:`follow`.
-        Elsewhere nothing."""
+        """On rank 0 of a mesh: stop this engine on the other ranks (their
+        :meth:`follow` returns once every engine of the mesh is
+        stopped).  Elsewhere nothing."""
         if self._peers:
             self._queued.append(("stop", ()))
             self._flush()

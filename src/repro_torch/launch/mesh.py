@@ -55,7 +55,10 @@ class Mesh:
     order.  A mesh made by :func:`make_production_mesh` is a shape only
     (``rank`` is None and it has no groups); one made by
     :func:`make_host_mesh` also holds this process's ``rank``,
-    ``coords`` (axis -> index), ``device`` and process groups."""
+    ``coords`` (axis -> index), ``device`` and process groups, and
+    counts the serving engines built on it (``engines_built``; on a
+    rank other than 0, ``followers`` maps each engine's number to the
+    engine until rank 0 stops it: ``Engine.follow``)."""
 
     def __init__(self, shape: Dict[str, int], *, rank: Optional[int] = None,
                  device=None, groups: Optional[Dict[str, object]] = None,
@@ -69,6 +72,8 @@ class Mesh:
         self._groups = groups or {}
         self.control_group = control_group
         self.timeout = timeout
+        self.engines_built = 0
+        self.followers: Dict[int, object] = {}
 
     def group(self, axis: str):
         """The process group over ``axis`` that holds this rank."""

@@ -39,7 +39,12 @@ Pallas kernel: ``mla_full`` expands the latent and attends over q·k of
 width nope + rope (192 at the published width, which the flash kernel
 does not take); ``mla_decode`` / ``mla_decode_paged`` attend in the
 latent space with ``w_uk`` absorbed into q, in float32 over the dense
-ring or the gathered live pages.
+ring or the gathered live pages.  Under a mesh every rank projects and
+writes the same whole latent (``w_dkv``, ``w_krope`` and the latent
+pages are whole on every rank), and computes ``nh/tp`` heads where the
+heads divide the tp axis (:func:`_mla_heads`): its columns of ``wq``,
+``w_uk`` and ``w_uv`` and its rows of ``wo``, summed over the ranks;
+elsewhere the block runs replicated.
 """
 from __future__ import annotations
 
@@ -449,14 +454,39 @@ def init_mla(cfg, dtype: torch.dtype, device: torch.device,
                               device=device)}
 
 
-def _mla_project(params, cfg, x, positions):
-    """q split into its no-rope and rope parts ([B,S,h,nope] and
-    [B,S,h,rope_d], RoPE applied), the normed latent c_kv [B,S,rank] and
-    the shared rope key k_pe [B,S,rope_d]."""
+def _mla_heads(params, cfg, ctx):
+    """(heads, split) this rank computes: ``nh/tp`` where the heads
+    divide the tp axis (``split``), else all of them.  Checks that the
+    rank's ``wq``, ``w_uk``, ``w_uv`` and ``wo`` hold exactly those
+    heads.  Without a mesh, every head, unchecked."""
+    h = cfg.num_heads
+    if ctx is None:
+        return h, False
+    m = cfg.mla
+    tp = tp_size(ctx)
+    split = heads_split(cfg, tp)
+    if split:
+        h //= tp
+    shapes = (params["wq"].shape[1], params["w_uk"].shape[1],
+              params["w_uv"].shape[1], params["wo"].shape[0])
+    want = (h * (m.qk_nope_head_dim + m.qk_rope_head_dim),
+            h * m.qk_nope_head_dim, h * m.v_head_dim, h * m.v_head_dim)
+    if shapes != want:
+        raise ValueError(f"MLA weights {shapes} do not hold {h} heads "
+                         f"(tp {tp}): want {want}")
+    return h, split
+
+
+def _mla_project(params, cfg, x, positions, h=None):
+    """q over ``h`` heads (default all of them) split into its no-rope
+    and rope parts ([B,S,h,nope] and [B,S,h,rope_d], RoPE applied), the
+    normed latent c_kv [B,S,rank] and the shared rope key k_pe
+    [B,S,rope_d]."""
     m = cfg.mla
     b, s, _ = x.shape
     nope, rope_d = m.qk_nope_head_dim, m.qk_rope_head_dim
-    q = dot(x, params["wq"]).reshape(b, s, cfg.num_heads, nope + rope_d)
+    q = dot(x, params["wq"]).reshape(b, s, h or cfg.num_heads,
+                                     nope + rope_d)
     c_kv = rmsnorm(dot(x, params["w_dkv"]), params["kv_norm"], cfg.norm_eps)
     k_pe = dot(x, params["w_krope"]).reshape(b, s, 1, rope_d)
     cos, sin = rope_cos_sin(positions, rope_d, cfg.rope_theta)
@@ -464,15 +494,15 @@ def _mla_project(params, cfg, x, positions):
             apply_rope(k_pe, cos, sin)[:, :, 0])
 
 
-def mla_full(params, cfg, x, positions):
-    """MLA prefill / train: expand the latent and run causal attention.
-    Returns (out [B,S,D], (c_kv [B,S,rank], k_pe [B,S,rope_d])) for
-    cache writing."""
+def mla_full(params, cfg, x, positions, ctx=None):
+    """MLA prefill / train: expand the latent and run causal attention
+    (under a mesh over this rank's heads).  Returns (out [B,S,D], (c_kv
+    [B,S,rank], k_pe [B,S,rope_d])) for cache writing."""
     m = cfg.mla
     b, s, _ = x.shape
-    h = cfg.num_heads
+    h, split = _mla_heads(params, cfg, ctx)
     nope, rope_d, vhd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
-    q_nope, q_pe, c_kv, k_pe = _mla_project(params, cfg, x, positions)
+    q_nope, q_pe, c_kv, k_pe = _mla_project(params, cfg, x, positions, h)
     k_nope = dot(c_kv, params["w_uk"]).reshape(b, s, h, nope)
     v = dot(c_kv, params["w_uv"]).reshape(b, s, h, vhd)
     # 1/sqrt(nope + rope_d) with the root rounded to x's dtype, as the
@@ -484,18 +514,20 @@ def mla_full(params, cfg, x, positions):
     probs = torch.softmax(scores.float().masked_fill(~mask, NEG_INF),
                           dim=-1).to(x.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, h * vhd)
-    return dot(out, params["wo"]), (c_kv, k_pe)
+    return _out_proj(params, out, ctx, split), (c_kv, k_pe)
 
 
-def _mla_attend(params, cfg, q_nope, q_pe, ckv, kpe, n_valid, dtype):
+def _mla_attend(params, cfg, q_nope, q_pe, ckv, kpe, n_valid, dtype,
+                ctx=None, split=False):
     """Absorbed one-token MLA attention over a latent view.
 
-    q_nope [B,h,nope], q_pe [B,h,rope_d]; ckv [B,L,rank], kpe
-    [B,L,rope_d]; the first ``n_valid`` [B] slots attend.
+    q_nope [B,h,nope], q_pe [B,h,rope_d] (h: this rank's heads); ckv
+    [B,L,rank], kpe [B,L,rope_d]; the first ``n_valid`` [B] slots attend.
     score_l = (q_nope · W_uk) · c_l + q_pe · kpe_l, in float32;
-    out = (Σ p_l c_l) · W_uv.  Returns [B, 1, D]."""
+    out = (Σ p_l c_l) · W_uv, then ``wo`` (summed over the ranks when
+    the heads are ``split``).  Returns [B, 1, D]."""
     m = cfg.mla
-    b, h = q_nope.shape[0], cfg.num_heads
+    b, h = q_nope.shape[:2]
     nope, rope_d, vhd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
     rank = m.kv_lora_rank
     L = ckv.shape[1]
@@ -509,35 +541,36 @@ def _mla_attend(params, cfg, q_nope, q_pe, ckv, kpe, n_valid, dtype):
         < n_valid.long()[:, None]
     probs = torch.softmax(scores.masked_fill(~valid[:, None, :], NEG_INF),
                           dim=-1)
-    ctx = torch.einsum("bhl,blr->bhr", probs, ckv).to(dtype)
-    out = torch.einsum("bhr,rhd->bhd", ctx,
+    lat = torch.einsum("bhl,blr->bhr", probs, ckv).to(dtype)
+    out = torch.einsum("bhr,rhd->bhd", lat,
                        params["w_uv"].reshape(rank, h, vhd))
-    return dot(out.reshape(b, 1, h * vhd), params["wo"])
+    return _out_proj(params, out.reshape(b, 1, h * vhd), ctx, split)
 
 
 def mla_decode(params, cfg, x, positions, layer_cache, cache_pos,
-               active=None):
+               active=None, ctx=None):
     """Absorbed MLA decode against the dense latent ring.
 
     x: [B, 1, D]; layer_cache: {"ckv": [B, L, rank], "kpe": [B, L,
     rope_d]}; cache_pos: [B].  The new latent token is written in place
     at slot ``pos % L`` (for ``active`` slots only when given), then
-    attends to the first ``min(pos+1, L)`` slots.  Returns (out
-    [B,1,D], layer_cache)."""
+    attends to the first ``min(pos+1, L)`` slots.  ``ctx``: one rank
+    of a mesh (module docstring).  Returns (out [B,1,D], layer_cache)."""
     b = x.shape[0]
     L = layer_cache["ckv"].shape[1]
-    q_nope, q_pe, c_kv, k_pe = _mla_project(params, cfg, x, positions)
+    h, split = _mla_heads(params, cfg, ctx)
+    q_nope, q_pe, c_kv, k_pe = _mla_project(params, cfg, x, positions, h)
     rows = torch.arange(b, device=x.device)
     _write_token(layer_cache, {"ckv": c_kv[:, 0], "kpe": k_pe[:, 0]},
                  (rows, torch.remainder(cache_pos.long(), L)), active)
     n_valid = torch.clamp(cache_pos + 1, max=L)
     return _mla_attend(params, cfg, q_nope[:, 0], q_pe[:, 0],
                        layer_cache["ckv"], layer_cache["kpe"], n_valid,
-                       x.dtype), layer_cache
+                       x.dtype, ctx, split), layer_cache
 
 
 def mla_decode_paged(params, cfg, x, positions, layer_cache, block_tables,
-                     cache_pos):
+                     cache_pos, ctx=None):
     """Absorbed MLA decode against the paged latent pool.
 
     layer_cache: {"ckv": [N, P, rank], "kpe": [N, P, rope_d]} pages.  The
@@ -545,10 +578,12 @@ def mla_decode_paged(params, cfg, x, positions, layer_cache, block_tables,
     whole logical ring is gathered (``[B, slot_len, rank + rope_d]``)
     and the dense absorbed math runs on it, as the JAX package does (the
     latent is too narrow for a per-kv-head kernel tile; paging buys MLA
-    capacity, not decode reads).  Returns (out [B,1,D], layer_cache)."""
+    capacity, not decode reads).  Under a mesh the pages hold the whole
+    latent on every rank.  Returns (out [B,1,D], layer_cache)."""
     P = layer_cache["ckv"].shape[1]
     L = block_tables.shape[1] * P
-    q_nope, q_pe, c_kv, k_pe = _mla_project(params, cfg, x, positions)
+    h, split = _mla_heads(params, cfg, ctx)
+    q_nope, q_pe, c_kv, k_pe = _mla_project(params, cfg, x, positions, h)
     widx = torch.remainder(cache_pos.long(), L)
     page_ids = torch.gather(block_tables.long(), 1,
                             (widx // P)[:, None])[:, 0]
@@ -559,4 +594,4 @@ def mla_decode_paged(params, cfg, x, positions, layer_cache, block_tables,
     return _mla_attend(params, cfg, q_nope[:, 0], q_pe[:, 0],
                        gather_pages(layer_cache["ckv"], block_tables),
                        gather_pages(layer_cache["kpe"], block_tables),
-                       n_valid, x.dtype), layer_cache
+                       n_valid, x.dtype, ctx, split), layer_cache

@@ -43,11 +43,16 @@ def tp_rank(ctx) -> int:
 
 
 def heads_split(cfg, tp: int) -> bool:
-    """Whether a tp-way mesh splits the attention heads over its ranks:
-    both the q and the kv heads must divide it (GQA only), so that each
-    rank's contiguous q heads are the groups of its whole kv heads."""
-    return (cfg.mla is None and tp > 1 and cfg.num_kv_heads >= tp
-            and cfg.num_heads % tp == 0 and cfg.num_kv_heads % tp == 0)
+    """Whether a tp-way mesh splits the attention heads over its ranks.
+    GQA: both the q and the kv heads must divide it, so that each rank's
+    contiguous q heads are the groups of its whole kv heads.  MLA: the
+    heads must divide it (each rank ``num_heads / tp`` of them); the
+    latent has no heads and stays whole."""
+    if tp <= 1 or cfg.num_heads < tp or cfg.num_heads % tp:
+        return False
+    if cfg.mla is not None:
+        return True
+    return cfg.num_kv_heads >= tp and cfg.num_kv_heads % tp == 0
 
 
 def tp_split(full: int, local: int, ctx, what: str = "dim") -> bool:

@@ -27,13 +27,15 @@ refuse them, as the JAX package asserts): the engine prefills them whole.
 ``forward_full`` and the three paged forwards take a ``ctx``
 (``ShardingCtx``) to run as one rank of a tensor-parallel mesh on that
 rank's slice of the params (``distributed.sharding.shard_params``) and
-pages: attention over its heads, the MLP's and MoE's splits
+pages: GQA or MLA attention over its heads (a hybrid's shared block
+too; MLA's latent whole on every rank), the MLP's and MoE's splits
 (:mod:`repro_torch.models.layers`, :mod:`repro_torch.models.moe`), a
 vocabulary-parallel embedding (rows outside the rank's slice masked, then
 summed) and head (each rank's vocabulary slice of the logits, put back
-together on every rank, so every rank samples the same token).  MLA,
-SSM and hybrid stacks and multi-codebook models have no mesh path yet and
-raise (ROADMAP M11b).
+together on every rank, so every rank samples the same token).  SSM
+layers run whole on every rank, on the same residual stream, so every
+rank holds the same per-slot state.  Multi-codebook models have no mesh
+path yet and raise (ROADMAP M11b).
 """
 from __future__ import annotations
 
@@ -123,18 +125,12 @@ def _blocks(params):
 
 def check_mesh_ported(cfg: ModelConfig, ctx=None):
     """Raise ``NotImplementedError`` if ``cfg`` has no path on a mesh of
-    tp > 1: dense GQA decoders and GQA + MoE run there; MLA, SSM and
-    hybrid stacks and multi-codebook models do not yet (ROADMAP M11b)."""
-    if tp_size(ctx) == 1:
-        return
-    why = ("MLA" if cfg.mla is not None else
-           "SSM layers" if cfg.ssm_layers else
-           f"{cfg.num_codebooks} codebooks" if cfg.num_codebooks > 1
-           else None)
-    if why:
+    tp > 1: GQA and MLA decoders (MLP or MoE FFN), SSM and hybrid stacks
+    run there; multi-codebook models do not yet (ROADMAP M11b)."""
+    if tp_size(ctx) > 1 and cfg.num_codebooks > 1:
         raise NotImplementedError(
-            f"{cfg.name}: {why} under a tensor-parallel mesh is not ported "
-            "yet (ROADMAP M11b)")
+            f"{cfg.name}: {cfg.num_codebooks} codebooks under a "
+            "tensor-parallel mesh are not ported yet (ROADMAP M11b)")
 
 
 def embed_tokens(params, cfg, tokens, ctx=None):
@@ -201,7 +197,7 @@ def _attn_block_full(block, cfg, x, positions, ctx=None):
     0.0)."""
     xin = apply_norm(x, block["attn_norm"], cfg)
     if cfg.mla is not None:
-        h, kv_out = attn.mla_full(block["attn"], cfg, xin, positions)
+        h, kv_out = attn.mla_full(block["attn"], cfg, xin, positions, ctx)
     else:
         h, kv_out = attn.gqa_full(block["attn"], cfg, xin, positions, ctx)
     x, loss = _ffn_residual(block, cfg, x + h, ctx)
@@ -430,7 +426,7 @@ def forward_decode_paged(params, cfg: ModelConfig, *, tokens=None,
         if cfg.mla is not None:
             h, _ = attn.mla_decode_paged(block["attn"], cfg, xin, positions,
                                          layer_cache, block_tables,
-                                         cache_pos)
+                                         cache_pos, ctx)
         else:
             h, _ = attn.gqa_decode_paged(block["attn"], cfg, xin, positions,
                                          layer_cache, block_tables,

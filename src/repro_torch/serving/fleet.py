@@ -38,6 +38,12 @@ one host: while the decode round is bound by the host's dispatch
 and each of its loops ticks more slowly than a loop alone.  Engines on
 one card may share one params dict: the serving steps only read the
 weights.
+
+Tensor-parallel engines (``Engine(mesh=...)``) join a fleet when they
+share one mesh, the reference's layout of several instances on one tp
+group: rank 0 runs the fleet (the mapper, an annealed plan on rank 0's
+device, every loop's ticks) while each other rank's ``Engine.follow``
+replays every engine's steps, and :meth:`EngineFleet.close` stops them.
 """
 from __future__ import annotations
 
@@ -82,12 +88,18 @@ class EngineFleet:
                  discipline=None, overlap: bool = True, **mapper_kw):
         if not engines:
             raise ValueError("EngineFleet needs at least one engine")
-        if any(eng.mesh is not None and eng.mesh.size > 1
-               for eng in engines):
-            # each engine's other ranks follow it alone, in a loop of
-            # their own: a fleet of mesh engines needs a rank per engine
-            raise NotImplementedError("a fleet of tensor-parallel engines "
-                                      "is not ported yet (ROADMAP M11b)")
+        meshes = {id(eng.mesh) for eng in engines}
+        if len(meshes) > 1 and any(eng.mesh is not None
+                                   and eng.mesh.size > 1 for eng in engines):
+            # the other ranks' follow() replays the engines of one mesh:
+            # engines on different tp groups (a data axis) have no
+            # counterpart in the reference
+            raise NotImplementedError("a fleet of engines on different "
+                                      "tensor-parallel groups is not ported "
+                                      "(ROADMAP M11b)")
+        if engines[0].mesh is not None and engines[0].mesh.rank != 0:
+            raise RuntimeError("rank 0 runs the fleet; the other ranks of "
+                               "its mesh call Engine.follow()")
         self.loops: List[ServeLoop] = [
             ServeLoop(eng, policy, model=model, discipline=discipline,
                       overlap=overlap, id_base=i * _ID_STRIDE)
@@ -186,6 +198,12 @@ class EngineFleet:
                 wait = min(lp._idle_wait(poll) for lp in live)
                 if wait > 0:
                     time.sleep(wait)
+
+    def close(self):
+        """Stop every engine on the other ranks of its mesh
+        (``Engine.close``); nothing for engines without one."""
+        for lp in self.loops:
+            lp.eng.close()
 
     # ------------------------------------------------------------ output
     def results(self) -> Dict[int, dict]:

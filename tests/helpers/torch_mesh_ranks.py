@@ -32,28 +32,42 @@ def _np(x):
 
 
 # ------------------------------------------------------------ forwards
+def first_attn(tree, cfg):
+    """The first attention layer's entry of a params or cache tree (a
+    hybrid's shared block where its params hold the ``{}`` marker)."""
+    i = list(cfg.layer_pattern).index("attn")
+    return tree["layers"][i] or tree["shared_block"]
+
+
 def paged_forwards(cfg, params, ctx, mesh=None):
-    """Prefill 24 tokens into slot 0, two 16-token chunks into slot 1,
-    then 3 decode steps over both (``DECODE_FEEDS``), plus one
-    ``forward_full`` pass: the logits of each, and the first layer's
-    page shape."""
+    """Prefill 24 tokens into slot 0, then 32 tokens into slot 1 as two
+    16-token chunks (an MLA arch, which has no chunked path: one whole
+    prefill), then 3 decode steps over both (``DECODE_FEEDS``), plus one
+    ``forward_full`` pass: the logits of each, the first attention
+    layer's page shape, and every cache array after the decode steps."""
     cache = init_paged_cache(cfg, 4, 128, 33, 16, device=CPU, mesh=mesh)
     bt = np.zeros((4, 8), np.int32)
     bt[0, :4] = [1, 2, 3, 4]
     bt[1, :4] = [5, 6, 7, 8]
     cache["block_tables"] = torch.from_numpy(bt)
     toks = torch.arange(1, 25, dtype=torch.int32)[None]
-    out = {"page_shape": tuple(cache["layers"][0]["k"].shape)}
+    pages = first_attn(cache, cfg)
+    out = {"page_shape": tuple(pages["ckv" if "ckv" in pages
+                                     else "k"].shape)}
     with torch.no_grad():
         lg, _ = forward_prefill_paged(params, cfg, tokens=toks, cache=cache,
                                       slot=0, length=24, ctx=ctx)
         out["prefill"] = _np(lg)
         ids = torch.arange(30, 62, dtype=torch.int32)[None]
-        for i in range(2):
-            lg, _ = forward_chunk_paged(params, cfg,
-                                        tokens=ids[:, 16 * i:16 * (i + 1)],
-                                        cache=cache, slot=1, length=16,
-                                        ctx=ctx)
+        if cfg.mla is not None:
+            lg, _ = forward_prefill_paged(params, cfg, tokens=ids,
+                                          cache=cache, slot=1, length=32,
+                                          ctx=ctx)
+        else:
+            for i in range(2):
+                lg, _ = forward_chunk_paged(
+                    params, cfg, tokens=ids[:, 16 * i:16 * (i + 1)],
+                    cache=cache, slot=1, length=16, ctx=ctx)
         out["chunk"] = _np(lg)
         out["decode"] = []
         for feed in DECODE_FEEDS:
@@ -62,6 +76,8 @@ def paged_forwards(cfg, params, ctx, mesh=None):
                 cache=cache, ctx=ctx)
             cache["pos"].copy_(new["pos"])
             out["decode"].append(_np(lg))
+        out["cache"] = [{k: _np(v) for k, v in layer.items()}
+                        for layer in cache["layers"]]
         lg, _, _ = forward_full(params, cfg, tokens=toks, ctx=ctx)
         out["full"] = _np(lg)
     return out
@@ -81,7 +97,8 @@ def forward_suite(mesh, cases, moe_cases=()):
     for cfg, tree in cases:
         params = from_jax_params(tree, CPU, mesh, cfg=cfg)
         res = paged_forwards(cfg, params, ctx, mesh)
-        res["wk_shape"] = tuple(params["layers"][0]["attn"]["wk"].shape)
+        res["attn_shapes"] = {k: tuple(v.shape) for k, v in
+                              first_attn(params, cfg)["attn"].items()}
         out["forwards"].append(res)
     for cfg, block, x, ep in moe_cases:
         p = ParallelismConfig(fsdp=False, expert_parallel=ep)
@@ -102,14 +119,16 @@ def forward_suite(mesh, cases, moe_cases=()):
 # -------------------------------------------------------------- engines
 class FixedClock:
     """A stand-in for the ``time`` module whose ``perf_counter`` moves
-    1 ms a call: every timed engine step then takes exactly 1 ms, so the
-    policies that read the engine clock decide alike in both packages."""
+    ``step`` seconds (default 1 ms) a call: every timed engine step then
+    takes exactly ``step``, so the policies that read the engine clock
+    decide alike in both packages (a slow clock makes slo-preempt
+    preempt)."""
 
-    def __init__(self):
-        self.t = 0.0
+    def __init__(self, step: float = 1e-3):
+        self.t, self.step = 0.0, step
 
     def perf_counter(self):
-        self.t += 1e-3
+        self.t += self.step
         return self.t
 
 
@@ -214,7 +233,8 @@ def run_job(eng, job, vocab):
 
 def engine_suite(mesh, jobs):
     """Each job: ``{"cfg", "tree", "engine": kwargs, "kind": "policy" |
-    "loop", "policy", "discipline", "workload", "ep", "cow"}``.  Every
+    "loop", "policy", "discipline", "workload", "ep", "cow", "clock"}``
+    (``clock``: seconds a timed step, default 1 ms).  Every
     rank builds the engine on its shard; rank 0 runs the job while the
     others follow.  Per job and rank: the op log, the page shapes, and
     on rank 0 the results, ``prefix_stats()`` and the copy-on-write
@@ -223,7 +243,7 @@ def engine_suite(mesh, jobs):
     from repro_torch.engine.engine import Engine
     out = []
     for job in jobs:
-        engine_mod.time = FixedClock()
+        engine_mod.time = FixedClock(job.get("clock", 1e-3))
         cfg = job["cfg"]
         par = ParallelismConfig(fsdp=False,
                                 expert_parallel=job.get("ep", False))
@@ -239,6 +259,9 @@ def engine_suite(mesh, jobs):
         rec = {"log": log, "pages": sorted({tuple(v.shape) for layer in
                                             eng.cache["layers"]
                                             for v in layer.values()}),
+               "layer_shapes": [{k: tuple(v.shape) for k, v in
+                                 layer.items()}
+                                for layer in eng.cache["layers"]],
                # the rank's pool: the cache specs' slice of a whole one
                "specs": [local_shape(whole["layers"][0][k].shape,
                                      specs["layers"][0][k], mesh)
@@ -252,6 +275,59 @@ def engine_suite(mesh, jobs):
             rec["prefix"] = eng.prefix_stats()
             rec["cow"] = eng.cow_copies
             eng.close()
+        rec["replicated"] = replicated_digests(eng.cache, specs)
+        out.append(rec)
+    return out
+
+
+def replicated_digests(cache, specs):
+    """A digest of each cache array the specs keep whole on every rank
+    (MLA latent pages, per-slot SSM state), by layer and name: ranks
+    that wrote the same bits give the same digests."""
+    import hashlib
+    return [{k: hashlib.sha1(_np(v).tobytes()).hexdigest()
+             for k, v in layer.items()
+             if all(e is None for e in spec[k])}
+            for layer, spec in zip(cache["layers"], specs["layers"])]
+
+
+def fleet_suite(mesh, jobs):
+    """Each job: ``{"cfg", "tree", "engine": kwargs, "mapper", "pairs"}``.
+    Every rank builds two engines on its shard, the second sharing the
+    first's params; rank 0 serves ``pairs`` (a trace of (Request,
+    prompt) pairs) through an ``EngineFleet`` of them while the other
+    ranks follow both.  Per job and rank: each engine's op log and its
+    params' storage (shared or not); on rank 0 each stream's tokens in
+    trace order and the instance each request went to."""
+    from repro_torch.core.latency_model import PAPER_TABLE2
+    from repro_torch.engine import engine as engine_mod
+    from repro_torch.engine.engine import Engine
+    from repro_torch.serving import EngineFleet
+    out = []
+    for job in jobs:
+        engine_mod.time = FixedClock()
+        cfg = job["cfg"]
+        par = ParallelismConfig(fsdp=False)
+        params = from_jax_params(job["tree"], CPU, mesh, cfg=cfg,
+                                 parallelism=par)
+        first = Engine(cfg, params, device="cpu", mesh=mesh,
+                       parallelism=par, **job["engine"])
+        second = Engine(cfg, first.params, device="cpu", mesh=mesh,
+                        parallelism=par, **job["engine"])
+        engines = [first, second]
+        rec = {"logs": [log_ops(eng) for eng in engines],
+               "shared": first.params["embed"].data_ptr()
+               == second.params["embed"].data_ptr()}
+        if mesh.rank != 0:
+            first.follow()
+        else:
+            fleet = EngineFleet(engines, "fcfs", mapper=job["mapper"],
+                                model=PAPER_TABLE2)
+            streams = fleet.submit_trace(job["pairs"])
+            fleet.serve()
+            fleet.close()
+            rec["tokens"] = [list(st.tokens) for st in streams]
+            rec["instances"] = [len(lp.results()) for lp in fleet.loops]
         out.append(rec)
     return out
 
@@ -273,3 +349,10 @@ def diverging_follower(mesh, job):
     else:
         run_job(eng, job, cfg.vocab_size)
         eng.close()
+
+
+def model_suite(mesh, cases, jobs):
+    """:func:`forward_suite` over ``cases``, then :func:`engine_suite`
+    over ``jobs``, in one start of the ranks."""
+    return {"forwards": forward_suite(mesh, cases)["forwards"],
+            "engines": engine_suite(mesh, jobs)}

@@ -78,8 +78,10 @@ def _jax_rt(prompt, r):
 
 
 def jax_job(params, job, monkeypatch, cfg=CFG):
-    """The job on the JAX engine, its clock 1 ms a step as the port's."""
-    monkeypatch.setattr(jax_engine_mod, "time", ranks.FixedClock())
+    """The job on the JAX engine, its clock ``job["clock"]`` (default
+    1 ms) a step as the port's."""
+    monkeypatch.setattr(jax_engine_mod, "time",
+                        ranks.FixedClock(job.get("clock", 1e-3)))
     eng = JaxEngine(cfg, params, **ENGINE_KW)
     kind, n, k = job["workload"]
     if job["kind"] == "loop":

@@ -66,7 +66,8 @@ _decode = jax.jit(forward_decode_paged, static_argnums=(1,))
 _full = jax.jit(forward_full, static_argnums=(1,))
 
 
-def _jax_forwards(cfg, params):
+def jax_forwards(cfg, params):
+    """The steps of ``ranks.paged_forwards`` on the JAX forwards."""
     cache = init_paged_cache(cfg, 4, 128, 33, 16)
     bt = np.zeros((4, 8), np.int32)
     bt[0, :4] = [1, 2, 3, 4]
@@ -78,10 +79,14 @@ def _jax_forwards(cfg, params):
                          length=24)
     out["prefill"] = np.asarray(lg)
     ids = np.arange(30, 62, dtype=np.int32)[None]
-    for i in range(2):
-        lg, cache = _chunk(
-            params, cfg, tokens=jnp.asarray(ids[:, 16 * i:16 * (i + 1)]),
-            cache=cache, slot=1, length=16)
+    if cfg.mla is not None:
+        lg, cache = _prefill(params, cfg, tokens=jnp.asarray(ids),
+                             cache=cache, slot=1, length=32)
+    else:
+        for i in range(2):
+            lg, cache = _chunk(
+                params, cfg, tokens=jnp.asarray(ids[:, 16 * i:16 * (i + 1)]),
+                cache=cache, slot=1, length=16)
     out["chunk"] = np.asarray(lg)
     out["decode"] = []
     for feed in ranks.DECODE_FEEDS:
@@ -100,7 +105,7 @@ def models():
         jcfg, pcfg = _cfgs(name)
         params = init_params(jax.random.PRNGKey(0), jcfg)
         out[name] = (jcfg, pcfg, jax.tree.map(np.asarray, params),
-                     _jax_forwards(jcfg, params))
+                     jax_forwards(jcfg, params))
     return out
 
 
@@ -155,7 +160,7 @@ def check_heads(ranks_out, models, tp, name):
     for rank in ranks_out:
         res = rank["forwards"][list(SHAPES).index(name)]
         assert res["page_shape"] == (33, 16, local, hd)
-        assert res["wk_shape"] == (cfg.d_model, local * hd)
+        assert res["attn_shapes"]["wk"] == (cfg.d_model, local * hd)
 
 
 @pytest.mark.parametrize("what", ["prefill", "chunk", "decode", "full"])

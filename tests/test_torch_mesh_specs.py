@@ -280,36 +280,127 @@ def test_placement_holds_whole_heads(arch, mesh):
 
 
 def test_mesh_paths_not_ported_raise():
-    """MLA, SSM and hybrid stacks under a mesh raise naming ROADMAP
-    M11b (at the engine and at the forwards), the dense layout raises
-    as the JAX engine does, and so does a data axis (a fleet of mesh
-    engines), before any rank would wait on another."""
+    """What the mesh does not run yet raises naming ROADMAP M11b before
+    any rank would wait on another: training (``remat``) and a
+    multi-codebook model under a mesh, a data axis (engines on different
+    tp groups), and a fleet of engines on different meshes.  The dense
+    layout raises as the JAX engine does (so Mamba2 alone, whose engine
+    is dense-only, has no mesh path), and a fleet runs on rank 0 only."""
     import torch
     from repro_torch.configs import get_reduced as port_reduced
     from repro_torch.engine.engine import Engine
     from repro_torch.models.model import forward_full, init_params
     from repro_torch.models.moe import ShardingCtx
     mesh = Mesh({"data": 1, "model": 2}, rank=0)
-    for arch in ("deepseek-v2-lite-16b", "zamba2-1.2b"):
-        cfg = dataclasses.replace(port_reduced(arch), dtype="float32")
-        params = init_params(cfg, seed=0, device="cpu")
-        with pytest.raises(NotImplementedError, match="M11b"):
-            Engine(cfg, params, device="cpu", mesh=mesh)
-        with pytest.raises(NotImplementedError, match="M11b"):
-            forward_full(params, cfg, tokens=torch.zeros(
-                (1, 4), dtype=torch.int32), ctx=ShardingCtx(mesh=mesh))
+    ctx = ShardingCtx(mesh=mesh)
     cfg = dataclasses.replace(port_reduced("qwen3-1.7b"), dtype="float32")
     params = init_params(cfg, seed=0, device="cpu")
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="training under a mesh"
+                       ".*M11b"):
+        forward_full(params, cfg, tokens=toks, remat=True, ctx=ctx)
+    audio = dataclasses.replace(port_reduced("musicgen-medium"),
+                                dtype="float32")
+    with pytest.raises(NotImplementedError, match="codebooks.*M11b"):
+        forward_full(init_params(audio, seed=0, device="cpu"), audio,
+                     tokens=torch.zeros((1, 4, audio.num_codebooks),
+                                        dtype=torch.int32), ctx=ctx)
     with pytest.raises(ValueError, match="paged"):
         Engine(cfg, params, device="cpu", paged=False, mesh=mesh)
+    ssm = dataclasses.replace(port_reduced("mamba2-780m"), dtype="float32")
+    with pytest.raises(ValueError, match="paged"):
+        Engine(ssm, init_params(ssm, seed=0, device="cpu"), device="cpu",
+               mesh=mesh)
     with pytest.raises(NotImplementedError, match="M11b"):
         Engine(cfg, params, device="cpu",
                mesh=Mesh({"data": 2, "model": 2}, rank=0))
     from repro_torch.serving import EngineFleet
-    eng = Engine(cfg, params, device="cpu", max_slots=2, max_seq_len=64)
-    eng.mesh = mesh                 # as a rank 0 of a tp 2 mesh holds it
+    engines = [Engine(cfg, params, device="cpu", max_slots=2,
+                      max_seq_len=64) for _ in range(3)]
+    engines[0].mesh = mesh          # as rank 0 of a tp 2 mesh holds it
+    engines[1].mesh = Mesh({"data": 1, "model": 2}, rank=0)
     with pytest.raises(NotImplementedError, match="M11b"):
-        EngineFleet([eng])
+        EngineFleet(engines[:2])
+    with pytest.raises(NotImplementedError, match="M11b"):
+        EngineFleet([engines[0], engines[2]])
+    engines[1].mesh = Mesh({"data": 1, "model": 2}, rank=1)
+    with pytest.raises(RuntimeError, match="rank 0"):
+        EngineFleet(engines[1:2])
+
+
+@pytest.mark.parametrize("mesh", SMALL)
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "zamba2-1.2b"])
+def test_placement_mla_and_hybrid(arch, mesh):
+    """MLA: where the heads divide tp (16 at 2, 4, 8), ``wq``, ``w_uk``
+    and ``w_uv`` hold whole heads' columns and ``wo`` their rows; the
+    latent's weights (``w_dkv``, ``w_krope``, ``kv_norm``) whole.  The
+    hybrid: the shared block split by whole heads (32 q and kv heads),
+    every SSM weight whole (FSDP-only in the rules, no FSDP here)."""
+    shape = MESHES[mesh]
+    cfg = port_config(arch)
+    tp = shape["model"]
+    par = psh.ParallelismConfig(fsdp=False)
+    full = port_params(arch)
+    mesh_r = Mesh(shape, rank=tp - 1)
+    placed = psh.placement_specs(psh.param_specs(full, cfg, mesh_r, par),
+                                 cfg, mesh_r, par)
+    mine = psh.shard_params(full, placed, mesh_r)
+    assert heads_split(cfg, tp)
+    h = cfg.num_heads // tp
+    if cfg.mla is not None:
+        m = cfg.mla
+        attn = mine["layers"][0]["attn"]
+        assert attn["wq"].shape[1] == h * (m.qk_nope_head_dim
+                                           + m.qk_rope_head_dim)
+        assert attn["w_uk"].shape[1] == h * m.qk_nope_head_dim
+        assert attn["w_uv"].shape[1] == h * m.v_head_dim
+        assert attn["wo"].shape[0] == h * m.v_head_dim
+        for name in ("w_dkv", "w_krope", "kv_norm"):
+            assert attn[name].shape == \
+                full["layers"][0]["attn"][name].shape, name
+        return
+    attn = mine["shared_block"]["attn"]
+    hd = cfg.head_dim
+    assert attn["wq"].shape[1] == attn["wk"].shape[1] == h * hd
+    assert attn["wo"].shape[0] == h * hd
+    ssm = [i for i, kind in enumerate(cfg.layer_pattern) if kind == "ssm"]
+    for i in ssm:
+        for path, leaf in flat_port(mine["layers"][i]).items():
+            assert leaf.shape == flat_port(full["layers"][i])[path].shape
+
+
+def test_placement_mla_indivisible_heads():
+    """3 MLA heads at tp 2: the rules cut ``wq``'s 3 x 24 columns in two
+    (mid-head); the rank holds the whole attention block, which runs
+    replicated."""
+    from repro_torch.models.config import MLAConfig
+    cfg = PortConfig(name="t-mla3", family="dense", num_layers=2,
+                     d_model=48, num_heads=3, num_kv_heads=3, head_dim=16,
+                     d_ff=96, vocab_size=96, dtype="float32",
+                     mla=MLAConfig(kv_lora_rank=32, q_lora_rank=0,
+                                   qk_nope_head_dim=16, qk_rope_head_dim=8,
+                                   v_head_dim=16))
+    full = port_init_params(cfg, device="meta")
+    mesh_r = Mesh({"data": 1, "model": 2}, rank=1)
+    par = psh.ParallelismConfig(fsdp=False)
+    specs = psh.param_specs(full, cfg, mesh_r, par)
+    assert tuple(specs["layers"][0]["attn"]["wq"]) == (None, "model")
+    placed = psh.placement_specs(specs, cfg, mesh_r, par)
+    assert not heads_split(cfg, 2)
+    assert all(all(e is None for e in s)
+               for s in placed["layers"][0]["attn"].values())
+
+
+@pytest.mark.parametrize("batch", [1, 3, 16, 128])
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_input_sharding_matches_reference(mesh, batch):
+    shape = MESHES[mesh]
+    for fsdp in (True, False):
+        want = jsh.input_sharding(get_config("qwen2.5-7b"), FakeMesh(shape),
+                                  jsh.ParallelismConfig(fsdp=fsdp), batch)
+        got = psh.input_sharding(port_config("qwen2.5-7b"), Mesh(shape),
+                                 psh.ParallelismConfig(fsdp=fsdp), batch)
+        assert got == want
 
 
 def test_shard_leaf_copies_what_it_splits():
