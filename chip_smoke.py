@@ -47,15 +47,17 @@ Phases (any failure exits non-zero before the last line):
            kernels (forward + lse, dq, dk/dv) over causal and windowed
            cases, GQA groups 1/2/4/7/12, S 16/100/128/300/520/1000/2048
            (ragged tiles, both dq block sizes), hd 64/80/128, timed
-           at the train shape (B4 S2048 H16 KV8 hd128 bf16) and at
-           S=128, and dq/dk/dv checked bitwise repeatable; the SSD scan
+           at the train shape (B4 S2048 H16 KV8 hd128 bf16), at S=128
+           and at a tp 2 rank's heads (B2 S2048 H8 KV4, phase
+           train_mesh), and dq/dk/dv checked bitwise repeatable; the SSD scan
            at the Mamba2-780M widths (nh 48, hd 64, ds 128), B 1/4 x S
            16/100/256/2048, and at the edges of its decomposition (S 1,
            63, 64, 65; B 3; nh 7; hd 64 with ds 64, hd 32, hd 48 with ds
            80; rows of no whole 16-byte pieces, hd 20 with ds 36 and hd
            33 with ds 37), each with and without an initial state and bitwise
            equal across two launches, timed at the serve shapes (B1 S96;
-           B1 S32 from a state) and at B4 S2048, eager and as device
+           B1 S32 from a state), at B4 S2048 and at a data rank's B2
+           S2048 (Mamba2's and Zamba2's heads), eager and as device
            time from CUDA-graph replays; the SSD scan's backward (K4b,
            csrc/ssd_scan_bwd.cu: C·Bᵀ, the states, then the chunks in
            reverse in clusters) against the plain VJP over 32-row
@@ -63,7 +65,8 @@ Phases (any failure exits non-zero before the last line):
            edges (S 1, nh 7, odd hd and ds), with and without an initial
            state and a final-state cotangent, each gradient within 5e-5
            of its max |plain|, bitwise equal across two launches, HMMA in
-           every kernel function, 0 spill; timed at B4 S2048 (eager and
+           every kernel function, 0 spill; timed at B4 S2048 and at a
+           data rank's B2 S2048 (eager and
            as device time from CUDA-graph replays) with its operations
            bound at the f32 CUDA-core peak and at the 3xTF32 rate, the
            bytes it moves (workspaces and partials included) and its
@@ -234,13 +237,40 @@ Phases (any failure exits non-zero before the last line):
            memory, all labelled as two processes time-sharing one card;
            then an NCCL all_reduce over two ranks on the one card, which
            NCCL must refuse as a duplicate GPU (its error printed)
+  train_mesh training under a (data, tp) mesh with FSDP
+           (``train_step(..., ctx=)``): two ranks, spawned processes on
+           the one card over gloo (every model this process holds freed
+           first), published widths cut in depth (TRAIN_MESH_RUNS):
+           bf16, one warm-up and TRAIN_MESH_STEPS timed steps each, at
+           (data 2, tp 1) Qwen3-1.7B (B4 S2048), Zamba2-1.2B (K4 / K4b
+           on 2 rows a rank) and DeepSeek-V2-Lite at B2 S2048 (the 2-D
+           expert-parallel branch), at (data 1, tp 2) Qwen3-1.7B,
+           DeepSeek on the expert-parallel and the baseline branch, and
+           MusicGen-medium: per run and rank the losses (finite, alike
+           on both ranks), step ms, collectives (calls, seconds, share),
+           peak memory, the rank's param + moment bytes against the
+           whole tree's, its bytes of the FSDP-sharded leaves (exactly
+           1/data of what the tp split alone leaves it), K5a-c / K4 /
+           K4b / grouped-product launches equal to what the layer count
+           predicts times the steps, and every leaf and moment bit for
+           bit alike on the ranks holding the same slice; then f32 at 2
+           layers (Zamba2 4), B2 S64, TF32 off: one mesh step against
+           the single-rank step on the card from the same params and
+           global batch (Qwen3 (2, 1) and (1, 2), Mamba2 (2, 1), Zamba2
+           (1, 2), DeepSeek (1, 2) on both branches and (2, 1) on the
+           2-D one, MusicGen (1, 2), Qwen2-VL (2, 1)): loss within 1e-5
+           relative, each gathered gradient within 1e-4 of its leaf's
+           max, the updated params within 2 lr and within 1e-6 on all
+           but max(8, 1e-3 numel) of a leaf (the baseline branch's
+           single-rank loss takes its load-balance loss as the mean over
+           the tp slices of the sequence, as the reference does)
 Each path (paged serve, dense serve, h2o-danube serve, the five
 streaming paths, Mamba2 serve, the hybrid's paged, dense and stream
 paths, DeepSeek's paged, dense and stream paths, DBRX's paged path,
 int8, train and the five train paths of TRAIN_ARCHS) is driven with
 the launch counts set to 0 just before it
-and read just after (the mesh phase's runs on every rank, counted in
-each rank's process); every kernel must launch on the path that runs it
+and read just after (the mesh and train_mesh phases' runs on every
+rank, counted in each rank's process); every kernel must launch on the path that runs it
 (and the MoE paths' grouped product, a library call, is counted the
 same way).  The line before the last is the kernels JSON; the last
 line is
@@ -261,7 +291,7 @@ from concurrent.futures import ProcessPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "anneal", "serve", "stream", "ssm",
-          "hybrid", "moe", "int8", "train", "parity", "mesh")
+          "hybrid", "moe", "int8", "train", "parity", "mesh", "train_mesh")
 PEAK_BYTES = 3.35e12                       # H100 SXM HBM3, bytes/s
 PEAK_FLOPS = {"bfloat16": 989e12,          # dense tensor-core bf16
               "float32": 67e12}            # float32 outside tensor cores
@@ -398,7 +428,12 @@ PATHS = {"serve_paged": ("decode_attention_paged", "flash_attention"),
                                "ssd_scan"),
          "serve_mesh_hybrid_chunked": ("decode_attention_paged",
                                        "ssd_scan"),
-         "serve_mesh_mla": ("ragged_dot",)}
+         "serve_mesh_mla": ("ragged_dot",),
+         # each rank of the train_mesh phase's bf16 runs
+         "train_mesh": TRAIN_KERNELS,
+         "train_mesh_hybrid": ("ssd_scan", "ssd_scan_bwd") + TRAIN_KERNELS,
+         "train_mesh_moe": ("ragged_dot",),
+         "train_mesh_audio": TRAIN_KERNELS}
 # the int8 KV library yardstick: no single PyTorch call dequantizes int8
 # K/V with per-row scales inside attention
 NO_LIBRARY = {
@@ -998,6 +1033,12 @@ def check_train_kernels(results, fwd_worst):
          4, 2048, 24, 24, 64, 0),
         ("B4 S2048 rep1 hd64 causal (zamba2 train)",
          4, 2048, 32, 32, 64, 0),
+        # the train_mesh phase: Qwen3-1.7B's heads on one rank at tp 2
+        # (8 q / 4 kv), a data rank's rows (B2 of B4) at data 2
+        ("B2 S2048 rep2 hd128 causal (qwen3 tp2 rank)",
+         2, 2048, 8, 4, 128, 0),
+        ("B2 S2048 rep2 hd128 causal (qwen3 data rank)",
+         2, 2048, 16, 8, 128, 0),
     ]
     worst = {n: dict.fromkeys(dtypes, 0.0) for n in TRAIN_KERNELS}
     worst[TRAIN_KERNELS[0]] = dict(fwd_worst)
@@ -1042,10 +1083,14 @@ def check_train_kernels(results, fwd_worst):
                          {"relative_to_max_plain": GRAD_TOL}}
 
     bf = torch.bfloat16
-    shapes = (("train", "B4 S2048 H16 KV8 hd128 causal bf16", 2048, 3),
-              ("S128", "B4 S128 H16 KV8 hd128 causal bf16", 128, 50))
-    for key, shape, s, iters in shapes:
-        q, k, v, do = flash_train_inputs(4, s, 16, 8, 128, bf, gen)
+    shapes = (("train", "B4 S2048 H16 KV8 hd128 causal bf16", 4, 2048, 16,
+               8, 3),
+              ("S128", "B4 S128 H16 KV8 hd128 causal bf16", 4, 128, 16, 8,
+               50),
+              ("train_mesh_tp2", "B2 S2048 H8 KV4 hd128 causal bf16 "
+               "(qwen3 tp2 rank)", 2, 2048, 8, 4, 3))
+    for key, shape, b, s, h, kv, iters in shapes:
+        q, k, v, do = flash_train_inputs(b, s, h, kv, 128, bf, gen)
         kw = {"causal": True, "window": 0}
         out, lse = fb.flash_attention_fwd_lse_cuda(q, k, v, **kw)
         delta = fb.attention_delta(out, do)
@@ -1095,7 +1140,7 @@ def check_train_kernels(results, fwd_worst):
             if key == "train":
                 results[name].update(r)
             else:
-                results[name]["S128"] = r
+                results[name][key] = r
             log(f"  {name}: kernel {k_ms:.4f} ms "
                 f"({r['achieved_tflops']:.1f} TFLOP/s), plain {p_ms:.4f} ms, "
                 f"bound {b_ms:.4f} ms ({b_by}), library "
@@ -1173,6 +1218,10 @@ SSD_CASES = [(f"B{b} S{s}", b, s, SSM_NH, SSM_HD, SSM_DS)
     ("B1 S100 hd48 ds80", 1, 100, SSM_NH, 48, 80),
     ("B1 S100 hd20 ds36", 1, 100, SSM_NH, 20, 36),
     ("B1 S100 hd33 ds37", 1, 100, SSM_NH, 33, 37),
+    # a data rank's rows at data 2 (phase train_mesh): Mamba2's and
+    # Zamba2's heads (nh 64, hd 64, ds 64)
+    ("mamba2 B2 S2048 (data rank)", 2, 2048, SSM_NH, SSM_HD, SSM_DS),
+    ("zamba2 B2 S2048 (data rank)", 2, 2048, 64, 64, 64),
 ]
 
 
@@ -1229,10 +1278,15 @@ def check_ssd_kernel(results):
         "tol": {"share_of_max_cap_share_of_element": SSD_TOL},
         "bitwise_repeatable": True, "cases": 2 * len(SSD_CASES)}
     f32 = torch.float32
-    for key, b, s, with_state, iters in (("serve", 1, 96, False, 50),
-                                         ("chunk", 1, 32, True, 50),
-                                         ("long", 4, 2048, False, 5)):
-        x, d, A, B, C, st = ssd_inputs(b, s, f32, with_state, gen)
+    mamba2, zamba2 = (SSM_NH, SSM_HD, SSM_DS), (64, 64, 64)
+    for key, b, s, with_state, iters, (nh, hd, ds) in (
+            ("serve", 1, 96, False, 50, mamba2),
+            ("chunk", 1, 32, True, 50, mamba2),
+            ("long", 4, 2048, False, 5, mamba2),
+            ("train_mesh", 2, 2048, False, 5, mamba2),
+            ("train_mesh_zamba2", 2, 2048, False, 5, zamba2)):
+        x, d, A, B, C, st = ssd_inputs(b, s, f32, with_state, gen, nh=nh,
+                                       hd=hd, ds=ds)
 
         def kernel():
             return ss.ssd_scan_cuda(x, d, A, B, C, init_state=st)
@@ -1241,7 +1295,7 @@ def check_ssd_kernel(results):
                                       init_state=st), kernel, iters)
         dev_ms = graph_ms(kernel, iters)
         (b_ms, b_by), (tc_ms, tc_by), flops = ssd_cost(x, B, st, "float32")
-        row = {"shape": f"B{b} S{s} nh48 hd64 ds128 f32"
+        row = {"shape": f"B{b} S{s} nh{nh} hd{hd} ds{ds} f32"
                         + (" from a state" if with_state else ""),
                "ms": k_ms, "device_ms": dev_ms, "plain_ms": p_ms,
                "bound_ms": b_ms, "bound_by": b_by,
@@ -1424,9 +1478,12 @@ def check_ssd_bwd_kernel(results):
         "max_abs_err": worst, "max_err_share_of_max": worst,
         "tol": {"share_of_max": SSD_BWD_TOL}, "bitwise_repeatable": True,
         "cases": 2 * len(SSD_BWD_CASES) + 2, "ptxas": ptxas}
-    for key, nh, hd, ds in (("mamba2", SSM_NH, SSM_HD, SSM_DS),
-                            ("zamba2", 64, 64, 64)):
-        b, s = 4, 2048
+    for key, b, nh, hd, ds in (("mamba2", 4, SSM_NH, SSM_HD, SSM_DS),
+                               ("zamba2", 4, 64, 64, 64),
+                               # a data rank's rows at data 2
+                               ("train_mesh", 2, SSM_NH, SSM_HD, SSM_DS),
+                               ("train_mesh_zamba2", 2, 64, 64, 64)):
+        s = 2048
         x, d, A, B, C, _ = ssd_inputs(b, s, f32, False, gen, nh=nh, hd=hd,
                                       ds=ds)
         dy = torch.randn(x.shape, device="cuda", generator=gen)
@@ -2000,7 +2057,9 @@ def phase_serve(ctx):
 
 
 STREAM_RATE = 4.0       # Poisson arrivals of the stream phase, req/s
-STREAM_N = 64           # requests a stream run serves: ~16 s of arrivals
+# requests a stream run serves: ~8 s of arrivals (cut from 64 so that
+# the train_mesh phase fits the script's time limit)
+STREAM_N = 32
 # the pool a deployment of Qwen2.5-7B on one 80 GB card holds: 64
 # sequences of up to 4096 tokens, 15.0 GB of bf16 K/V (paged or dense)
 STREAM_SLOTS, STREAM_SEQ = 64, 4096
@@ -4671,6 +4730,429 @@ def phase_mesh(ctx):
                              "allows")
 
 
+# ------------------------------------------------------------ train_mesh
+TRAIN_MESH_STEPS = 3
+# depth cuts of the train_mesh phase (published widths, TRAIN_MESH_RUNS),
+# so that the phase keeps near 180 s of the script's 1200: two ranks
+# time-share the one card, every step gathers each layer's FSDP shards
+# (twice: forward and re-forward) and sums their gradients over gloo,
+# staged through the host.  Qwen3-1.7B and MusicGen-medium at 4 of 28 /
+# 48 layers, Zamba2-1.2B at its first 6 of 38 (5 Mamba2 blocks, the
+# shared block once), DeepSeek-V2-Lite at the train phase's 4 of 27
+# bf16 runs: (name, arch, layers, (data, tp), global batch, seq, expert
+# parallel, path).  DeepSeek at B2 S2048 is 4096 tokens: the reference's
+# 2-D expert-parallel branch under FSDP (at data 1 it equals the plain
+# expert-parallel one).  DeepSeek's baseline branch at 2 layers (one
+# dense, one MoE): its 64 experts are whole on every tp rank, so each
+# step sums their gradients over tp, 6.6 GB in float32 at 4 layers
+# (8585 ms a step on the H100 over gloo)
+TRAIN_MESH_RUNS = (
+    ("qwen3 2x1", "qwen3-1.7b", 4, (2, 1), 4, 2048, False, "train_mesh"),
+    ("zamba2 2x1", "zamba2-1.2b", 6, (2, 1), 4, 2048, False,
+     "train_mesh_hybrid"),
+    ("deepseek 2d 2x1", "deepseek-v2-lite-16b", 4, (2, 1), 2, 2048, True,
+     "train_mesh_moe"),
+    ("qwen3 1x2", "qwen3-1.7b", 4, (1, 2), 4, 2048, False, "train_mesh"),
+    ("deepseek ep 1x2", "deepseek-v2-lite-16b", 4, (1, 2), 2, 2048, True,
+     "train_mesh_moe"),
+    ("deepseek base 1x2", "deepseek-v2-lite-16b", 2, (1, 2), 2, 2048,
+     False, "train_mesh_moe"),
+    ("musicgen 1x2", "musicgen-medium", 4, (1, 2), 4, 2048, False,
+     "train_mesh_audio"))
+# f32 parity runs, 2 layers (Zamba2 4: SSM, ATTN, SSM, ATTN), B2 S64:
+# (name, arch, (data, tp), expert parallel)
+TRAIN_MESH_PARITY = (
+    ("qwen3 2x1", "qwen3-1.7b", (2, 1), False),
+    ("qwen3 1x2", "qwen3-1.7b", (1, 2), False),
+    ("mamba2 2x1", "mamba2-780m", (2, 1), False),
+    ("zamba2 1x2", "zamba2-1.2b", (1, 2), False),
+    ("deepseek ep 1x2", "deepseek-v2-lite-16b", (1, 2), True),
+    ("deepseek base 1x2", "deepseek-v2-lite-16b", (1, 2), False),
+    ("deepseek 2d 2x1", "deepseek-v2-lite-16b", (2, 1), True),
+    ("musicgen 1x2", "musicgen-medium", (1, 2), False),
+    ("qwen2-vl 2x1", "qwen2-vl-7b", (2, 1), False))
+
+
+def _tree_bytes(tree):
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def _bits_hash(t) -> int:
+    """A hash of a tensor's bits, taken on its device: its bytes as
+    int64 words (zero-padded) times the odd weights 1, 3, 5, ...,
+    summed modulo 2^64.  Two tensors differing in one word differ in
+    it (an odd weight times a nonzero difference is nonzero mod 2^64)."""
+    import torch
+    b = t.detach().contiguous().view(torch.uint8).reshape(-1)
+    b = torch.cat([b, b.new_zeros((-b.numel()) % 8)])
+    words = b.view(torch.int64)
+    weights = 2 * torch.arange(words.numel(), device=words.device) + 1
+    return int((words * weights).sum())
+
+
+def _digests(params, state, specs, mesh):
+    """Per leaf: (its slice's start on each dim, hashes of the bits of
+    the param and of its two moments on this rank)."""
+    from repro_torch.distributed.sharding import _slice
+    return [(tuple(_slice(spec, mesh, d)[1] * n
+                   for d, n in enumerate(t.shape)),
+             (_bits_hash(t), _bits_hash(mu), _bits_hash(nu)))
+            for t, mu, nu, spec in zip(_leaves(params), _leaves(state.mu),
+                                       _leaves(state.nu),
+                                       _spec_leaves(specs, params))]
+
+
+def _spec_leaves(specs, params):
+    """The specs in the order of the params' leaves (paired by key)."""
+    from repro_torch.distributed.sharding import tree_map
+    box = []
+    tree_map(lambda t, s: box.append(s), params, specs)
+    return box
+
+
+def train_mesh_rank(mesh, runs, parity):
+    """One rank of the train_mesh phase: the bf16 ``runs``
+    (:func:`train_mesh_bf16`), then the f32 ``parity`` runs
+    (:func:`train_mesh_parity`)."""
+    import gc
+
+    import torch
+    bf16 = train_mesh_bf16(mesh, runs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return bf16, train_mesh_parity(mesh, parity)
+
+
+def train_mesh_bf16(mesh, runs):
+    """One rank of the train_mesh phase's bf16 runs: each run's params
+    drawn whole one rank at a time and sliced under FSDP, a warm-up step,
+    then TRAIN_MESH_STEPS timed steps on this data rank's rows of the
+    global batches (the launcher's), the launch counts set to 0 just
+    before them.  Per run: losses, step ms, collectives, peak memory,
+    the bytes of the rank's params and moments against the whole tree's,
+    launches, digests of every leaf and moment."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models.model import init_params
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import train_step
+    stats = {"s": 0.0, "n": 0}
+    _time_collectives(stats)
+    out = []
+    for name, arch, layers, _, gb, seq, ep, path in runs:
+        cfg = _depth(get_config(arch), layers)
+        par = sh.ParallelismConfig(fsdp=True, expert_parallel=ep)
+        ctx = sh.make_ctx(mesh, par)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t_run = time.perf_counter()
+        params = _rank_params(mesh, cfg, par)
+        state = opt.init(params)
+        draw_s = time.perf_counter() - t_run
+        whole = init_params(cfg, device="meta")
+        ocfg = opt.AdamWConfig(lr=3e-4, warmup_steps=1)
+        rng = np.random.default_rng(0)
+
+        def batch(step):
+            b = {k: torch.from_numpy(v).to(mesh.device)
+                 for k, v in make_batch(cfg, gb, seq, step, rng).items()}
+            return sh.shard_batch(b, cfg, mesh, par)
+        losses = []
+        t0 = time.perf_counter()
+        _, _, m = train_step(cfg, ocfg, params, state, batch(0), ctx=ctx)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        ops.reset_launch_counts()
+        stats.update(s=0.0, n=0)
+        ms = []
+        for step in range(1, TRAIN_MESH_STEPS + 1):
+            b = batch(step)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, m = train_step(cfg, ocfg, params, state, b, ctx=ctx)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = ops.launch_counts()
+        specs = sh.rank_specs(cfg, mesh, par)
+        # the leaves the data axis shards (FSDP): this rank's bytes of
+        # them, and the bytes it would hold of them without the data split
+        fsdp = [(t, math.prod(sh.local_shape(
+            w.shape, sh._drop_axis(s, "data"), mesh)) * t.element_size())
+            for t, w, s in zip(_leaves(params), _leaves(sh.tree_map(
+                lambda a, b: b, params, whole)), _spec_leaves(specs, params))
+            if sh.fsdp_dim(s, par) is not None]
+        out.append({
+            "name": name, "rank": mesh.rank, "path": path,
+            "data": mesh.shape["data"], "layers": cfg.num_layers, "batch_rows": gb // mesh.shape["data"],
+            "losses": losses, "ms": ms, "coll_n": stats["n"],
+            "coll_s": stats["s"], "grad_norm": float(m["grad_norm"]),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "rank_bytes": _tree_bytes(params) + _tree_bytes(state.mu)
+            + _tree_bytes(state.nu),
+            "whole_bytes": _tree_bytes(whole) + 2 * 4 * sum(
+                t.numel() for t in _leaves(whole)),
+            "fsdp_bytes": sum(t.numel() * t.element_size()
+                              for t, _ in fsdp),
+            "fsdp_unsplit_bytes": sum(n for _, n in fsdp),
+            "counts": counts,
+            "predicted": _launches_per_step(cfg),
+            "digests": _digests(params, state, specs, mesh),
+            "draw_s": draw_s, "warm_s": warm_s,
+            "run_s": time.perf_counter() - t_run})
+        del params, state
+    return out
+
+
+def _sliced_aux(tp, rows):
+    """The reference's load-balance loss on the MoE FFN's baseline branch
+    at tp > 1, for a single-rank step: the mean of the losses of the tp
+    slices of the sequence (its ``pmean`` over them), from the router
+    probabilities of ``rows`` x S tokens in (row, position) order."""
+    from repro_torch.models import moe
+    whole = moe.load_balance_loss
+
+    def sliced(probs, idx, top_k):
+        t, e = probs.shape
+        p = probs.reshape(rows, tp, t // rows // tp, e)
+        return sum(whole(p[:, i].reshape(-1, e), idx, top_k)
+                   for i in range(tp)) / tp
+    return sliced
+
+
+def train_mesh_parity(mesh, runs):
+    """One rank of the train_mesh phase's f32 parity runs: one mesh step
+    (loss_and_grads under the ctx, then AdamW as train_step applies it)
+    against the single-rank step on the card, from the same params (seed
+    3) and global batch (B2 S64, the launcher's).  Every rank runs the
+    single-rank step too, one rank at a time, and compares its own
+    slices of the gradients and updated params with the same slices of
+    the single-rank ones, on the card; a leaf's gradient error is a
+    share of the whole leaf's max, and its elements beyond 1e-6 are
+    counted on the ranks that own each slice once (index 0 on the axes
+    its spec does not name)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models.model import init_params
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import loss_and_grads
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = []
+    for name, arch, _, ep in runs:
+        t_run = time.perf_counter()
+        full_cfg = get_config(arch)
+        pattern = HYBRID_PARITY["pattern"] if arch == "zamba2-1.2b" \
+            else full_cfg.layer_pattern[:PARITY_LAYERS]
+        cfg = dataclasses.replace(full_cfg, num_layers=len(pattern),
+                                  dtype="float32", layer_pattern=pattern)
+        par = sh.ParallelismConfig(fsdp=True, expert_parallel=ep)
+        ctx = sh.make_ctx(mesh, par)
+        specs = sh.rank_specs(cfg, mesh, par)
+        ocfg = opt.AdamWConfig(lr=3e-4, warmup_steps=1)
+        batch = {k: torch.from_numpy(v).to(mesh.device)
+                 for k, v in make_batch(cfg, 2, 64, 0,
+                                        np.random.default_rng(5)).items()}
+        leaf_specs = _spec_leaves(specs, init_params(cfg, device="meta"))
+        # the single-rank step, one rank at a time (two whole f32 trees
+        # with their gradients and moments would not fit the card
+        # together); each rank keeps its slices of it
+        for r in range(mesh.size):
+            if r == mesh.rank:
+                ref = _single_rank_step(cfg, ep, mesh, batch, ocfg)
+                # kept on the host, a leaf brought back at a time
+                mine = [(rg[sh.leaf_index(rg.shape, s, mesh)].cpu(),
+                         rp[sh.leaf_index(rp.shape, s, mesh)].cpu(),
+                         float(rg.abs().max()), rp.numel())
+                        for rg, rp, s in zip(_leaves(ref[1]),
+                                             _leaves(ref[2]), leaf_specs)]
+                r_loss = ref[0]
+                del ref
+                torch.cuda.empty_cache()
+            dist.barrier(group=mesh.control_group)
+        params = sh.shard_params(init_params(cfg, seed=3, device=mesh.device),
+                                 specs, mesh)
+        loss, _, grads = loss_and_grads(
+            cfg, params, sh.shard_batch(batch, cfg, mesh, par), ctx=ctx)
+        opt.apply(ocfg, params, grads, opt.init(params), mesh=mesh,
+                  specs=specs)
+        g_worst, p_max, counts = 0.0, 0.0, []
+        for g, p, (rg, rp, g_max, _), spec in zip(
+                _leaves(grads), _leaves(params), mine, leaf_specs):
+            g_worst = max(g_worst, float((g - rg.to(g.device)).abs().max())
+                          / max(g_max, 1e-30))
+            d = (p - rp.to(p.device)).abs()
+            p_max = max(p_max, float(d.max()))
+            named = {a for e in spec if e is not None
+                     for a in sh._axes(e)}
+            owner = all(mesh.coords[a] == 0 for a in mesh.axis_names
+                        if a not in named)
+            counts.append(int((d > 1e-6).sum()) if owner else 0)
+        out.append({"name": name, "rank": mesh.rank, "loss": float(loss),
+                    "ref_loss": r_loss, "g_worst": g_worst,
+                    "p_max": p_max, "counts": counts,
+                    "limits": [max(8, int(1e-3 * n)) for *_, n in mine],
+                    "numel": [n for *_, n in mine],
+                    "lr": ocfg.lr, "seconds": time.perf_counter() - t_run})
+        del params, grads, mine
+        torch.cuda.empty_cache()
+    return out
+
+
+def _single_rank_step(cfg, ep, mesh, batch, ocfg):
+    """(loss, gradients, updated params) of one single-rank train step on
+    the card from seed 3's params; on the MoE FFN's baseline branch at
+    tp > 1 its load-balance loss is the mean over the tp slices of the
+    sequence, as the reference's mesh step takes it."""
+    from repro_torch.models import moe
+    from repro_torch.models.model import init_params
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import loss_and_grads
+    params = init_params(cfg, seed=3, device=mesh.device)
+    whole = moe.load_balance_loss
+    if cfg.moe is not None and not ep and mesh.shape["model"] > 1:
+        moe.load_balance_loss = _sliced_aux(mesh.shape["model"],
+                                            batch["labels"].shape[0])
+    try:
+        loss, _, grads = loss_and_grads(cfg, params, batch)
+    finally:
+        moe.load_balance_loss = whole
+    opt.apply(ocfg, params, grads, opt.init(params))
+    return float(loss), grads, params
+
+
+def _check_train_mesh_run(run, ranks, smi, results):
+    """Per rank: finite losses, alike on every rank; launches equal to
+    what the layer count predicts times the steps; FSDP bytes; every
+    leaf and moment alike on the ranks holding the same slice."""
+    steps = TRAIN_MESH_STEPS
+    name, path = run[0], run[-1]
+    for r in ranks:
+        coll = 100 * r["coll_s"] / (sum(r["ms"]) / 1e3)
+        ms = sorted(r["ms"])[len(r["ms"]) // 2]
+        log(f"  train_mesh {name} rank {r['rank']} ({smi}; {r['layers']} "
+            f"layers, {r['batch_rows']} rows a rank): losses "
+            f"{[round(x, 4) for x in r['losses']]}, median {ms:.1f} ms a "
+            f"step, collectives {r['coll_n']} calls {r['coll_s']:.2f} s "
+            f"({coll:.1f}% of the timed steps), peak "
+            f"max_memory_allocated {r['peak_gb']:.2f} GB, params + moments "
+            f"{r['rank_bytes'] / 1e9:.3f} GB of the whole tree's "
+            f"{r['whole_bytes'] / 1e9:.3f} GB "
+            f"({100 * r['rank_bytes'] / r['whole_bytes']:.1f}%); of the "
+            f"FSDP-sharded params {r['fsdp_bytes'] / 1e9:.3f} GB where the "
+            f"tp split alone would leave {r['fsdp_unsplit_bytes'] / 1e9:.3f}"
+            f" GB (1/{r['data']} of it expected); run {r['run_s']:.1f} s "
+            f"(draw {r['draw_s']:.1f}, warm-up step {r['warm_s']:.1f})")
+        log("  train_mesh run: " + json.dumps(
+            {k: v for k, v in r.items() if k != "digests"}))
+        if not all(map(math.isfinite, r["losses"])):
+            raise AssertionError(f"train_mesh {name}: non-finite loss")
+        if r["fsdp_bytes"] * r["data"] != r["fsdp_unsplit_bytes"]:
+            raise AssertionError(f"train_mesh {name} rank {r['rank']}: "
+                                 f"{r['fsdp_bytes']} bytes of FSDP-sharded "
+                                 f"params, not 1/{r['data']} of "
+                                 f"{r['fsdp_unsplit_bytes']}")
+        if r["losses"] != ranks[0]["losses"]:
+            raise AssertionError(f"train_mesh {name}: ranks disagree on "
+                                 "the loss")
+        want = {k: v * steps for k, v in r["predicted"].items()}
+        bad = {k: (r["counts"].get(k, 0), v) for k, v in want.items()
+               if r["counts"].get(k, 0) != v}
+        if bad:
+            raise AssertionError(f"train_mesh {name} rank {r['rank']}: "
+                                 f"launches (got, predicted) {bad}")
+        for k in PATHS[path]:
+            if r["counts"].get(k, 0) <= 0:
+                raise AssertionError(f"{k} was never launched on the {path} "
+                                     f"path ({name} rank {r['rank']})")
+        for k, n in r["counts"].items():
+            if n and k in KERNELS:
+                res = results.setdefault(k, {"name": k, **KERNELS[k]})
+                res.setdefault("launches_by_path", {})[
+                    f"{path} rank {r['rank']} {name}"] = n
+                res["launches"] = sum(res["launches_by_path"].values())
+    held = {}
+    for r in ranks:
+        for i, (starts, dig) in enumerate(r["digests"]):
+            held.setdefault((i, starts), set()).add(dig)
+    if any(len(d) != 1 for d in held.values()):
+        raise AssertionError(f"train_mesh {name}: ranks holding the same "
+                             "slice of a leaf hold different bits")
+    shared = sum(len(r["digests"]) for r in ranks) - len(held)
+    log(f"  train_mesh {name}: every leaf and moment bit for bit alike on "
+        f"the ranks holding the same slice ({len(held)} (leaf, slice) "
+        f"pairs over {len(ranks)} ranks, {shared} held by more than one)")
+
+
+def phase_train_mesh(ctx):
+    """Training under a (data, tp) mesh with FSDP: two ranks (spawned
+    processes) on the one card over gloo, K5a-c on each rank's heads,
+    K4 / K4b on each data rank's rows."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn
+    smi, results = ctx["smi"], ctx["results"]
+    log(f"  train_mesh phase on {smi}: 2 processes time-sharing one card "
+        "over a host-staged gloo reduction: these runs check correctness "
+        "and count; every time below is that, not data-parallel speed")
+    log("  train_mesh: published widths; depth cut so that the phase keeps "
+        "near 180 s: " + ", ".join(
+            f"{r[0]} {r[2]} of {get_config(r[1]).num_layers} layers"
+            for r in TRAIN_MESH_RUNS))
+    for k in [k for k in ctx if k not in ("card", "smi", "results")]:
+        del ctx[k]
+    gc.collect()
+    torch.cuda.empty_cache()
+    for shape in ((2, 1), (1, 2)):
+        t0 = time.perf_counter()
+        runs = [r for r in TRAIN_MESH_RUNS if r[3] == shape]
+        parity = [r for r in TRAIN_MESH_PARITY if r[2] == shape]
+        out = spawn(train_mesh_rank, shape[1], (runs, parity),
+                    data=shape[0], device="cuda", backend="gloo",
+                    timeout=300, deadline=900)
+        log(f"  train_mesh bf16 and f32 runs at (data {shape[0]}, tp "
+            f"{shape[1]}) done in {time.perf_counter() - t0:.1f} s (spawn "
+            "to results)")
+        for i, run in enumerate(runs):
+            _check_train_mesh_run(run, [o[0][i] for o in out], smi, results)
+        for i, run in enumerate(parity):
+            ranks = [o[1][i] for o in out]
+            r, lr = ranks[0], ranks[0]["lr"]
+            g_worst = max(x["g_worst"] for x in ranks)
+            p_max = max(x["p_max"] for x in ranks)
+            beyond = [sum(c) for c in zip(*(x["counts"] for x in ranks))]
+            over = [(n, lim, numel) for n, lim, numel in zip(
+                beyond, r["limits"], r["numel"]) if n > lim]
+            ok = (abs(r["loss"] - r["ref_loss"]) <= 1e-5 * abs(r["ref_loss"])
+                  and g_worst <= 1e-4 and p_max <= 2 * lr and not over
+                  and all(x["loss"] == r["loss"] for x in ranks))
+            log(f"  train_mesh parity {run[0]} f32 B2 S64 ({smi}): loss "
+                f"mesh {r['loss']:.6f} single rank {r['ref_loss']:.6f} "
+                f"(limit 1e-5 relative); worst gradient diff / leaf max "
+                f"{g_worst:.3e} (limit 1e-4); updated params max |diff| "
+                f"{p_max:.3e} (limit {2 * lr:.1e}), {sum(beyond)} elements "
+                f"beyond 1e-6, leaves over max(8, 1e-3 numel): {over}; "
+                f"{max(x['seconds'] for x in ranks):.1f} s "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"train_mesh parity {run[0]}: out of "
+                                     "bounds")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4720,7 +5202,8 @@ def main(argv=None) -> int:
                       ("int8", lambda: phase_int8(ctx)),
                       ("train", lambda: phase_train(ctx)),
                       ("parity", lambda: phase_parity(ctx)),
-                      ("mesh", lambda: phase_mesh(ctx))):
+                      ("mesh", lambda: phase_mesh(ctx)),
+                      ("train_mesh", lambda: phase_train_mesh(ctx))):
         if phase not in phases:
             continue
         t = time.perf_counter()

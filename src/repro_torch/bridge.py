@@ -34,7 +34,9 @@ def from_jax_params(tree, device=None, mesh=None, *, cfg=None,
     the model's ``cfg``: only this rank's slice of each leaf, as
     ``Engine(mesh=...)`` places it (``distributed.sharding``:
     ``param_specs`` then ``placement_specs``, under ``parallelism``,
-    default the serving one), so a rank never copies the whole tree."""
+    default the serving one; ``ParallelismConfig(fsdp=True)`` places the
+    FSDP shards a mesh trains on), so a rank never copies the whole
+    tree."""
     dev = resolve_device(device)
     if mesh is None:
         return tree_map(lambda a: _tensor(a, dev), tree)
@@ -52,11 +54,15 @@ def from_jax_params(tree, device=None, mesh=None, *, cfg=None,
         a[leaf_index(a.shape, spec, mesh)]), dev), arrays, specs)
 
 
-def from_jax_opt_state(state, device=None):
+def from_jax_opt_state(state, device=None, mesh=None, *, cfg=None,
+                       parallelism=None):
     """A JAX ``AdamWState`` of numpy arrays
     (``jax.tree.map(np.asarray, state)``) as the port's
     :class:`~repro_torch.train.optimizer.AdamWState` on ``device``
-    (default ``cuda``): the int32 step and the float32 moments."""
+    (default ``cuda``): the int32 step and the float32 moments.  With
+    ``mesh``, ``cfg`` and ``parallelism``: this rank's slice of each
+    moment, sliced as :func:`from_jax_params` slices its param."""
+    place = lambda tree: from_jax_params(tree, device, mesh, cfg=cfg,
+                                         parallelism=parallelism)
     return AdamWState(step=from_jax_params(state.step, device),
-                      mu=from_jax_params(state.mu, device),
-                      nu=from_jax_params(state.nu, device))
+                      mu=place(state.mu), nu=place(state.nu))

@@ -24,6 +24,7 @@ this rank's slice.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Tuple
 
@@ -283,21 +284,25 @@ def placement_specs(specs, cfg: ModelConfig, mesh, par: ParallelismConfig):
       FSDP-only in the rules, so whole on every rank without FSDP.
     * MoE without expert parallelism: the reference's ``shard_map``
       gathers every expert to every device at each call (``in_specs``
-      ``P()``); each rank holds them whole instead, gathered once."""
+      ``P()``); each rank holds them whole over tp instead, gathered once.
+
+    Either departure drops only the tp entry of a spec: under FSDP the
+    data axis still shards the leaf (``fsdp_gather`` puts it together in
+    each layer)."""
     tp = mesh.shape[par.tp_axis]
     whole_attn = not heads_split(cfg, tp)
     ep = cfg.moe is not None and par.expert_parallel \
         and cfg.moe.num_experts % tp == 0
+    whole = lambda s: _drop_axis(s, par.tp_axis)
 
     def block(spec):
         out = dict(spec)
         if whole_attn and "attn" in spec:
-            out["attn"] = tree_map(lambda s: P(*(None,) * len(s)),
-                                   spec["attn"])
+            out["attn"] = tree_map(whole, spec["attn"])
         if "moe" in spec and not ep:
             out["moe"] = dict(spec["moe"])
             for n in ("w_gate", "w_up", "w_down"):
-                out["moe"][n] = P(None, None, None)
+                out["moe"][n] = whole(spec["moe"][n])
         return out
 
     out = dict(specs)
@@ -305,6 +310,16 @@ def placement_specs(specs, cfg: ModelConfig, mesh, par: ParallelismConfig):
     if "shared_block" in specs:
         out["shared_block"] = block(specs["shared_block"])
     return out
+
+
+def _drop_axis(spec, axis: str) -> P:
+    """``spec`` with ``axis`` taken out of every entry."""
+    out = []
+    for e in spec:
+        names = tuple(a for a in (_axes(e) if e is not None else ())
+                      if a != axis)
+        out.append(names or None)
+    return P(*out)
 
 
 def _slice(spec, mesh, dim_index):
@@ -357,3 +372,99 @@ def shard_params(params, specs, mesh):
     """This rank's slice of each leaf of ``params`` (whole, as the JAX
     package lays them out) under ``specs``, structure kept."""
     return tree_map(lambda t, s: shard_leaf(t, s, mesh), params, specs)
+
+
+# ------------------------------------------------------------- training
+def parallelism_of(ctx) -> ParallelismConfig:
+    """The :class:`ParallelismConfig` a ctx of :func:`make_ctx` was made
+    from."""
+    return ParallelismConfig(tp_axis=ctx.tp_axis, dp_axes=tuple(ctx.dp_axes),
+                             fsdp=bool(ctx.fsdp_axes),
+                             expert_parallel=ctx.expert_parallel,
+                             attn_sharding=ctx.attn_sharding)
+
+
+@functools.lru_cache(maxsize=32)
+def _rank_specs(cfg: ModelConfig, shape: Tuple, par: ParallelismConfig):
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.model import init_params
+    mesh = Mesh(dict(shape))
+    return placement_specs(param_specs(init_params(cfg, device="meta"), cfg,
+                                       mesh, par), cfg, mesh, par)
+
+
+def rank_specs(cfg: ModelConfig, mesh, par: ParallelismConfig):
+    """The placement specs of ``cfg``'s whole parameter tree on ``mesh``
+    under ``par`` (:func:`param_specs` of meta tensors, then
+    :func:`placement_specs`), cached per config, mesh shape and
+    parallelism."""
+    return _rank_specs(cfg, tuple(mesh.shape.items()), par)
+
+
+def fsdp_dim(spec, par: ParallelismConfig):
+    """The dim of a leaf that ``spec`` shards over the data axes (its FSDP
+    dim), or None where the leaf is whole over them.  The rules put it on
+    dim 0 of ``wq``/``wk``/``wv``, an MLP's ``w_gate``/``w_up``, the
+    router, ``w_dkv``/``w_krope`` and every 2-D SSM weight, on dim 1 of
+    ``wo``/``w_down`` and of the MoE ``w_down`` ``[E, F, D]``, on dim 2
+    of the MoE ``w_gate``/``w_up`` ``[E, D, F]``; never on an embedding
+    or a head, and only where the data axes divide the dim."""
+    dp = set(_axes(par.dp_axes))
+    for d, e in enumerate(spec):
+        if e is not None and dp & set(_axes(e)):
+            return d
+    return None
+
+
+def fsdp_dims(specs, par: ParallelismConfig):
+    """:func:`fsdp_dim` of every leaf of a spec tree."""
+    return tree_map(lambda s: fsdp_dim(s, par), specs)
+
+
+def replication(spec, mesh) -> int:
+    """How many ranks hold each slice of a leaf under ``spec``: the
+    product of the sizes of the mesh axes the spec does not name."""
+    named = {a for e in spec if e is not None for a in _axes(e)}
+    return math.prod(n for a, n in mesh.shape.items() if a not in named)
+
+
+def shard_batch(batch, cfg: ModelConfig, mesh, par: ParallelismConfig):
+    """This data rank's rows of each array of a global ``batch`` (dim 0,
+    under :func:`input_sharding`).  The port's training path runs each
+    data rank on rows of its own, so a data axis of more than one rank
+    must divide the batch."""
+    b = next(iter(batch.values())).shape[0]
+    spec = input_sharding(cfg, mesh, par, b)
+    if spec is None:
+        if math.prod(mesh.shape[a] for a in _axes(par.dp_axes)) > 1:
+            raise ValueError(f"a batch of {b} rows does not split over the "
+                             f"data axes {par.dp_axes} of {mesh.shape}")
+        return dict(batch)
+    return {k: shard_leaf(v, P(spec), mesh) for k, v in batch.items()}
+
+
+def gather_params(params, specs, mesh):
+    """Every leaf whole on every rank, from each rank's slice under
+    ``specs`` (the inverse of :func:`shard_params`; for checkpoints and
+    tests).  A split leaf is one zero-padded sum over all ranks, to which
+    only the ranks at index 0 of the axes its spec leaves out add their
+    slice."""
+    import torch
+    import torch.distributed as dist
+    group = mesh.group(tuple(mesh.axis_names))
+
+    def whole(t, spec):
+        named = {a for e in spec if e is not None for a in _axes(e)}
+        shape = tuple(n * _slice(spec, mesh, d)[0]
+                      for d, n in enumerate(t.shape))
+        if shape == tuple(t.shape):
+            return t
+        wide = torch.float32 if t.dtype in (torch.bfloat16,
+                                            torch.float16) else t.dtype
+        full = torch.zeros(shape, dtype=wide, device=t.device)
+        if all(mesh.coords[a] == 0 for a in mesh.axis_names
+               if a not in named):
+            full[leaf_index(shape, spec, mesh)] = t.to(wide)
+        dist.all_reduce(full, group=group)
+        return full.to(t.dtype)
+    return tree_map(whole, params, specs)

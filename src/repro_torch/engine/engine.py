@@ -113,7 +113,7 @@ from repro_torch.engine.sampling import sample
 from repro_torch.models.cache import (copy_page, init_cache,
                                       init_paged_cache, paged_slot_len)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import (check_mesh_ported, forward_chunk,
+from repro_torch.models.model import (forward_chunk,
                                       forward_chunk_paged, forward_decode,
                                       forward_decode_paged, forward_full,
                                       forward_prefill_paged, init_params)
@@ -300,7 +300,6 @@ class Engine:
                 "are ROADMAP M11b")
         self.parallelism = par
         self.ctx = make_ctx(mesh, par)
-        check_mesh_ported(self.cfg, self.ctx)
         full = init_params(self.cfg, device="meta")
         specs = placement_specs(param_specs(full, self.cfg, mesh, par),
                                 self.cfg, mesh, par)

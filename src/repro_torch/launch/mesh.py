@@ -17,8 +17,9 @@ process and touches no device.
   :mod:`repro_torch.distributed.sharding` and its tests read it.
 * :func:`make_host_mesh` — joins the default process group the caller
   started (``torch.distributed.init_process_group``) and builds, on every
-  rank in the same order, one group per axis line plus a gloo group over
-  all ranks for host messages (the serving engine's step commands).
+  rank in the same order, one group per axis line, one over both axes
+  (every rank), and a gloo group over all ranks for host messages (the
+  serving engine's step commands).
 * :func:`spawn` — starts one process per rank with the ``spawn`` start
   method (a forked child cannot use CUDA once the parent has), joins
   them into a group on ``tcp://localhost:<free port>``, calls
@@ -75,8 +76,9 @@ class Mesh:
         self.engines_built = 0
         self.followers: Dict[int, object] = {}
 
-    def group(self, axis: str):
-        """The process group over ``axis`` that holds this rank."""
+    def group(self, axis):
+        """The process group over ``axis`` that holds this rank; a tuple
+        of both axes names the group of every rank."""
         if axis not in self._groups:
             raise ValueError(f"this mesh has no process group for {axis!r} "
                              "(a shape-only mesh has none)")
@@ -122,8 +124,9 @@ def make_host_mesh(tp: Optional[int] = None, data: int = 1, *,
     (default: the card, :func:`~repro_torch.device.resolve_device`; pass
     ``"cpu"`` for the plain path).  ``tp`` defaults to every rank not claimed by
     ``data``.  Every rank must call this, with the same arguments: each
-    axis line gets a group of its own (the default group's backend), and
-    all ranks share one gloo group for host messages."""
+    axis line gets a group of its own (the default group's backend), so
+    do both axes together (``mesh.group(AXES)``), and all ranks share one
+    gloo group for host messages."""
     import torch.distributed as dist
     if not dist.is_initialized():
         raise RuntimeError("make_host_mesh joins a process group the caller "
@@ -150,6 +153,8 @@ def make_host_mesh(tp: Optional[int] = None, data: int = 1, *,
             g = dist.new_group(ranks, timeout=td)
             if all(mine[a] == at[a] for a in others):
                 groups[axis] = g
+    # both axes at once: the 2-D expert-parallel MoE sums over them
+    groups[AXES] = dist.new_group(list(range(world)), timeout=td)
     control = dist.new_group(list(range(world)), backend="gloo", timeout=td)
     return Mesh(shape, rank=rank, device=resolve_device(device),
                 groups=groups, control_group=control, timeout=timeout)

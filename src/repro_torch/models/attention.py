@@ -31,7 +31,10 @@ column shards of ``wq``/``wk``/``wv`` make rank r's q heads the groups of
 its kv heads, checked in :func:`_local_heads`), so the kernels see whole
 kv heads of the rank's pages and run unchanged, and the row-parallel
 ``wo`` product is summed over the ranks; elsewhere the rank holds every
-head and the block runs replicated (``sharding.placement_specs``).
+head and the block runs replicated (``sharding.placement_specs``).  In
+training (``gqa_full``, ``mla_full``) the block's input (and the
+qk-norm scales, whole on every rank) enters the rank's heads through
+``layers.tp_enter``, whose backward sums the ranks' gradients of it.
 
 MLA (multi-head latent attention, DeepSeek-V2) follows the JAX package's
 arithmetic in plain PyTorch, as the JAX package runs it in jnp with no
@@ -56,7 +59,7 @@ from repro_torch.models.cache import (dequantize_kv, gather_pages,
                                       quantize_kv)
 from repro_torch.models.layers import (apply_rope, dot, heads_split, normal,
                                        rmsnorm, rope_cos_sin, tp_all_reduce,
-                                       tp_rank, tp_size)
+                                       tp_enter, tp_rank, tp_size)
 
 NEG_INF = -1e30
 
@@ -133,19 +136,22 @@ def _out_proj(params, out, ctx, split: bool):
     return tp_all_reduce(y, ctx) if split else y
 
 
-def _project_qkv(params, cfg, x, positions, heads=None):
+def _project_qkv(params, cfg, x, positions, heads=None, ctx=None):
     """Q/K/V projections, optional qk-norm, RoPE, over ``heads`` (q, kv)
     heads: this rank's (:func:`_local_heads`), default all of them.
-    x: [B, S, D]."""
+    x: [B, S, D].  ``ctx``: the rank's heads are a split of them, which
+    ``x`` and the qk-norm scales (whole on every rank) enter through
+    ``tp_enter``."""
     b, s, _ = x.shape
     h, kv = heads or (cfg.num_heads, cfg.num_kv_heads)
     hd = cfg.head_dim
+    x = tp_enter(x, ctx)
     q = dot(x, params["wq"]).reshape(b, s, h, hd)
     k = dot(x, params["wk"]).reshape(b, s, kv, hd)
     v = dot(x, params["wv"]).reshape(b, s, kv, hd)
     if cfg.qk_norm:
-        q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
+        q = rmsnorm(q, tp_enter(params["q_norm"], ctx), cfg.norm_eps)
+        k = rmsnorm(k, tp_enter(params["k_norm"], ctx), cfg.norm_eps)
     cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta, cfg.mrope_sections)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
@@ -159,7 +165,8 @@ def gqa_full(params, cfg, x, positions, ctx=None):
     b, s, _ = x.shape
     h, kv, split = _local_heads(params, cfg, ctx)
     hd = cfg.head_dim
-    q, k, v = _project_qkv(params, cfg, x, positions, (h, kv))
+    q, k, v = _project_qkv(params, cfg, x, positions, (h, kv),
+                           ctx if split else None)
     if _use_attn_kernel(cfg, s):
         out = ops.flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=True,
@@ -477,16 +484,17 @@ def _mla_heads(params, cfg, ctx):
     return h, split
 
 
-def _mla_project(params, cfg, x, positions, h=None):
+def _mla_project(params, cfg, x, positions, h=None, ctx=None):
     """q over ``h`` heads (default all of them) split into its no-rope
     and rope parts ([B,S,h,nope] and [B,S,h,rope_d], RoPE applied), the
     normed latent c_kv [B,S,rank] and the shared rope key k_pe
-    [B,S,rope_d]."""
+    [B,S,rope_d].  ``ctx``: x enters this rank's columns of ``wq``
+    (``tp_enter``)."""
     m = cfg.mla
     b, s, _ = x.shape
     nope, rope_d = m.qk_nope_head_dim, m.qk_rope_head_dim
-    q = dot(x, params["wq"]).reshape(b, s, h or cfg.num_heads,
-                                     nope + rope_d)
+    q = dot(tp_enter(x, ctx), params["wq"]).reshape(
+        b, s, h or cfg.num_heads, nope + rope_d)
     c_kv = rmsnorm(dot(x, params["w_dkv"]), params["kv_norm"], cfg.norm_eps)
     k_pe = dot(x, params["w_krope"]).reshape(b, s, 1, rope_d)
     cos, sin = rope_cos_sin(positions, rope_d, cfg.rope_theta)
@@ -502,14 +510,18 @@ def mla_full(params, cfg, x, positions, ctx=None):
     b, s, _ = x.shape
     h, split = _mla_heads(params, cfg, ctx)
     nope, rope_d, vhd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
-    q_nope, q_pe, c_kv, k_pe = _mla_project(params, cfg, x, positions, h)
-    k_nope = dot(c_kv, params["w_uk"]).reshape(b, s, h, nope)
-    v = dot(c_kv, params["w_uv"]).reshape(b, s, h, vhd)
+    ent = ctx if split else None
+    q_nope, q_pe, c_kv, k_pe = _mla_project(params, cfg, x, positions, h,
+                                            ent)
+    # the whole latent and rope key enter this rank's heads
+    c_in, pe_in = tp_enter(c_kv, ent), tp_enter(k_pe, ent)
+    k_nope = dot(c_in, params["w_uk"]).reshape(b, s, h, nope)
+    v = dot(c_in, params["w_uv"]).reshape(b, s, h, vhd)
     # 1/sqrt(nope + rope_d) with the root rounded to x's dtype, as the
     # JAX package scales (a 0-d CPU tensor: a scalar to the device op)
     scale = 1.0 / torch.tensor(float(nope + rope_d)).sqrt().to(x.dtype)
     scores = (torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope)
-              + torch.einsum("bqhd,bkd->bhqk", q_pe, k_pe)) * scale
+              + torch.einsum("bqhd,bkd->bhqk", q_pe, pe_in)) * scale
     mask = _causal_mask(s, s, 0, 0, x.device)
     probs = torch.softmax(scores.float().masked_fill(~mask, NEG_INF),
                           dim=-1).to(x.dtype)

@@ -1,17 +1,34 @@
 """Shared layer primitives: norms, rotary embeddings (incl. M-RoPE), MLPs,
-and the tensor-parallel reductions.
+and the collectives of a mesh.
 
 Counterpart of ``src/repro/models/layers.py``; parameters keep the JAX layout
 (``x @ w`` with ``w: [d_in, d_out]``).
 
 Under a mesh (a ``ShardingCtx``, :mod:`repro_torch.models.moe`) each rank
-is a process holding its slice of the weights, and the sums GSPMD inserts
-in the JAX package are explicit here: :func:`tp_all_reduce` after a
-row-parallel product (``wo``, the MLP's ``w_down``), :func:`tp_all_gather`
-where each rank computed a slice of a dim (vocabulary logits, MoE token
-slices).  Both are ``all_reduce`` calls on the ctx's tp group, the one
-collective gloo runs on CUDA tensors; a bf16 tensor is reduced in float32
-and rounded once.  Without a ctx (or at tp 1) they are the identity.
+is a process holding its slice of the weights and its rows of the batch,
+and the collectives GSPMD inserts in the JAX package are explicit here,
+each a ``torch.autograd.Function`` whose backward is the collective the
+gradient needs (Megatron's "f" and "g"):
+
+* :func:`tp_all_reduce` after a row-parallel product (``wo``, the MLP's
+  ``w_down``): forward a sum over tp, backward the identity, since every
+  tp rank consumes the same sum;
+* :func:`tp_enter` where a replicated activation enters a rank's head,
+  column, vocabulary or expert shard: forward the identity, backward a
+  sum over tp (each rank's shard adds its part of the gradient);
+* :func:`tp_all_gather` where each rank computed a slice of a dim
+  (vocabulary logits, MoE sequence slices): backward the rank's slice;
+* :func:`fsdp_gather`: a weight's FSDP shards put back together over
+  the data axis; backward a sum over the data axis of which the rank
+  keeps its slice (a reduce-scatter);
+* :func:`data_all_reduce`: a sum over the data axis whose every rank
+  consumes the same value (the loss, the MoE load-balance loss):
+  backward the identity.
+
+The forwards are ``all_reduce`` calls, the one collective gloo runs on
+CUDA tensors (a gather is a zero-padded sum, exact); a bf16 tensor is
+reduced in float32 and rounded once.  Without a ctx (or on an axis of
+size 1) they are the identity.
 """
 from __future__ import annotations
 
@@ -74,33 +91,178 @@ def _reduce_dtype(x: torch.Tensor) -> torch.dtype:
         else x.dtype
 
 
-def tp_all_reduce(x: torch.Tensor, ctx) -> torch.Tensor:
-    """Sum ``x`` over the ctx's tp group (a row-parallel product's
-    partial sums); identity without a ctx."""
-    if tp_size(ctx) == 1:
-        return x
+def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    """A new tensor: ``x`` summed over ``group``."""
     import torch.distributed as dist
     y = x.to(_reduce_dtype(x), copy=True).contiguous()
-    dist.all_reduce(y, group=ctx.mesh.group(ctx.tp_axis))
+    dist.all_reduce(y, group=group)
     return y.to(x.dtype)
+
+
+def _gather(x: torch.Tensor, dim: int, group, index: int,
+            parts: int) -> torch.Tensor:
+    """Each rank's ``x`` concatenated along ``dim`` in group order: the
+    rank writes its slice (number ``index`` of ``parts``) into zeros and
+    the group sums them (a sum with zeros is exact, and every rank gets
+    the same bits)."""
+    import torch.distributed as dist
+    n = x.shape[dim]
+    shape = list(x.shape)
+    shape[dim] = n * parts
+    full = torch.zeros(shape, dtype=_reduce_dtype(x), device=x.device)
+    full.narrow(dim, index * n, n).copy_(x)
+    dist.all_reduce(full, group=group)
+    return full.to(x.dtype)
+
+
+class _AllReduce(torch.autograd.Function):
+    """Forward: the sum over ``group``.  Backward: the gradient as it
+    is (every rank consumes the same sum), or summed over ``bwd_group``
+    where the ranks of that group consume different parts of it."""
+
+    @staticmethod
+    def forward(fctx, x, group, bwd_group):
+        fctx.bwd_group = bwd_group
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(fctx, g):
+        if fctx.bwd_group is not None:
+            g = _sum(g, fctx.bwd_group)
+        return g, None, None
+
+
+class _Enter(torch.autograd.Function):
+    """Forward: the identity.  Backward: the sum over ``group``."""
+
+    @staticmethod
+    def forward(fctx, x, group):
+        fctx.group = group
+        return x
+
+    @staticmethod
+    def backward(fctx, g):
+        return _sum(g, fctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    """Forward: :func:`_gather`.  Backward: the rank's slice of the
+    gradient, summed over ``bwd_group`` first where given."""
+
+    @staticmethod
+    def forward(fctx, x, dim, group, index, parts, bwd_group):
+        dim = dim % x.dim()
+        fctx.slice = (dim, index * x.shape[dim], x.shape[dim])
+        fctx.bwd_group = bwd_group
+        return _gather(x, dim, group, index, parts)
+
+    @staticmethod
+    def backward(fctx, g):
+        if fctx.bwd_group is not None:
+            g = _sum(g, fctx.bwd_group)
+        return (g.narrow(*fctx.slice).contiguous(), None, None, None, None,
+                None)
+
+
+def all_reduce(x, group, bwd_group=None):
+    """:class:`_AllReduce`: the sum over ``group`` under autograd."""
+    return _AllReduce.apply(x, group, bwd_group)
+
+
+def enter(x, group):
+    """:class:`_Enter`: the identity, whose backward sums over
+    ``group``."""
+    return _Enter.apply(x, group)
+
+
+def all_gather(x, dim: int, group, index: int, parts: int,
+               bwd_group=None):
+    """:class:`_AllGather`: the ranks' ``x`` along ``dim`` under
+    autograd."""
+    return _AllGather.apply(x, dim, group, index, parts, bwd_group)
+
+
+def tp_all_reduce(x: torch.Tensor, ctx) -> torch.Tensor:
+    """Sum ``x`` over the ctx's tp group (a row-parallel product's
+    partial sums); identity without a ctx.  Backward: the identity."""
+    if tp_size(ctx) == 1:
+        return x
+    return all_reduce(x, ctx.mesh.group(ctx.tp_axis))
+
+
+def tp_enter(x: torch.Tensor, ctx) -> torch.Tensor:
+    """``x``, replicated over tp, entering this rank's shard; backward
+    sums the ranks' gradients (identity without a ctx)."""
+    if tp_size(ctx) == 1:
+        return x
+    return enter(x, ctx.mesh.group(ctx.tp_axis))
 
 
 def tp_all_gather(x: torch.Tensor, ctx, dim: int) -> torch.Tensor:
     """Concatenate each rank's ``x`` along ``dim`` in rank order, on
-    every rank: each rank writes its slice into zeros and the group sums
-    them (a sum with zeros is exact, and every rank gets the same
-    bits)."""
+    every rank.  Backward: this rank's slice of the gradient."""
     if tp_size(ctx) == 1:
         return x
-    import torch.distributed as dist
-    dim = dim % x.dim()
-    n = x.shape[dim]
-    shape = list(x.shape)
-    shape[dim] = n * tp_size(ctx)
-    full = torch.zeros(shape, dtype=_reduce_dtype(x), device=x.device)
-    full.narrow(dim, tp_rank(ctx) * n, n).copy_(x)
-    dist.all_reduce(full, group=ctx.mesh.group(ctx.tp_axis))
-    return full.to(x.dtype)
+    return all_gather(x, dim, ctx.mesh.group(ctx.tp_axis), tp_rank(ctx),
+                      tp_size(ctx))
+
+
+@torch.no_grad()
+def tp_max(x: torch.Tensor, ctx) -> torch.Tensor:
+    """The elementwise max of ``x`` over tp (no gradient): the ranks'
+    tensors gathered, then reduced (only sums run on every backend)."""
+    if tp_size(ctx) == 1:
+        return x
+    return _gather(x[None], 0, ctx.mesh.group(ctx.tp_axis), tp_rank(ctx),
+                   tp_size(ctx)).amax(dim=0)
+
+
+# ------------------------------------------------------------ data axis
+def dp_axis(ctx) -> str:
+    """The ctx's one data axis (the port's meshes have one)."""
+    axes = (ctx.dp_axes,) if isinstance(ctx.dp_axes, str) \
+        else tuple(ctx.dp_axes)
+    if len(axes) != 1:
+        raise NotImplementedError(f"data axes {axes}: a mesh of the port "
+                                  "has one data axis")
+    return axes[0]
+
+
+def dp_size(ctx) -> int:
+    return 1 if ctx is None else ctx.mesh.shape.get(dp_axis(ctx), 1)
+
+
+def dp_rank(ctx) -> int:
+    return 0 if ctx is None else ctx.mesh.coords.get(dp_axis(ctx), 0)
+
+
+def data_all_reduce(x: torch.Tensor, ctx) -> torch.Tensor:
+    """Sum ``x`` over the data axis; every rank consumes the sum, so the
+    backward is the identity."""
+    if dp_size(ctx) == 1:
+        return x
+    return all_reduce(x, ctx.mesh.group(dp_axis(ctx)))
+
+
+def fsdp_gather(leaf: torch.Tensor, dim, ctx) -> torch.Tensor:
+    """A weight whole along its FSDP dim ``dim`` (None: the leaf is not
+    sharded over the data axis), from each data rank's shard.  Backward:
+    the gradient summed over the data axis, of which this rank keeps its
+    shard."""
+    if dim is None or dp_size(ctx) == 1:
+        return leaf
+    group = ctx.mesh.group(dp_axis(ctx))
+    return all_gather(leaf, dim, group, dp_rank(ctx), dp_size(ctx),
+                      bwd_group=group)
+
+
+def fsdp_gather_tree(tree, dims, ctx):
+    """:func:`fsdp_gather` over the leaves of a dict tree, ``dims`` the
+    same tree of FSDP dims."""
+    if isinstance(tree, dict):
+        return {k: fsdp_gather_tree(v, dims[k], ctx)
+                for k, v in tree.items()}
+    return fsdp_gather(tree, dims, ctx)
 
 
 # ---------------------------------------------------------------- norms
@@ -219,13 +381,14 @@ def init_mlp(cfg, d_model: int, d_ff: int, dtype: torch.dtype,
 def apply_mlp(x, params, cfg, ctx=None, d_ff: int = 0):
     """The MLP; under a mesh its ``d_ff`` (the whole width) columns of
     ``w_gate``/``w_up`` and rows of ``w_down`` are split over the tp axis
-    where it divides, and the row-parallel ``w_down`` product is summed
-    over the ranks."""
+    where it divides: ``x`` enters the rank's columns and the
+    row-parallel ``w_down`` product is summed over the ranks."""
+    split = ctx is not None and tp_split(d_ff, params["w_down"].shape[0],
+                                         ctx, "MLP width")
+    if split:
+        x = tp_enter(x, ctx)
     if cfg.mlp_type == "swiglu":
         y = swiglu(x, params["w_gate"], params["w_up"], params["w_down"])
     else:
         y = gelu_mlp(x, params["w_up"], params["w_down"])
-    if ctx is not None and tp_split(d_ff, params["w_down"].shape[0], ctx,
-                                    "MLP width"):
-        y = tp_all_reduce(y, ctx)
-    return y
+    return tp_all_reduce(y, ctx) if split else y

@@ -25,17 +25,22 @@ MLA archs have no chunked path (``forward_chunk`` / ``forward_chunk_paged``
 refuse them, as the JAX package asserts): the engine prefills them whole.
 
 ``forward_full`` and the three paged forwards take a ``ctx``
-(``ShardingCtx``) to run as one rank of a tensor-parallel mesh on that
-rank's slice of the params (``distributed.sharding.shard_params``) and
-pages: GQA or MLA attention over its heads (a hybrid's shared block
-too; MLA's latent whole on every rank), the MLP's and MoE's splits
+(``ShardingCtx``) to run as one rank of a mesh on that rank's slice of
+the params (``distributed.sharding.shard_params``) and pages: GQA or MLA
+attention over its heads (a hybrid's shared block too; MLA's latent
+whole on every rank), the MLP's and MoE's splits
 (:mod:`repro_torch.models.layers`, :mod:`repro_torch.models.moe`), a
 vocabulary-parallel embedding (rows outside the rank's slice masked, then
-summed) and head (each rank's vocabulary slice of the logits, put back
-together on every rank, so every rank samples the same token).  SSM
-layers run whole on every rank, on the same residual stream, so every
-rank holds the same per-slot state.  Multi-codebook models have no mesh
-path yet and raise (ROADMAP M11b).
+summed; K codebooks' tables alike) and head (each rank's vocabulary
+slice of the logits, put back together on every rank, so every rank
+samples the same token, unless ``forward_full`` is asked for the slice).
+SSM layers run whole on every tp rank, on the same residual stream, so
+every rank holds the same per-slot state.  ``forward_full`` also trains
+under a ``(data, tp)`` mesh: each data rank runs its rows of the batch,
+and under FSDP (``ctx.fsdp_axes``) each layer gathers the weights the
+data axis shards (``layers.fsdp_gather``) inside its checkpointed
+function, so the re-forward gathers them again and no whole layer
+outlives its use.
 """
 from __future__ import annotations
 
@@ -49,9 +54,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.cache import write_prefill, write_prefill_paged
 from repro_torch.models.config import SSM, ModelConfig
-from repro_torch.models.layers import apply_mlp, apply_norm, dot, init_mlp, \
-    init_norm, normal, tp_all_gather, tp_all_reduce, tp_rank, tp_size, \
-    tp_split
+from repro_torch.models.layers import apply_mlp, apply_norm, dot, dp_size, \
+    fsdp_gather_tree, init_mlp, init_norm, normal, tp_all_gather, \
+    tp_all_reduce, tp_enter, tp_rank, tp_split
 from repro_torch.models.moe import init_moe, moe_ffn
 
 
@@ -123,14 +128,16 @@ def _blocks(params):
     return [block or shared for block in params["layers"]]
 
 
-def check_mesh_ported(cfg: ModelConfig, ctx=None):
-    """Raise ``NotImplementedError`` if ``cfg`` has no path on a mesh of
-    tp > 1: GQA and MLA decoders (MLP or MoE FFN), SSM and hybrid stacks
-    run there; multi-codebook models do not yet (ROADMAP M11b)."""
-    if tp_size(ctx) > 1 and cfg.num_codebooks > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.num_codebooks} codebooks under a "
-            "tensor-parallel mesh are not ported yet (ROADMAP M11b)")
+def _vocab_rows(table, ids, ctx, split: bool):
+    """Rows ``ids`` of an embedding table; where the tp axis splits the
+    vocabulary, the rows of ids outside this rank's slice are zero."""
+    if not split:
+        return table[ids]
+    n = table.shape[0]
+    ids = ids - tp_rank(ctx) * n
+    mine = (ids >= 0) & (ids < n)
+    rows = table[torch.where(mine, ids, torch.zeros_like(ids))]
+    return torch.where(mine[..., None], rows, torch.zeros_like(rows))
 
 
 def embed_tokens(params, cfg, tokens, ctx=None):
@@ -139,35 +146,39 @@ def embed_tokens(params, cfg, tokens, ctx=None):
     them.  Under a mesh whose tp axis splits the vocabulary, each rank
     looks up the ids in its slice of rows, zeros the others, and the
     ranks' rows are summed."""
-    if cfg.num_codebooks > 1:
-        return sum(params["embed"][k][tokens[..., k].long()]
-                   for k in range(cfg.num_codebooks))
     emb = params["embed"]
-    if ctx is None or not tp_split(cfg.vocab_size, emb.shape[0], ctx,
-                                   "vocabulary"):
-        return emb[tokens.long()]
-    n = emb.shape[0]
-    ids = tokens.long() - tp_rank(ctx) * n
-    mine = (ids >= 0) & (ids < n)
-    rows = emb[torch.where(mine, ids, torch.zeros_like(ids))]
-    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
-    return tp_all_reduce(rows, ctx)
+    k = cfg.num_codebooks
+    split = ctx is not None and tp_split(
+        cfg.vocab_size, emb.shape[-2], ctx, "vocabulary")
+    if k > 1:
+        x = sum(_vocab_rows(emb[i], tokens[..., i].long(), ctx, split)
+                for i in range(k))
+    else:
+        x = _vocab_rows(emb, tokens.long(), ctx, split)
+    return tp_all_reduce(x, ctx) if split else x
 
 
-def lm_head(params, cfg, x, ctx=None):
+def lm_head(params, cfg, x, ctx=None, gather: bool = True):
     """[B, S, d] -> logits [B, S, V] (K codebooks: [B, S, K, V]).  Under
     a mesh whose tp axis splits the vocabulary each rank computes its
     slice of the logits (tied embeddings: its rows of ``embed``), and
-    the whole logits are put back together on every rank."""
+    the whole logits are put back together on every rank (``gather``;
+    else this rank's slice is returned)."""
     if cfg.num_codebooks > 1:
         w = params["embed"].transpose(1, 2) if cfg.tie_embeddings \
             else params["lm_head"]
-        return torch.stack([dot(x, w[k]) for k in range(cfg.num_codebooks)],
-                           dim=2)
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = dot(x, w)
-    if ctx is not None and tp_split(cfg.vocab_size, w.shape[1], ctx,
-                                    "vocabulary"):
+    else:
+        w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    split = ctx is not None and tp_split(cfg.vocab_size, w.shape[-1], ctx,
+                                         "vocabulary")
+    if split:
+        x = tp_enter(x, ctx)
+    if cfg.num_codebooks > 1:
+        logits = torch.stack([dot(x, w[i])
+                              for i in range(cfg.num_codebooks)], dim=2)
+    else:
+        logits = dot(x, w)
+    if split and gather:
         logits = tp_all_gather(logits, ctx, dim=-1)
     return logits
 
@@ -179,28 +190,62 @@ def _mlp_width(cfg) -> int:
         and cfg.moe.d_ff_dense else cfg.d_ff
 
 
-def _ffn_residual(block, cfg, x, ctx=None):
+def _ffn_residual(block, cfg, x, ctx=None, dims=None):
     """(x + the block's FFN of its normed input, the MoE load-balance
     loss).  The FFN is the MLP, or the MoE on an MoE layer; the loss is
     0.0 on an MLP layer (the decode paths drop it, as the JAX package
-    does)."""
+    does).  ``dims``: the block's FSDP dims (:func:`_gathered`)."""
     y = apply_norm(x, block["mlp_norm"], cfg)
     if "moe" in block:
-        y, loss = moe_ffn(block["moe"], cfg, y, ctx)
+        y, loss = moe_ffn(block["moe"], cfg, y, ctx,
+                          fsdp_dims=dims["moe"] if dims else None)
     else:
         y, loss = apply_mlp(y, block["mlp"], cfg, ctx, _mlp_width(cfg)), 0.0
     return x + y, loss
 
 
-def _attn_block_full(block, cfg, x, positions, ctx=None):
+_EXPERTS = ("w_gate", "w_up", "w_down")
+
+
+def _fsdp_plan(cfg, ctx):
+    """Each leaf's FSDP dim (``sharding.fsdp_dims`` of the placement
+    specs), or None where no leaf is sharded over the data axis (no
+    ctx, no FSDP, or a data axis of one rank)."""
+    if ctx is None or not ctx.fsdp_axes or dp_size(ctx) == 1:
+        return None
+    from repro_torch.distributed import sharding
+    par = sharding.parallelism_of(ctx)
+    return sharding.fsdp_dims(sharding.rank_specs(cfg, ctx.mesh, par), par)
+
+
+def _gathered(block, dims, ctx):
+    """The block with its FSDP-sharded weights whole (``dims``: their
+    FSDP dims; None: nothing to gather), but for the MoE's expert
+    weights, which ``moe_ffn`` gathers where its branch needs them
+    whole."""
+    if dims is None:
+        return block
+    out = {}
+    for k, v in block.items():
+        if k == "moe":
+            out[k] = {n: w if n in _EXPERTS else
+                      fsdp_gather_tree(w, dims[k][n], ctx)
+                      for n, w in v.items()}
+        else:
+            out[k] = fsdp_gather_tree(v, dims[k], ctx)
+    return out
+
+
+def _attn_block_full(block, cfg, x, positions, ctx=None, dims=None):
     """Returns (x, the layer's cache entries, the MoE load-balance loss or
-    0.0)."""
+    0.0).  ``dims``: the block's FSDP dims, its shards gathered here."""
+    block = _gathered(block, dims, ctx)
     xin = apply_norm(x, block["attn_norm"], cfg)
     if cfg.mla is not None:
         h, kv_out = attn.mla_full(block["attn"], cfg, xin, positions, ctx)
     else:
         h, kv_out = attn.gqa_full(block["attn"], cfg, xin, positions, ctx)
-    x, loss = _ffn_residual(block, cfg, x + h, ctx)
+    x, loss = _ffn_residual(block, cfg, x + h, ctx, dims)
     return x, kv_out, loss
 
 
@@ -227,9 +272,11 @@ def _attn_block_decode(block, cfg, x, positions, layer_cache, cache_pos,
     return _ffn_residual(block, cfg, x + h)[0]
 
 
-def _ssm_block_full(block, cfg, x, layer_cache=None):
+def _ssm_block_full(block, cfg, x, layer_cache=None, ctx=None, dims=None):
     """Residual Mamba2 block from the cache's (conv, ssm) state when
-    given (else zeros).  Returns (x, (conv, ssm))."""
+    given (else zeros).  Returns (x, (conv, ssm)).  ``dims``: the block's
+    FSDP dims, its shards gathered here."""
+    block = _gathered(block, dims, ctx)
     conv = ssm = None
     if layer_cache is not None:
         conv, ssm = layer_cache["conv"].to(x.dtype), layer_cache["ssm"]
@@ -239,18 +286,18 @@ def _ssm_block_full(block, cfg, x, layer_cache=None):
     return x + h, state
 
 
-def _remat_layer(block, cfg, x, positions):
-    x, _, loss = _attn_block_full(block, cfg, x, positions)
+def _remat_layer(block, cfg, x, positions, ctx, dims):
+    x, _, loss = _attn_block_full(block, cfg, x, positions, ctx, dims)
     return x, loss
 
 
-def _remat_ssm(block, cfg, x):
-    return _ssm_block_full(block, cfg, x)[0]
+def _remat_ssm(block, cfg, x, ctx, dims):
+    return _ssm_block_full(block, cfg, x, ctx=ctx, dims=dims)[0]
 
 
 def forward_full(params, cfg: ModelConfig, *, tokens=None, embeds=None,
                  positions=None, cache=None, last_only: bool = False,
-                 remat: bool = False, ctx=None):
+                 remat: bool = False, ctx=None, gather_logits: bool = True):
     """Train / prefill pass over a whole sequence. tokens: [B, S] ([B, S,
     K] with K codebooks), or ``embeds`` [B, S, d]; ``positions`` [B, S]
     ([B, S, 3] M-RoPE ids), by default 0..S-1.
@@ -268,42 +315,46 @@ def forward_full(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     MoE load-balance loss summed over the layers and divided by the
     number of attention layers, as in the JAX package (0.0 for models
     without MoE layers).  ``ctx``: run as one rank of a mesh (module
-    docstring); not with ``remat``."""
+    docstring) on this data rank's rows of the batch; under FSDP the
+    params are this rank's shards (``sharding.rank_specs``).
+    ``gather_logits=False`` returns this rank's vocabulary slice of the
+    logits where the tp axis splits the vocabulary."""
     if remat and cache is not None:
         raise ValueError("remat recomputes layers in the backward pass and "
                          "cannot write a cache")
-    check_mesh_ported(cfg, ctx)
-    if remat and ctx is not None:
-        raise NotImplementedError("training under a mesh is not ported yet "
-                                  "(ROADMAP M11b)")
     x = embeds if embeds is not None else embed_tokens(params, cfg,
                                                           tokens, ctx)
     b, s = x.shape[0], x.shape[1]
     if positions is None:
         positions = _default_positions(cfg, b, s, 0, x.device)
+    plan = _fsdp_plan(cfg, ctx)
+    dims_of = _blocks(plan) if plan is not None else \
+        [None] * len(cfg.layer_pattern)
     aux_total = 0.0
-    for i, (kind, block) in enumerate(zip(cfg.layer_pattern,
-                                          _blocks(params))):
+    for i, (kind, block, dims) in enumerate(zip(cfg.layer_pattern,
+                                                _blocks(params), dims_of)):
         if kind == SSM and remat:
-            x = checkpoint(_remat_ssm, block, cfg, x, use_reentrant=False)
+            x = checkpoint(_remat_ssm, block, cfg, x, ctx, dims,
+                           use_reentrant=False)
             continue
         if kind == SSM:
-            x, state = _ssm_block_full(block, cfg, x)
+            x, state = _ssm_block_full(block, cfg, x, ctx=ctx, dims=dims)
             if cache is not None:
                 write_prefill(cache, i, state, cfg)
             continue
         if remat:
-            x, aux = checkpoint(_remat_layer, block, cfg, x, positions,
-                                use_reentrant=False)
+            x, aux = checkpoint(_remat_layer, block, cfg, x, positions, ctx,
+                                dims, use_reentrant=False)
         else:
-            x, kv_out, aux = _attn_block_full(block, cfg, x, positions, ctx)
+            x, kv_out, aux = _attn_block_full(block, cfg, x, positions, ctx,
+                                              dims)
             if cache is not None:
                 write_prefill(cache, i, kv_out, cfg)
         aux_total = aux_total + aux
     if last_only:
         x = x[:, -1:]
     x = apply_norm(x, params["final_norm"], cfg)
-    logits = lm_head(params, cfg, x, ctx)
+    logits = lm_head(params, cfg, x, ctx, gather=gather_logits)
     if cache is not None:
         cache["pos"] += s
     return logits, cache, aux_total / max(1, len(cfg.attn_layers))
@@ -409,7 +460,6 @@ def forward_decode_paged(params, cfg: ModelConfig, *, tokens=None,
     tensors and carries ``pos + 1`` for every slot (the engine keeps the
     old ``pos`` of inactive slots, as the JAX engine does).  ``ctx``: one
     rank of a mesh (module docstring)."""
-    check_mesh_ported(cfg, ctx)
     x = embeds if embeds is not None else embed_tokens(params, cfg,
                                                           tokens, ctx)
     b = x.shape[0]
@@ -449,7 +499,6 @@ def forward_prefill_paged(params, cfg: ModelConfig, *, tokens=None,
 
     tokens: [1, Lpad]; ``length``: actual prompt length; ``ctx``: one
     rank of a mesh.  Returns (last-token logits [V], cache)."""
-    check_mesh_ported(cfg, ctx)
     x = embeds if embeds is not None else embed_tokens(params, cfg,
                                                           tokens, ctx)
     b, s = x.shape[0], x.shape[1]
@@ -487,7 +536,6 @@ def forward_chunk_paged(params, cfg: ModelConfig, *, tokens=None,
     the result back into the slot, as the JAX package does.  ``ctx``:
     one rank of a mesh.  Returns (valid-final logits [1,1,V], cache)."""
     _refuse_mla_chunk(cfg)
-    check_mesh_ported(cfg, ctx)
     x = embeds if embeds is not None else embed_tokens(params, cfg,
                                                           tokens, ctx)
     b, c = x.shape[0], x.shape[1]

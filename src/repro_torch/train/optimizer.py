@@ -73,17 +73,35 @@ def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in leaves(tree)))
+def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
+    """The L2 norm over every leaf.  With ``mesh`` and the ``specs`` the
+    leaves are sliced by, the norm of the whole tree on every rank: each
+    rank's sum of squares of a leaf is divided by the number of ranks
+    holding the same slice (a power of two on the port's meshes, so
+    exact), and the ranks' sums are summed."""
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(g.float() ** 2)
+                              for g in leaves(tree)))
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import replication
+    reps = leaves(tree_map(lambda _, s: replication(s, mesh), tree, specs))
+    total = sum(torch.sum(g.float() ** 2) / r
+                for g, r in zip(leaves(tree), reps))
+    total = total.reshape(1).clone()
+    dist.all_reduce(total, group=mesh.group(tuple(mesh.axis_names)))
+    return torch.sqrt(total[0])
 
 
 @torch.no_grad()
-def apply(cfg: AdamWConfig, params, grads, state: AdamWState):
+def apply(cfg: AdamWConfig, params, grads, state: AdamWState, mesh=None,
+          specs=None):
     """One AdamW step, in place.  Returns (params, state, metrics) — the
-    same param and state objects, updated."""
+    same param and state objects, updated.  With ``mesh`` each rank
+    updates its slices (under ``specs``) and clips by the whole tree's
+    norm (:func:`global_norm`)."""
     state.step.add_(1)
     step = state.step.float()
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, specs)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     bc1 = 1 - cfg.b1 ** step
     bc2 = 1 - cfg.b2 ** step

@@ -281,11 +281,15 @@ def test_placement_holds_whole_heads(arch, mesh):
 
 def test_mesh_paths_not_ported_raise():
     """What the mesh does not run yet raises naming ROADMAP M11b before
-    any rank would wait on another: training (``remat``) and a
-    multi-codebook model under a mesh, a data axis (engines on different
-    tp groups), and a fleet of engines on different meshes.  The dense
-    layout raises as the JAX engine does (so Mamba2 alone, whose engine
-    is dense-only, has no mesh path), and a fleet runs on rank 0 only."""
+    any rank would wait on another: a data axis on an engine (engines on
+    different tp groups) and a fleet of engines on different meshes.
+    Training under a mesh and a multi-codebook model under tp do run now
+    (``tests/test_torch_mesh_train*.py``): on a 1 x 1 mesh they give the
+    single-device logits bit for bit, and on a shape-only 1 x 2 mesh they
+    get as far as their first collective, for which such a mesh has no
+    process group.  The dense layout raises as the JAX engine does (so
+    Mamba2 alone, whose engine is dense-only, has no mesh path), and a
+    fleet runs on rank 0 only."""
     import torch
     from repro_torch.configs import get_reduced as port_reduced
     from repro_torch.engine.engine import Engine
@@ -296,15 +300,20 @@ def test_mesh_paths_not_ported_raise():
     cfg = dataclasses.replace(port_reduced("qwen3-1.7b"), dtype="float32")
     params = init_params(cfg, seed=0, device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="training under a mesh"
-                       ".*M11b"):
-        forward_full(params, cfg, tokens=toks, remat=True, ctx=ctx)
     audio = dataclasses.replace(port_reduced("musicgen-medium"),
                                 dtype="float32")
-    with pytest.raises(NotImplementedError, match="codebooks.*M11b"):
-        forward_full(init_params(audio, seed=0, device="cpu"), audio,
-                     tokens=torch.zeros((1, 4, audio.num_codebooks),
-                                        dtype=torch.int32), ctx=ctx)
+    audio_params = init_params(audio, seed=0, device="cpu")
+    audio_toks = torch.zeros((1, 4, audio.num_codebooks), dtype=torch.int32)
+    one = ShardingCtx(mesh=Mesh({"data": 1, "model": 1}, rank=0),
+                      fsdp_axes=("data",))
+    for c, p, t in ((cfg, params, toks), (audio, audio_params, audio_toks)):
+        want = forward_full(p, c, tokens=t, remat=True)[0]
+        assert torch.equal(forward_full(p, c, tokens=t, remat=True,
+                                        ctx=one)[0], want)
+        mine = psh.shard_params(p, psh.rank_specs(
+            c, mesh, psh.ParallelismConfig(fsdp=False)), mesh)
+        with pytest.raises(ValueError, match="no process group"):
+            forward_full(mine, c, tokens=t, remat=True, ctx=ctx)
     with pytest.raises(ValueError, match="paged"):
         Engine(cfg, params, device="cpu", paged=False, mesh=mesh)
     ssm = dataclasses.replace(port_reduced("mamba2-780m"), dtype="float32")
