@@ -49,7 +49,19 @@ Phases (any failure exits non-zero before the last line):
            (ragged tiles, both dq block sizes), hd 64/80/128, timed
            at the train shape (B4 S2048 H16 KV8 hd128 bf16), at S=128
            and at a tp 2 rank's heads (B2 S2048 H8 KV4, phase
-           train_mesh), and dq/dk/dv checked bitwise repeatable; the SSD scan
+           train_mesh), and dq/dk/dv checked bitwise repeatable; K2 and
+           K5a-c with a query offset (OFFSET_CASES: a sequence-parallel
+           rank's s/tp rows at offset rank * s/tp against all s keys:
+           Qwen3-1.7B's train shape over tp 2, B2 Sk 2048 Sq 1024 at
+           offsets 0 and 1024, H16 KV8 hd128; a window of 64 crossing
+           the rank boundary at hd 80, B2 S520 tp 2; B1 S200 tp 4 at hd
+           64 window 48), bf16 and f32, each against its plain version
+           at the same offset (TOL, GRAD_TOL), bitwise equal across two
+           launches, the ranks' rows against the whole-sequence K2 / K5a
+           (TOL), their dk / dv summed against the whole K5c (GRAD_TOL),
+           every dk / dv row of a key no row of the rank sees exactly 0;
+           timed at the train shape's two ranks (bound over the rank's
+           band, SDPA with an explicit [Sq, Sk] mask); the SSD scan
            at the Mamba2-780M widths (nh 48, hd 64, ds 128), B 1/4 x S
            16/100/256/2048, and at the edges of its decomposition (S 1,
            63, 64, 65; B 3; nh 7; hd 64 with ds 64, hd 32, hd 48 with ds
@@ -74,7 +86,7 @@ Phases (any failure exits non-zero before the last line):
   anneal   the batched annealer's kernel (csrc/anneal.cu: one launch
            anneals every instance x chain) against its plain version on
            the same draws, on both scoring paths (incremental and full
-           evaluate), over padded N 8/64/256/1024 x max_batch 1/8/32 x
+           evaluate), over padded N 8/64/256/1024 x max_batch 1/32 x
            (instances, chains) (1, 8)/(4, 2)/(8, 8) (ragged instances, an
            empty one) x contended/loose SLOs under the default budget,
            and at the shapes of benchmarks/bench_overhead.py (N 64/128/256
@@ -110,9 +122,8 @@ Phases (any failure exits non-zero before the last line):
            STREAM_RATE req/s, on a pool of STREAM_SLOTS sequences of
            STREAM_SEQ tokens, its models at STREAM_DEPTH of their
            published depth (published widths; the latency model fit at
-           that depth): Qwen2.5-7B (7 of 28 layers) on the paged
-           engine under fcfs (overlapped and synchronous in turns A B B
-           A) and
+           that depth): Qwen2.5-7B (4 of 28 layers) on the paged
+           engine under fcfs (overlapped, then synchronous) and
            slo-preempt + chunked:32, a 2-engine EngineFleet sharing
            the params under least-loaded (one stream per loop, checked);
            then fcfs on the dense engine; then the batched annealer on
@@ -120,7 +131,7 @@ Phases (any failure exits non-zero before the last line):
            under slo-reanneal:jax as the trace arrives and with all of
            it waiting at t=0, and a 2-engine EngineFleet under
            route:annealed, each printing its anneal launches; then
-           Mamba2-780M (12 of 48 layers) under fcfs.
+           Mamba2-780M (6 of 48 layers) under fcfs.
            Every request completes with its whole output budget; per
            run: wall-clock TTFT and TBT p50/p90/p99, tok/s on the wall
            clock, attainment, G, dispatch widths, the share of
@@ -137,26 +148,29 @@ Phases (any failure exits non-zero before the last line):
            blocks, one shared attention+MLP block used at six layers, d
            2048, 32 q / 32 kv heads of hd 64, d_state 64, bf16, random
            seeded weights): the parameter tree (one shared block, {} at
-           the attention layers); latency-model fit on the paged engine,
+           the attention layers); at HYBRID_SERVE_LAYERS (the first 12,
+           the shared block twice) latency-model fit on the paged engine,
            then fcfs, slo-reanneal:jax and slo-preempt + chunked:32 on the
            paged and on the dense engine (the SSD scan once per SSM layer
            per prefill pass); a timed full-depth B1 2048-token prefill;
            one ServeLoop run of the stream phase's trace on its pool
-           (paged fcfs, at STREAM_DEPTH: the first 10 of the 38 layers,
-           one of them attention); then 4 layers (SSM, ATTN, SSM, ATTN)
+           (paged fcfs, at STREAM_DEPTH but down to the shared block's
+           first use: the first 6 of the 38 layers, the last of them
+           attention); then 4 layers (SSM, ATTN, SSM, ATTN)
            in float32,
            cuda vs cpu: both engines' tokens under fcfs and slo-preempt +
            chunked:32, prefill + 4 decode logits within 1e-4 of max
   moe      MoE and MLA: DeepSeek-V2-Lite at its published config (27
            layers, d 2048, MLA kv_lora 512, 64 experts top-6 + 2 shared,
            layer 0 dense at 10944, bf16, random seeded weights; every
-           earlier phase's model freed first): latency-model fit, then
+           earlier phase's model freed first): at MOE_SERVE_LAYERS (7 of
+           the 27) latency-model fit, then
            fcfs, slo-reanneal:jax and slo-preempt + chunked:32 (warned
            and served stalling: MLA has no chunked path) on the paged
            and on the dense engine; a timed full-depth B1 2048-token
            prefill (three grouped products per MoE layer, no other
            launch); one ServeLoop run of the stream phase's trace on its
-           pool (paged fcfs, at STREAM_DEPTH: 7 of the 27 layers); a
+           pool (paged fcfs, at STREAM_DEPTH: 3 of the 27 layers); a
            ServeLoop asked for chunked:16 must
            raise; one dispatch_decode round under sync debug mode
            "error"; then DBRX at its published width and 4 of its 40
@@ -165,8 +179,9 @@ Phases (any failure exits non-zero before the last line):
            multi-turn run, K1 and K2 launched; the grouped product
            (torch._grouped_mm) against a product per expert at both
            models' expert widths, bf16 and f32, routed rows and every
-           row to one expert, timed at DeepSeek's decode shape; 2 layers
-           f32 cuda vs cpu: tokens identical, logits within 1e-4 of max
+           row to one expert, timed at DeepSeek's decode shape; f32
+           (DeepSeek 2 layers, DBRX 1) cuda vs cpu: tokens identical,
+           logits within 1e-4 of max
   int8     Qwen2.5-7B: one 128-token prompt and 32 greedy decode
            steps through an int8 paged cache and an int8 dense cache,
            each against the same run on a bf16 cache, with the
@@ -190,8 +205,8 @@ Phases (any failure exits non-zero before the last line):
            the ServeLoop's tokens on both layouts, cuda vs cpu and
            overlapped vs synchronous, must be identical;
            one train step at 2 layers in float32, cuda vs cpu, of
-           Qwen3-1.7B, Mamba2-780M, Zamba2-1.2B (SSM, ATTN), Qwen2-VL-7B
-           (float32 embeds), MusicGen-medium and DeepSeek-V2-Lite: loss,
+           Qwen3-1.7B, Mamba2-780M, Zamba2-1.2B (SSM, ATTN) and
+           MusicGen-medium: loss,
            every gradient and the updated params, bounded;
            Mamba2-780M at 2 layers in float32: the dense engine's tokens
            under fcfs and slo-preempt + chunked:32, and the logits of one
@@ -201,7 +216,7 @@ Phases (any failure exits non-zero before the last line):
            process holds freed, then a tp 1 run of each reference model
            in this process), the serve phase's engine (4 slots x 256
            tokens) on sample_serve_workload(8), published widths:
-           Qwen2.5-7B at MESH_QWEN_LAYERS (7) of its 28 layers (bf16)
+           Qwen2.5-7B at MESH_QWEN_LAYERS (4) of its 28 layers (bf16)
            under fcfs and slo-reanneal:jax (the annealer on rank 0 while
            rank 1 follows) through run_policy, fcfs through a ServeLoop,
            and a 2-engine EngineFleet of mesh engines on the same two
@@ -214,7 +229,7 @@ Phases (any failure exits non-zero before the last line):
            fcfs and slo-reanneal:jax stall and
            slo-preempt + chunked:32 (these two on an engine clock of
            MESH_STEP_S a step, in their tp 1 runs too, so that both
-           decide alike, and slo-preempt must preempt); DeepSeek-V2-Lite at MESH_DEEPSEEK_LAYERS (7) of
+           decide alike, and slo-preempt must preempt); DeepSeek-V2-Lite at MESH_DEEPSEEK_LAYERS (4) of
            27 layers (MLA on 8 of its 16 heads a rank, the latent pages
            whole on each rank) on the expert-parallel branch (32 experts
            a rank); in float32 (TF32 off) Qwen at 2 layers, its fleet
@@ -242,11 +257,15 @@ Phases (any failure exits non-zero before the last line):
            the one card over gloo (every model this process holds freed
            first), published widths cut in depth (TRAIN_MESH_RUNS):
            bf16, one warm-up and TRAIN_MESH_STEPS timed steps each, at
-           (data 2, tp 1) Qwen3-1.7B (B4 S2048), Zamba2-1.2B (K4 / K4b
+           (data 2, tp 1) Zamba2-1.2B (B4 S2048, K4 / K4b
            on 2 rows a rank) and DeepSeek-V2-Lite at B2 S2048 (the 2-D
            expert-parallel branch), at (data 1, tp 2) Qwen3-1.7B,
            DeepSeek on the expert-parallel and the baseline branch, and
-           MusicGen-medium: per run and rank the losses (finite, alike
+           MusicGen-medium, and Qwen3-1.7B at (1, 2) under
+           attn_sharding="auto" (sequence-parallel attention: each
+           rank's 1024 rows through K5a-c at its offset, every call's
+           (q rows, keys, offset) checked; beside the "none" run's step
+           ms, collectives and peak memory): per run and rank the losses (finite, alike
            on both ranks), step ms, collectives (calls, seconds, share),
            peak memory, the rank's param + moment bytes against the
            whole tree's, its bytes of the FSDP-sharded leaves (exactly
@@ -256,9 +275,10 @@ Phases (any failure exits non-zero before the last line):
            bit alike on the ranks holding the same slice; then f32 at 2
            layers (Zamba2 4), B2 S64, TF32 off: one mesh step against
            the single-rank step on the card from the same params and
-           global batch (Qwen3 (2, 1) and (1, 2), Mamba2 (2, 1), Zamba2
+           global batch (Qwen3 (2, 1), (1, 2) and (1, 2) under "auto",
+           Mamba2 (2, 1), Zamba2
            (1, 2), DeepSeek (1, 2) on both branches and (2, 1) on the
-           2-D one, MusicGen (1, 2), Qwen2-VL (2, 1)): loss within 1e-5
+           2-D one, MusicGen (1, 2)): loss within 1e-5
            relative, each gathered gradient within 1e-4 of its leaf's
            max, the updated params within 2 lr and within 1e-6 on all
            but max(8, 1e-3 numel) of a leaf (the baseline branch's
@@ -843,11 +863,14 @@ def flash_inputs(b, s, dtype, window, gen):
     return (q, k, v), {"causal": True, "window": window}
 
 
-def attn_flops(q, window, per_pair=4):
+def attn_flops(q, window, per_pair=4, q_offset=0):
     """``per_pair`` flops per q head x hd x attended (q, key) pair of
-    causal attention over q [B,S,H,hd] (4 for a forward: QKᵀ and PV)."""
+    causal attention over q [B,S,H,hd] (4 for a forward: QKᵀ and PV),
+    its rows at key positions ``q_offset`` onwards (a sequence-parallel
+    rank's rows: only the band of those rows is counted)."""
     b, s, h, hd = q.shape
-    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
+    pairs = sum(min(i + 1, window) if window else i + 1
+                for i in range(q_offset, q_offset + s))
     return float(per_pair) * b * h * hd * pairs
 
 
@@ -902,19 +925,19 @@ TRAIN_PER_PAIR = {"flash_attention_fwd_lse": 4, "flash_attention_dq": 6,
                   "flash_attention_dkv": 8}
 
 
-def flash_train_cost(name, q, k, window, dtype_name):
+def flash_train_cost(name, q, k, window, dtype_name, q_offset=0):
     """Bound of one training-kernel call: each input read once and each
     output written once (q-sized out/dout/dq, k-sized dk/dv, f32
-    [B,H,S] lse and delta); TRAIN_PER_PAIR flops per q head x hd x
-    attended pair."""
+    [B,H,Sq] lse and delta); TRAIN_PER_PAIR flops per q head x hd x
+    attended pair of q's rows at ``q_offset``."""
     b, s, h, hd = q.shape
     qb, kb, rows = q.numel() * q.element_size(), \
         k.numel() * k.element_size(), b * h * s * 4
     nbytes = {"flash_attention_fwd_lse": 2 * qb + 2 * kb + rows,
               "flash_attention_dq": 3 * qb + 2 * kb + 2 * rows,
               "flash_attention_dkv": 2 * qb + 4 * kb + 2 * rows}[name]
-    return bound(nbytes, attn_flops(q, window, TRAIN_PER_PAIR[name]),
-                 dtype_name)
+    return bound(nbytes, attn_flops(q, window, TRAIN_PER_PAIR[name],
+                                    q_offset), dtype_name)
 
 
 # K2 and K5a cases (label, b, s, h, kv, hd, window): both q-tile sizes of
@@ -1147,6 +1170,258 @@ def check_train_kernels(results, fwd_worst):
                 f"{r['library_ms']:.4f} ms at {shape}"
                 + (f"; delta+dq+dkv {pair:.4f} ms" if "pair_ms" in r
                    else ""))
+
+
+# K2 / K5a-c with a query offset (attn_sharding="auto": each tp rank's
+# s/tp query rows at offset rank * s/tp over all s keys): (label, b, s,
+# h, kv, hd, window, tp).  Qwen3-1.7B's train shape split over tp 2 (the
+# train_mesh phase's "auto" run; timed), a window crossing the rank
+# boundary at hd 80 (keys before rank 1's window get no q tile), and a
+# ragged tp 4 split (50-row ranks, less than one q tile)
+# calls each timing of the offset instances averages over
+OFFSET_ITERS = 20
+OFFSET_CASES = [
+    ("B2 S2048 H16 KV8 hd128 causal tp2 (qwen3 auto rank)",
+     2, 2048, 16, 8, 128, 0, 2),
+    ("B2 S520 H32 KV8 hd80 window64 tp2", 2, 520, 32, 8, 80, 64, 2),
+    ("B1 S200 H8 KV4 hd64 window48 tp4", 1, 200, 8, 4, 64, 48, 4),
+]
+
+
+def seen_keys(s, off, n, window):
+    """[s] bool: the keys that some query row at positions off .. off+n-1
+    attends (causal, optional window)."""
+    import torch
+    kp = torch.arange(s, device="cuda")
+    seen = kp <= off + n - 1
+    if window:
+        seen &= kp > off - window
+    return seen
+
+
+def sdpa_masked_fn(q, k, v, off, window):
+    """One PyTorch call computing a rank's rows of attention: SDPA with
+    an explicit [Sq, Sk] boolean mask (``is_causal`` aligns the diagonal
+    top-left, so it cannot place rows at an offset)."""
+    import torch
+    import torch.nn.functional as F
+    sq, sk = q.shape[1], k.shape[1]
+    qp = off + torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(sk, device=q.device)[None, :]
+    mask = kp <= qp
+    if window:
+        mask &= kp > qp - window
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    try:
+        F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                       enable_gqa=True)
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    except TypeError:                      # older torch: expand kv heads
+        rep = qt.shape[1] // kt.shape[1]
+        ke, ve = (t.repeat_interleave(rep, dim=1) for t in (kt, vt))
+        return lambda: F.scaled_dot_product_attention(qt, ke, ve,
+                                                      attn_mask=mask)
+
+
+def sdpa_masked_bwd_fn(q, k, v, off, window, dout):
+    """SDPA's backward with the explicit mask through autograd (dq, dk,
+    dv in one call)."""
+    import torch
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = sdpa_masked_fn(*leaves, off, window)()
+    dout = dout.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, leaves, dout,
+                                       retain_graph=True)
+
+
+def check_flash_offset(results):
+    """K2, K5a, K5b and K5c with a query offset (OFFSET_CASES), bf16 and
+    f32: each tp rank's rows against the plain version at the same
+    offset (TOL on out and lse, GRAD_TOL of max |plain| on dq, dk, dv),
+    bitwise equal across two launches; the ranks' rows of K2 and K5a
+    concatenated against the whole-sequence kernel (TOL), their dk / dv
+    summed in float32 against the whole-sequence K5c (GRAD_TOL of max
+    |whole|), and every dk / dv row of a key no row of the rank sees
+    exactly 0.  The offset is a run-time argument of the same kernel
+    instances, whose HGMMA and spills the build phase checks.  Then
+    times of each offset instance at the first case's two ranks
+    (plain, kernel, kernel, plain), the bound over the band of the
+    rank's rows, and SDPA with an explicit [Sq, Sk] mask."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    names = ("flash_attention",) + TRAIN_KERNELS
+    worst = {n: dict.fromkeys(dtypes, 0.0) for n in names}
+
+    def hold(name, label, what, err, lim, ok):
+        worst[name][dn] = max(worst[name][dn], err)
+        log(f"  {name:<24} offset {label:<44} {dn:<8} {what:<24} "
+            f"max_abs_err={err:.3e} limit={lim:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} offset {label} {dn} {what}")
+
+    def near(got, ref):
+        e = (got.float() - ref.float()).abs()
+        return float(e.max()), bool((e <= TOL[dn] + TOL[dn]
+                                     * ref.float().abs()).all())
+
+    for label, b, s, h, kv, hd, window, tp in OFFSET_CASES:
+        n = s // tp
+        for dn, dt in dtypes.items():
+            q, k, v, do = flash_train_inputs(b, s, h, kv, hd, dt, gen)
+            kw = {"causal": True, "window": window}
+            whole2 = fa.flash_attention_cuda(q, k, v, **kw)
+            whole_o, whole_l = fb.flash_attention_fwd_lse_cuda(q, k, v, **kw)
+            wo_p, wl_p = fb.flash_attention_fwd_lse_plain(q, k, v, **kw)
+            whole_dk, whole_dv = fb.flash_attention_dkv_cuda(
+                q, k, v, do, wl_p, fb.attention_delta(wo_p, do), **kw)
+            rows2, rows_o, rows_l = [], [], []
+            sum_dk = torch.zeros_like(k, dtype=torch.float32)
+            sum_dv = torch.zeros_like(v, dtype=torch.float32)
+            for r in range(tp):
+                off = r * n
+                tag = f"{label} rank {r} (offset {off})"
+                okw = dict(kw, q_offset=off)
+                qr = q[:, off:off + n].contiguous()
+                dor = do[:, off:off + n].contiguous()
+                o2 = [fa.flash_attention_cuda(qr, k, v, **okw)
+                      for _ in range(2)]
+                fw = [fb.flash_attention_fwd_lse_cuda(qr, k, v, **okw)
+                      for _ in range(2)]
+                o_p, l_p = fa.flash_attention_fwd_lse_plain(qr, k, v, **okw)
+                delta = fb.attention_delta(o_p, dor)
+                dq = [fb.flash_attention_dq_cuda(qr, k, v, dor, l_p, delta,
+                                                 **okw) for _ in range(2)]
+                dkv = [fb.flash_attention_dkv_cuda(qr, k, v, dor, l_p, delta,
+                                                   **okw) for _ in range(2)]
+                want = fb.flash_attention_bwd_plain(qr, k, v, o_p, l_p, dor,
+                                                    **okw)
+                torch.cuda.synchronize()
+                same = {"flash_attention": torch.equal(*o2),
+                        "flash_attention_fwd_lse": all(
+                            torch.equal(x, y) for x, y in zip(*fw)),
+                        "flash_attention_dq": torch.equal(*dq),
+                        "flash_attention_dkv": all(
+                            torch.equal(x, y) for x, y in zip(*dkv))}
+                if not all(same.values()):
+                    raise AssertionError(f"offset {tag} {dn}: not bitwise "
+                                         f"repeatable: {same}")
+                err, ok = near(o2[0], o_p)
+                hold("flash_attention", tag, "out vs plain", err, TOL[dn], ok)
+                for what, got, ref in (("out vs plain", fw[0][0], o_p),
+                                       ("lse vs plain", fw[0][1], l_p)):
+                    err, ok = near(got, ref)
+                    hold("flash_attention_fwd_lse", tag, what, err, TOL[dn],
+                         ok)
+                for name, what, got, ref in (
+                        ("flash_attention_dq", "dq vs plain", dq[0], want[0]),
+                        ("flash_attention_dkv", "dk vs plain", dkv[0][0],
+                         want[1]),
+                        ("flash_attention_dkv", "dv vs plain", dkv[0][1],
+                         want[2])):
+                    err = float((got.float() - ref.float()).abs().max())
+                    lim = GRAD_TOL[dn] * float(ref.float().abs().max())
+                    hold(name, tag, what, err, lim, err <= lim)
+                unseen = ~seen_keys(s, off, n, window)
+                nz = int(torch.count_nonzero(dkv[0][0][:, unseen])) + \
+                    int(torch.count_nonzero(dkv[0][1][:, unseen]))
+                log(f"  flash_attention_dkv      offset {tag} {dn}: "
+                    f"{int(unseen.sum())} key rows no query row sees, "
+                    f"{nz} nonzero elements of dk / dv there "
+                    f"{'ok' if nz == 0 else 'FAIL'}")
+                if nz:
+                    raise AssertionError(f"offset {tag} {dn}: dk / dv rows "
+                                         "of unseen keys are not 0")
+                rows2.append(o2[0])
+                rows_o.append(fw[0][0])
+                rows_l.append(fw[0][1])
+                sum_dk += dkv[0][0].float()
+                sum_dv += dkv[0][1].float()
+            tag = f"{label} ranks joined"
+            err, ok = near(torch.cat(rows2, 1), whole2)
+            hold("flash_attention", tag, "rows vs whole", err, TOL[dn], ok)
+            err, ok = near(torch.cat(rows_o, 1), whole_o)
+            hold("flash_attention_fwd_lse", tag, "rows vs whole", err,
+                 TOL[dn], ok)
+            err, ok = near(torch.cat(rows_l, 2), whole_l)
+            hold("flash_attention_fwd_lse", tag, "lse rows vs whole", err,
+                 TOL[dn], ok)
+            for what, got, ref in (("dk sum vs whole", sum_dk, whole_dk),
+                                   ("dv sum vs whole", sum_dv, whole_dv)):
+                err = float((got - ref.float()).abs().max())
+                lim = GRAD_TOL[dn] * float(ref.float().abs().max())
+                hold("flash_attention_dkv", tag, what, err, lim, err <= lim)
+    for name in names:
+        results[name]["offset"] = {
+            "cases": [c[0] for c in OFFSET_CASES], "max_err": worst[name],
+            "bitwise_repeatable": True, "unseen_key_rows_zero": True}
+
+    # times: each rank of the first case in bf16, the rank's band only
+    label, b, s, h, kv, hd, window, tp = OFFSET_CASES[0]
+    n = s // tp
+    bf = torch.bfloat16
+    q, k, v, do = flash_train_inputs(b, s, h, kv, hd, bf, gen)
+    for r in range(tp):
+        off = r * n
+        okw = {"causal": True, "window": window, "q_offset": off}
+        qr = q[:, off:off + n].contiguous()
+        dor = do[:, off:off + n].contiguous()
+        out, lse = fb.flash_attention_fwd_lse_cuda(qr, k, v, **okw)
+        delta = fb.attention_delta(out, dor)
+        lib_fwd = sdpa_masked_fn(qr, k, v, off, window)
+        lib_bwd = time_ms(sdpa_masked_bwd_fn(qr, k, v, off, window, dor),
+                          OFFSET_ITERS)
+        shape = (f"B{b} Sq{n} Sk{s} offset {off} H{h} KV{kv} hd{hd} causal "
+                 "bf16 (qwen3 tp2 rank under attn_sharding=auto)")
+        fwd_p = lambda: fa.flash_attention_fwd_lse_plain(qr, k, v, **okw)
+        bwd_p = lambda: fb.flash_attention_bwd_plain(qr, k, v, out, lse,
+                                                     dor, **okw)
+        runs = {
+            "flash_attention": (
+                fwd_p, lambda: fa.flash_attention_cuda(qr, k, v, **okw),
+                lib_fwd),
+            "flash_attention_fwd_lse": (
+                fwd_p, lambda: fb.flash_attention_fwd_lse_cuda(qr, k, v,
+                                                               **okw),
+                lib_fwd),
+            "flash_attention_dq": (
+                bwd_p, lambda: fb.flash_attention_dq_cuda(
+                    qr, k, v, dor, lse, delta, **okw), None),
+            "flash_attention_dkv": (
+                bwd_p, lambda: fb.flash_attention_dkv_cuda(
+                    qr, k, v, dor, lse, delta, **okw), None)}
+        for name, (plain, kernel, lib) in runs.items():
+            k_ms, p_ms = alternate(plain, kernel, OFFSET_ITERS)
+            per = 4 if name == "flash_attention" else TRAIN_PER_PAIR[name]
+            cost = "flash_attention_fwd_lse" if name == "flash_attention" \
+                else name
+            b_ms, b_by = flash_train_cost(cost, qr, k, window, "bfloat16",
+                                          off)
+            if name == "flash_attention":   # no lse written
+                b_ms, b_by = bound(2 * qr.numel() * 2 + 2 * k.numel() * 2,
+                                   attn_flops(qr, window, 4, off),
+                                   "bfloat16")
+            row = {"shape": shape, "ms": k_ms, "plain_ms": p_ms,
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "achieved_tflops": attn_flops(qr, window, per, off)
+                   / k_ms / 1e9,
+                   "library_ms": time_ms(lib, OFFSET_ITERS) if lib
+                   else lib_bwd}
+            if name in TRAIN_KERNELS[1:]:
+                row.update(plain_covers="dq, dk and dv together",
+                           library_covers="dq, dk and dv together (SDPA "
+                                          "with the mask, backward through "
+                                          "autograd)")
+            results[name]["offset"][f"rank {r}"] = row
+            log(f"  {name} offset rank {r}: kernel {k_ms:.4f} ms "
+                f"({row['achieved_tflops']:.1f} TFLOP/s over the rank's "
+                f"band), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                f"library {row['library_ms']:.4f} ms at {shape}")
 
 
 def ssd_inputs(b, s, dtype, with_state, gen, nh=SSM_NH, hd=SSM_HD,
@@ -1904,6 +2179,7 @@ def phase_kernels(results):
             f"{r['library_ms']} ms at {r['shape']}; long: "
             f"{json.dumps(r['long'])}")
     check_train_kernels(results, fwd_worst)
+    check_flash_offset(results)
     check_ssd_kernel(results)
     check_ssd_bwd_kernel(results)
 
@@ -2057,20 +2333,22 @@ def phase_serve(ctx):
 
 
 STREAM_RATE = 4.0       # Poisson arrivals of the stream phase, req/s
-# requests a stream run serves: ~8 s of arrivals (cut from 64 so that
-# the train_mesh phase fits the script's time limit)
-STREAM_N = 32
+# requests a stream run serves: ~4 s of arrivals (64 until the mesh
+# phases joined, 32 until the script ran past its time limit)
+STREAM_N = 16
 # the pool a deployment of Qwen2.5-7B on one 80 GB card holds: 64
 # sequences of up to 4096 tokens, 15.0 GB of bf16 K/V (paged or dense)
 STREAM_SLOTS, STREAM_SEQ = 64, 4096
-TURNS = (True, False, False, True)   # paged fcfs: overlap on / off
+TURNS = (True, False)   # paged fcfs: overlapped, then synchronous
 # the stream phase's Qwen2.5-7B and Mamba2-780M, and the stream runs of
 # the hybrid and moe phases (Zamba2-1.2B, DeepSeek-V2-Lite: since the
-# mesh phase joined), at a quarter of their published depth (published
-# widths, the first layers), so that the whole script keeps inside its
-# time limit: each run's wall is set by the trace's longest request, a
-# chain of decode rounds whose host dispatch grows with the layers
-STREAM_DEPTH = 0.25
+# mesh phase joined), at an eighth of their published depth (published
+# widths, the first layers; a quarter until the script ran past its time
+# limit), Zamba2 down to its first shared attention block, so that the
+# whole script keeps inside its time limit: each run's wall is set by the
+# trace's longest request, a chain of decode rounds whose host dispatch
+# grows with the layers
+STREAM_DEPTH = 0.125
 
 
 def _stream_run(make, pairs, what):
@@ -2251,14 +2529,23 @@ def _cut_depth(cfg):
                                layer_pattern=())
 
 
-def _stream_cut(cfg, params):
-    """``cfg`` and ``params`` at ``STREAM_DEPTH`` of the layers: the first
-    layers of the published stack (its pattern's prefix; a hybrid's shared
-    block kept), published widths, no new weights."""
-    n = round(cfg.num_layers * STREAM_DEPTH)
+def _first_layers(cfg, params, n):
+    """``cfg`` and ``params`` cut to the first ``n`` layers of the
+    published stack (its pattern's prefix; a hybrid's shared block kept),
+    published widths, no new weights."""
     return (dataclasses.replace(cfg, num_layers=n,
                                 layer_pattern=cfg.layer_pattern[:n]),
             dict(params, layers=params["layers"][:n]))
+
+
+def _stream_cut(cfg, params):
+    """``cfg`` and ``params`` at ``STREAM_DEPTH`` of the layers
+    (``_first_layers``; a hybrid's down to its shared block's first
+    use)."""
+    n = round(cfg.num_layers * STREAM_DEPTH)
+    if "attn" in cfg.layer_pattern:
+        n = max(n, cfg.layer_pattern.index("attn") + 1)
+    return _first_layers(cfg, params, n)
 
 
 def phase_stream(ctx):
@@ -2310,8 +2597,8 @@ def phase_stream(ctx):
         f"slots x {STREAM_SEQ} tokens")
 
     def paged_path():
-        # overlapped and synchronous in turns A B B A: one card, one
-        # call, so the two compare without the spread between calls
+        # overlapped, then synchronous: one card, one call, so the two
+        # compare without the spread between calls
         runs = [_stream_run(loop("fcfs", overlap=overlap), workload(),
                             "paged fcfs stall" + ("" if overlap else
                                                   " --no-overlap"))
@@ -2511,16 +2798,22 @@ def long_prefill(cfg, params, results, s=2048, runs=3, key="prefill"):
 # the hybrid's stream run: the stream phase's trace and pool; the count
 # of requests may be cut for the time limit (printed with the run)
 HYBRID_STREAM_N = STREAM_N
+# the hybrid phase's batch serve runs at the first 12 of Zamba2's 38
+# layers (10 Mamba2 blocks, the shared block twice; the mesh phase's
+# cut), so that the script keeps inside its time limit (the whole stack
+# until it ran past it); its long prefill stays at full depth
+HYBRID_SERVE_LAYERS = 12
 
 
 def phase_hybrid(ctx):
     """Zamba2-1.2B at its published config (38 layers: 32 Mamba2 blocks
     and six uses of one shared attention+MLP block, d 2048, bf16, random
     seeded weights): the parameter tree (one ``shared_block``, ``{}`` at
-    the six attention layers); a latency-model fit on the paged engine,
-    then fcfs stall, ``slo-reanneal:jax`` stall and slo-preempt +
-    chunked:32 on the paged engine and on the dense one (K1 or K6, K2
-    and K4 launch on each; K4 once per SSM layer per prefill pass); one
+    the six attention layers); at ``HYBRID_SERVE_LAYERS`` a latency-model
+    fit on the paged engine, then fcfs stall, ``slo-reanneal:jax`` stall
+    and slo-preempt + chunked:32 on the paged engine and on the dense one
+    (K1 or K6, K2 and K4 launch on each; K4 once per SSM layer per
+    prefill pass); one
     timed full-depth B1 2048-token prefill; one ServeLoop run of the
     stream phase's trace on its pool (fcfs, paged); then cuda-vs-cpu
     parity at full width, 4 layers, float32."""
@@ -2563,11 +2856,16 @@ def phase_hybrid(ctx):
     policies = (("fcfs", "stall"), ("slo-reanneal:jax", "stall"),
                 ("slo-preempt", "chunked:32"))
     model = None
+    vcfg, vparams = _first_layers(cfg, params, HYBRID_SERVE_LAYERS)
+    n_ssm = len(vcfg.ssm_layers)
+    log(f"  hybrid serve runs at the first {vcfg.num_layers} of "
+        f"{cfg.num_layers} layers ({n_ssm} Mamba2, "
+        f"{vcfg.layer_pattern.count(ATTN)} uses of the shared block)")
 
     def serve(paged):
         nonlocal model
         if model is None:
-            model = fit_latency_model(cfg, params, 4,
+            model = fit_latency_model(vcfg, vparams, 4,
                                       np.random.default_rng(0),
                                       device="cuda")
             if model == PAPER_TABLE2:
@@ -2578,7 +2876,7 @@ def phase_hybrid(ctx):
         runs = []
         for policy, disc in policies:
             before = ops.launch_counts()
-            r = _serve_run(cfg, params, model,
+            r = _serve_run(vcfg, vparams, model,
                            sample_serve_workload(8, cfg.vocab_size, seed=1),
                            policy, disc, paged, profiler=LatencyProfiler())
             r["launches"] = {k: n - before.get(k, 0) for k, n in
@@ -2626,7 +2924,7 @@ def phase_hybrid(ctx):
             STREAM_SLOTS.bit_length())} or stream[0]["overlap_frac"] <= 0:
         raise AssertionError(f"hybrid stream: widths {widths}, overlapped "
                              f"share {stream[0]['overlap_frac']}")
-    del params, sparams
+    del params, sparams, vparams
     torch.cuda.empty_cache()
     ctx["hybrid"] = {"serve": runs, "prefill": prefill, "stream": stream,
                      "parity": _hybrid_parity()}
@@ -2634,6 +2932,11 @@ def phase_hybrid(ctx):
 
 # DeepSeek-V2-Lite's stream run: the stream phase's trace and pool
 MOE_STREAM_N = STREAM_N
+# the moe phase's DeepSeek batch serve runs at 7 of its 27 layers (layer
+# 0 dense, 6 MoE), so that the script keeps inside its time limit (the
+# whole stack until it ran past it); its long prefill and sync-free round
+# stay at full depth
+MOE_SERVE_LAYERS = 7
 # DBRX (132B) at its published width: 4 of its 40 layers fit one card
 DBRX_LAYERS = 4
 MLA_FALLBACK = "falling back to whole-prompt (stalling) prefill"
@@ -2849,8 +3152,9 @@ def _moe_model_summary(cfg, params, t0):
 def phase_moe(ctx):
     """MoE and MLA (ROADMAP M9) on the card.  DeepSeek-V2-Lite at its
     published config (27 layers, d 2048, MLA rank 512, 64 experts top-6
-    + 2 shared, layer 0 dense at 10944, bf16, random seeded weights):
-    latency-model fit on the paged engine, fcfs / ``slo-reanneal:jax`` /
+    + 2 shared, layer 0 dense at 10944, bf16, random seeded weights): at
+    ``MOE_SERVE_LAYERS`` a latency-model fit on the paged engine, fcfs /
+    ``slo-reanneal:jax`` /
     slo-preempt with ``chunked:32`` asked for (it must warn and stall)
     on the paged and on the dense engine; a timed full-depth B1
     2048-token prefill; one ServeLoop run of the stream phase's trace on
@@ -2859,7 +3163,8 @@ def phase_moe(ctx):
     its published width and 4 of its 40 layers (GQA group 6): paged fcfs
     and slo-preempt chunked:32 with the prefix cache, the multi-turn
     run, K1 and K2 launched.  The grouped product against its plain
-    version; cuda-vs-cpu parity at 2 layers, float32, for both."""
+    version; cuda-vs-cpu parity in float32 for both (DeepSeek 2 layers,
+    DBRX 1)."""
     import gc
     import numpy as np
     import torch
@@ -2914,13 +3219,16 @@ def phase_moe(ctx):
         raise AssertionError("deepseek: layer 0 is not the dense FFN, or a "
                              "later layer is not MoE with its shared "
                              "experts and a float32 router")
-    model = fit(cfg, params)
+    vcfg, vparams = _first_layers(cfg, params, MOE_SERVE_LAYERS)
+    log(f"  deepseek serve runs at {vcfg.num_layers} of {cfg.num_layers} "
+        "layers")
+    model = fit(vcfg, vparams)
     lap("deepseek draw + fit")
     runs = []
     for paged, path in ((True, "serve_mla_paged"),
                         (False, "serve_mla_dense")):
         got = count_path(results, path,
-                         lambda: _mla_serve_runs(cfg, params, model, paged))
+                         lambda: _mla_serve_runs(vcfg, vparams, model, paged))
         _log_runs(card, got)
         for r in got:
             k = r["launches"]
@@ -2961,7 +3269,7 @@ def phase_moe(ctx):
     _log_stream(card, smi, stream)
     out["deepseek_stream"] = stream
     lap("deepseek stream")
-    del params, sparams, blocks
+    del params, sparams, vparams, blocks
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3008,21 +3316,24 @@ def phase_moe(ctx):
 
 
 def _moe_parity():
-    """DeepSeek-V2-Lite (layer 0 dense, layer 1 MoE) and DBRX (two MoE
-    layers) at full width, 2 layers, float32, under fcfs (an MLA arch
+    """DeepSeek-V2-Lite (2 layers: layer 0 dense, layer 1 MoE) and DBRX
+    (1 MoE layer) at full width, float32, under fcfs (an MLA arch
     serves every discipline stalling): identical greedy tokens, cuda vs
     cpu, and logits within 1e-4 of max |logit| (``_recurrent_parity``),
     DeepSeek on both layouts, DBRX on the paged one (its GQA layout,
-    the one it serves on) with 2 requests: its float32 experts are 25 GB
-    a copy, and the cpu side reads them every round (both layouts took
-    73 s against DeepSeek's 17 s, on the host of an H100 machine)."""
+    the one it serves on) with 2 requests: its float32 experts are 12.7
+    GB a layer and copy, and the cpu side reads them every round (both
+    layouts at 2 layers took 73 s against DeepSeek's 17 s, the paged one
+    32 s, on the host of an H100 machine; 2 layers until the script ran
+    past its time limit)."""
     from repro_torch.configs import get_config
     out = {}
-    for arch, layouts, n in (("deepseek-v2-lite-16b", ("paged", "dense"), 4),
-                             ("dbrx-132b", ("paged",), 2)):
+    for arch, layers, layouts, n in (
+            ("deepseek-v2-lite-16b", 2, ("paged", "dense"), 4),
+            ("dbrx-132b", 1, ("paged",), 2)):
         t0 = time.perf_counter()
         out[arch] = _recurrent_parity(dataclasses.replace(
-            get_config(arch), num_layers=2, layer_pattern=(),
+            get_config(arch), num_layers=layers, layer_pattern=(),
             dtype="float32"), layouts, policies=(("fcfs", "stall"),),
             n_requests=n)
         out[arch]["seconds"] = time.perf_counter() - t0
@@ -3596,19 +3907,21 @@ def _recurrent_parity(cfg, layouts, policies=(("fcfs", "stall"),
 
 # (arch, its 2-layer pattern (None: the arch's own first two)) for the
 # train parity: the dense decoder, then every arch the JAX launcher trains
-# beyond it, at published width
+# beyond it, at published width, but Qwen2-VL and DeepSeek-V2-Lite, to
+# keep the script inside its time limit (their cpu steps over 1.55 B and
+# 1.1 B float32 params took 25-33 and 18-27 s; Qwen2-VL's K5a-c instance,
+# float32 at group 7, is held in the kernels phase, and DeepSeek's mesh
+# steps against its single-rank step in the train_mesh phase)
 TRAIN_PARITY = (("qwen3-1.7b", None), ("mamba2-780m", None),
-                ("zamba2-1.2b", ("ssm", "attn")), ("qwen2-vl-7b", None),
-                ("musicgen-medium", None), ("deepseek-v2-lite-16b", None))
+                ("zamba2-1.2b", ("ssm", "attn")),
+                ("musicgen-medium", None))
 
 
 def _train_parity():
     """One train step of each TRAIN_PARITY arch at full width, 2 layers,
     float32, TF32 off, on cuda (kernels) and on cpu (plain versions)
     from the same params and batch (B2 S64, drawn as the launcher draws
-    it: float32 embeds for Qwen2-VL, [B, S, 4] tokens for MusicGen;
-    DeepSeek's layer 0 dense and layer 1 MoE, whose float32 grouped
-    product takes PyTorch's per-group loop on the card).  Bounds, stated
+    it: [B, S, 4] tokens for MusicGen).  Bounds, stated
     before the first measurement: loss within 1e-5 of its value (f32
     matmuls summed in other orders); each gradient within 1e-4 of its
     leaf's max |cpu gradient| (the attention and SSD kernels' own f32
@@ -3705,7 +4018,11 @@ def _map(tree, fn):
 # ------------------------------------------------------------------ anneal
 # The batched annealer's sweep: padded N, max_batch, (instances, chains)
 ANNEAL_N = (8, 64, 256, 1024)
-ANNEAL_MB = (1, 8, 32)
+# max_batch 1 and 32 (8, the benchmark's, is held at the benchmark
+# shapes and at the launch plan's thresholds; it left the sweep to keep
+# the script inside its time limit: each case's eager plain version takes
+# a third of a second of the one card)
+ANNEAL_MB = (1, 32)
 ANNEAL_IC = ((1, 8), (4, 2), (8, 8))
 # a case at each threshold of the kernel's launch plan (csrc/anneal.cu:
 # a warp per chain to N 32, three rows at once there to max_batch 10, a
@@ -3918,16 +4235,43 @@ def _plan_name(plan):
             if plan["state_smem"] else "block, state in the global workspace")
 
 
-def _anneal_sweep(stats, plans):
+def _on_host(args):
+    """CPU copies of an anneal call's tensors, for a worker process."""
+    return tuple(a.cpu() if hasattr(a, "cpu") else a for a in args)
+
+
+def _plain_and_check(args, arrays, got, tag):
+    """In a worker process: the plain version on the card on CPU copies of
+    one case's inputs (``_plain_on_card``), and ``_check_anneal`` of the
+    kernel's result ``got`` (CPU copies; its repeat launch is compared
+    where it ran) against it.  Returns this case's stats."""
+    plain = _plain_on_card(args)
+    stats = {"chains": 0, "same": 0, "g_rel": 0.0, "g_abs": 0.0,
+             "eval_rel": 0.0}
+    _check_anneal(arrays, args[1], args[3], got, plain, got, tag, stats)
+    return stats
+
+
+def _anneal_sweep(stats, plans, pool):
     """The kernel against its plain version on the same draws: the sweep
     and a case at each threshold of the launch plan, both scoring
-    paths."""
+    paths.  Each case's plain version (an eager loop, host-bound) and its
+    check against the kernel run in ``pool``'s worker processes while
+    this process launches the kernel; two launches are compared here."""
+    import torch
     from repro_torch.core import annealing_torch as at
     from repro_torch.core.annealing import SAParams
     from repro_torch.kernels import anneal as ka
     from repro_torch.kernels import ops
     t0 = time.perf_counter()
     runs = 0
+    pending = []            # each case's (plain version + check) future
+
+    def submit(arrays, args, got, again, tag):
+        if not all(map(torch.equal, got, again)):
+            raise AssertionError(f"anneal {tag}: two launches differ")
+        pending.append(pool.submit(_plain_and_check, _on_host(args), arrays,
+                                   _on_host(got), tag))
     for n in ANNEAL_N:
         for mb in ANNEAL_MB:
             for n_inst, chains in ANNEAL_IC:
@@ -3945,18 +4289,12 @@ def _anneal_sweep(stats, plans):
                                 cfg.tau, cfg.iters, inc)
                         got = ops.anneal_chains(*args)
                         again = ops.anneal_chains(*args)
-                        plain = ka.anneal_chains_plain(*args)
                         label = (f"N{n} mb{mb} I{n_inst} C{chains} {regime} "
                                  f"{'incremental' if inc else 'full'}")
-                        _check_anneal(arrays, nv, mb, got, plain, again,
-                                      label, stats)
+                        submit(arrays, args, got, again, label)
                         plans.add(_plan_name(ka.launch_plan(n, mb, inc)))
                         runs += 1
-    log(f"  anneal sweep: {runs} runs (N {ANNEAL_N} x max_batch "
-        f"{ANNEAL_MB} x (instances, chains) {ANNEAL_IC} x contended/loose x "
-        f"incremental/full, global budget) in "
-        f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    sweep = runs
     for label, n, nvi, mb, regime, iters, want in ANNEAL_EDGES:
         cfg = at.config_from_sa_params(SAParams(seed=0), num_chains=4)
         if iters:
@@ -3978,8 +4316,7 @@ def _anneal_sweep(stats, plans):
             tag = (f"{label}: N{n} n_valid {nvi} mb{mb} {regime} iters "
                    f"{cfg.iters} {'incremental' if inc else 'full'}")
             got = ops.anneal_chains(*args)
-            _check_anneal(arrays, nv, mb, got, ka.anneal_chains_plain(*args),
-                          ops.anneal_chains(*args), tag, stats)
+            submit(arrays, args, got, ops.anneal_chains(*args), tag)
             plans.add(_plan_name(plan))
             log(f"  anneal {tag}: {_plan_name(plan)} ({plan['threads']} "
                 "threads)")
@@ -3989,8 +4326,18 @@ def _anneal_sweep(stats, plans):
                     f"after {cfg.iters} proposals, inside its draw tile "
                     f"{cfg.iters // 32}")
             runs += 1
-    log(f"  anneal plan thresholds: {2 * len(ANNEAL_EDGES)} runs in "
-        f"{time.perf_counter() - t0:.1f} s; plans taken: {sorted(plans)}")
+    for case in pending:
+        got = case.result()
+        for key in ("chains", "same"):
+            stats[key] += got[key]
+        for key in ("g_rel", "g_abs", "eval_rel"):
+            stats[key] = max(stats[key], got[key])
+    log(f"  anneal sweep: {sweep} runs (N {ANNEAL_N} x max_batch "
+        f"{ANNEAL_MB} x (instances, chains) {ANNEAL_IC} x contended/loose x "
+        f"incremental/full, global budget) and plan thresholds: "
+        f"{runs - sweep} runs, their plain versions in worker processes, "
+        f"in {time.perf_counter() - t0:.1f} s; plans taken: "
+        f"{sorted(plans)}")
     if len(plans) != 4:
         raise AssertionError(f"anneal: plans taken {sorted(plans)}, not "
                              "all four")
@@ -4024,8 +4371,8 @@ def phase_anneal(ctx):
             bench.append((label, n_inst, chains, n, cfg, case, inc))
     # the plain version at the benchmark's shapes (an eager run takes
     # 10-30 s of host time) in worker processes on the card while the
-    # sweep runs, all but the first, which is timed here; no worker runs
-    # while the kernel is timed
+    # sweep runs, all but the first, which is timed here, and then the
+    # sweep's; no worker runs while the kernel is timed
     pool = ProcessPoolExecutor(max_workers=4, mp_context=(
         multiprocessing.get_context("spawn")))
     try:
@@ -4036,7 +4383,7 @@ def phase_anneal(ctx):
                 futures[k] = pool.submit(_plain_on_card, (
                     reqc.cpu(), nv.cpu(), draws.cpu(), mb, cfg.T0,
                     cfg.T_thres, cfg.tau, cfg.iters, inc))
-        _anneal_sweep(stats, plans)
+        _anneal_sweep(stats, plans, pool)
         t0 = time.perf_counter()
         plain_of = {k: f.result() for k, f in futures.items()}
         wait = time.perf_counter() - t0
@@ -4110,13 +4457,13 @@ MESH_TP = 2
 MESH_ENGINE = dict(max_slots=4, max_seq_len=256)
 # depth cuts of the mesh phase (published widths), so that the script
 # keeps inside its time limit: every decode round makes gloo reductions
-# staged through the host.  Qwen2.5-7B at a quarter of its depth (7 of
-# 28; 14 until Zamba2 and DeepSeek joined the phase), DeepSeek-V2-Lite
-# at the stream phase's 7 of 27, DBRX at 4 of 40 (the other 36 do not
-# fit one card), Zamba2-1.2B at its first 12 of 38 layers (10 Mamba2
-# blocks and two applications of the shared block)
-MESH_QWEN_LAYERS = 7
-MESH_DEEPSEEK_LAYERS = 7
+# staged through the host.  Qwen2.5-7B at 4 of its 28 layers (14 until
+# Zamba2 and DeepSeek joined the phase, 7 until the script ran past its
+# time limit), DeepSeek-V2-Lite at 4 of 27 (7 before), DBRX at 4 of 40
+# (the other 36 do not fit one card), Zamba2-1.2B at its first 12 of 38
+# layers (10 Mamba2 blocks and two applications of the shared block)
+MESH_QWEN_LAYERS = 4
+MESH_DEEPSEEK_LAYERS = 4
 MESH_ZAMBA2_LAYERS = 12
 MESH_LAYERS = {"qwen2.5-7b": MESH_QWEN_LAYERS, "dbrx-132b": DBRX_LAYERS,
                "deepseek-v2-lite-16b": MESH_DEEPSEEK_LAYERS,
@@ -4731,7 +5078,9 @@ def phase_mesh(ctx):
 
 
 # ------------------------------------------------------------ train_mesh
-TRAIN_MESH_STEPS = 3
+# timed steps of each bf16 run (1 since the script ran past its time
+# limit with the sequence-parallel run added; 3 before it, then 2)
+TRAIN_MESH_STEPS = 1
 # depth cuts of the train_mesh phase (published widths, TRAIN_MESH_RUNS),
 # so that the phase keeps near 180 s of the script's 1200: two ranks
 # time-share the one card, every step gathers each layer's FSDP shards
@@ -4740,37 +5089,49 @@ TRAIN_MESH_STEPS = 3
 # 48 layers, Zamba2-1.2B at its first 6 of 38 (5 Mamba2 blocks, the
 # shared block once), DeepSeek-V2-Lite at the train phase's 4 of 27
 # bf16 runs: (name, arch, layers, (data, tp), global batch, seq, expert
-# parallel, path).  DeepSeek at B2 S2048 is 4096 tokens: the reference's
+# parallel, attn_sharding, path).  DeepSeek at B2 S2048 is 4096 tokens: the reference's
 # 2-D expert-parallel branch under FSDP (at data 1 it equals the plain
 # expert-parallel one).  DeepSeek's baseline branch at 2 layers (one
 # dense, one MoE): its 64 experts are whole on every tp rank, so each
 # step sums their gradients over tp, 6.6 GB in float32 at 4 layers
 # (8585 ms a step on the H100 over gloo)
+# No bf16 Qwen3 run at (2, 1), to keep the script inside its time limit
+# (27-42 s, most of it the whole embedding's gradient summed over data
+# through the host): Zamba2's and DeepSeek's runs hold the data axis at
+# this width, Qwen3's f32 parity at (2, 1) its dense decoder.
 TRAIN_MESH_RUNS = (
-    ("qwen3 2x1", "qwen3-1.7b", 4, (2, 1), 4, 2048, False, "train_mesh"),
-    ("zamba2 2x1", "zamba2-1.2b", 6, (2, 1), 4, 2048, False,
+    ("zamba2 2x1", "zamba2-1.2b", 6, (2, 1), 4, 2048, False, "none",
      "train_mesh_hybrid"),
     ("deepseek 2d 2x1", "deepseek-v2-lite-16b", 4, (2, 1), 2, 2048, True,
-     "train_mesh_moe"),
-    ("qwen3 1x2", "qwen3-1.7b", 4, (1, 2), 4, 2048, False, "train_mesh"),
+     "none", "train_mesh_moe"),
+    ("qwen3 1x2", "qwen3-1.7b", 4, (1, 2), 4, 2048, False, "none",
+     "train_mesh"),
+    # sequence-parallel attention: each rank's 1024 of the 2048 rows,
+    # K5a-c at its offset against the gathered k / v
+    ("qwen3 auto 1x2", "qwen3-1.7b", 4, (1, 2), 4, 2048, False, "auto",
+     "train_mesh"),
     ("deepseek ep 1x2", "deepseek-v2-lite-16b", 4, (1, 2), 2, 2048, True,
-     "train_mesh_moe"),
+     "none", "train_mesh_moe"),
     ("deepseek base 1x2", "deepseek-v2-lite-16b", 2, (1, 2), 2, 2048,
-     False, "train_mesh_moe"),
-    ("musicgen 1x2", "musicgen-medium", 4, (1, 2), 4, 2048, False,
+     False, "none", "train_mesh_moe"),
+    ("musicgen 1x2", "musicgen-medium", 4, (1, 2), 4, 2048, False, "none",
      "train_mesh_audio"))
 # f32 parity runs, 2 layers (Zamba2 4: SSM, ATTN, SSM, ATTN), B2 S64:
-# (name, arch, (data, tp), expert parallel)
+# (name, arch, (data, tp), expert parallel, attn_sharding)
 TRAIN_MESH_PARITY = (
-    ("qwen3 2x1", "qwen3-1.7b", (2, 1), False),
-    ("qwen3 1x2", "qwen3-1.7b", (1, 2), False),
-    ("mamba2 2x1", "mamba2-780m", (2, 1), False),
-    ("zamba2 1x2", "zamba2-1.2b", (1, 2), False),
-    ("deepseek ep 1x2", "deepseek-v2-lite-16b", (1, 2), True),
-    ("deepseek base 1x2", "deepseek-v2-lite-16b", (1, 2), False),
-    ("deepseek 2d 2x1", "deepseek-v2-lite-16b", (2, 1), True),
-    ("musicgen 1x2", "musicgen-medium", (1, 2), False),
-    ("qwen2-vl 2x1", "qwen2-vl-7b", (2, 1), False))
+    ("qwen3 2x1", "qwen3-1.7b", (2, 1), False, "none"),
+    ("qwen3 1x2", "qwen3-1.7b", (1, 2), False, "none"),
+    ("qwen3 auto 1x2", "qwen3-1.7b", (1, 2), False, "auto"),
+    ("mamba2 2x1", "mamba2-780m", (2, 1), False, "none"),
+    ("zamba2 1x2", "zamba2-1.2b", (1, 2), False, "none"),
+    ("deepseek ep 1x2", "deepseek-v2-lite-16b", (1, 2), True, "none"),
+    ("deepseek base 1x2", "deepseek-v2-lite-16b", (1, 2), False, "none"),
+    ("deepseek 2d 2x1", "deepseek-v2-lite-16b", (2, 1), True, "none"),
+    ("musicgen 1x2", "musicgen-medium", (1, 2), False, "none"))
+# no Qwen2-VL run, to keep the script inside its time limit: its untied
+# 152064-row embedding and head, 4.4 GB in float32, summed over data
+# through the host took 26-30 s; its K5a-c instance, float32 at group 7,
+# is held in the kernels phase
 
 
 def _tree_bytes(tree):
@@ -4844,10 +5205,19 @@ def train_mesh_bf16(mesh, runs):
     from repro_torch.train.train_step import train_step
     stats = {"s": 0.0, "n": 0}
     _time_collectives(stats)
+    # (q rows, keys, q_offset) of every flash-attention call in the timed
+    # steps: a sequence-parallel rank's own rows at its offset
+    calls, flash = [], ops.flash_attention
+
+    def record(q, k, v, **kw):
+        calls.append((q.shape[1], k.shape[1], kw.get("q_offset", 0)))
+        return flash(q, k, v, **kw)
+    ops.flash_attention = record
     out = []
-    for name, arch, layers, _, gb, seq, ep, path in runs:
+    for name, arch, layers, _, gb, seq, ep, attn, path in runs:
         cfg = _depth(get_config(arch), layers)
-        par = sh.ParallelismConfig(fsdp=True, expert_parallel=ep)
+        par = sh.ParallelismConfig(fsdp=True, expert_parallel=ep,
+                                   attn_sharding=attn)
         ctx = sh.make_ctx(mesh, par)
         gc.collect()
         torch.cuda.empty_cache()
@@ -4872,6 +5242,7 @@ def train_mesh_bf16(mesh, runs):
         warm_s = time.perf_counter() - t0
         ops.reset_launch_counts()
         stats.update(s=0.0, n=0)
+        calls.clear()
         ms = []
         for step in range(1, TRAIN_MESH_STEPS + 1):
             b = batch(step)
@@ -4904,11 +5275,16 @@ def train_mesh_bf16(mesh, runs):
                               for t, _ in fsdp),
             "fsdp_unsplit_bytes": sum(n for _, n in fsdp),
             "counts": counts,
+            "attn": attn, "seq": seq, "tp": mesh.shape["model"],
+            "tp_rank": mesh.coords["model"],
+            "attention_calls": sorted(set(calls)),
+            "n_attention_calls": len(calls),
             "predicted": _launches_per_step(cfg),
             "digests": _digests(params, state, specs, mesh),
             "draw_s": draw_s, "warm_s": warm_s,
             "run_s": time.perf_counter() - t_run})
         del params, state
+    ops.flash_attention = flash
     return out
 
 
@@ -4951,14 +5327,15 @@ def train_mesh_parity(mesh, runs):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = []
-    for name, arch, _, ep in runs:
+    for name, arch, _, ep, attn in runs:
         t_run = time.perf_counter()
         full_cfg = get_config(arch)
         pattern = HYBRID_PARITY["pattern"] if arch == "zamba2-1.2b" \
             else full_cfg.layer_pattern[:PARITY_LAYERS]
         cfg = dataclasses.replace(full_cfg, num_layers=len(pattern),
                                   dtype="float32", layer_pattern=pattern)
-        par = sh.ParallelismConfig(fsdp=True, expert_parallel=ep)
+        par = sh.ParallelismConfig(fsdp=True, expert_parallel=ep,
+                                   attn_sharding=attn)
         ctx = sh.make_ctx(mesh, par)
         specs = sh.rank_specs(cfg, mesh, par)
         ocfg = opt.AdamWConfig(lr=3e-4, warmup_steps=1)
@@ -5073,6 +5450,18 @@ def _check_train_mesh_run(run, ranks, smi, results):
         if bad:
             raise AssertionError(f"train_mesh {name} rank {r['rank']}: "
                                  f"launches (got, predicted) {bad}")
+        # each attention call on the rank's rows: under "auto" its
+        # s/tp query rows at offset rank * s/tp against all s keys
+        s, tp = r["seq"], r["tp"]
+        rows = (s // tp, s, r["tp_rank"] * s // tp) if r["attn"] == "auto" \
+            else (s, s, 0)
+        if r["n_attention_calls"] and r["attention_calls"] != [rows]:
+            raise AssertionError(f"train_mesh {name} rank {r['rank']}: "
+                                 f"attention calls (q rows, keys, offset) "
+                                 f"{r['attention_calls']}, not {[rows]}")
+        log(f"  train_mesh {name} rank {r['rank']}: "
+            f"{r['n_attention_calls']} flash-attention calls, each (q rows, "
+            f"keys, q_offset) in {r['attention_calls']}")
         for k in PATHS[path]:
             if r["counts"].get(k, 0) <= 0:
                 raise AssertionError(f"{k} was never launched on the {path} "
@@ -5129,6 +5518,17 @@ def phase_train_mesh(ctx):
             "to results)")
         for i, run in enumerate(runs):
             _check_train_mesh_run(run, [o[0][i] for o in out], smi, results)
+        done = {run[0]: [o[0][i] for o in out] for i, run in enumerate(runs)}
+        if "qwen3 auto 1x2" in done:
+            auto, none = done["qwen3 auto 1x2"], done["qwen3 1x2"]
+            med = lambda r: sorted(r["ms"])[len(r["ms"]) // 2]
+            for a, n in zip(auto, none):
+                log(f"  train_mesh qwen3 1x2 auto vs none rank {a['rank']} "
+                    f"({smi}): median {med(a):.1f} vs {med(n):.1f} ms a "
+                    f"step, peak max_memory_allocated {a['peak_gb']:.2f} vs "
+                    f"{n['peak_gb']:.2f} GB, collectives {a['coll_n']} vs "
+                    f"{n['coll_n']} calls, {a['coll_s']:.2f} vs "
+                    f"{n['coll_s']:.2f} s")
         for i, run in enumerate(parity):
             ranks = [o[1][i] for o in out]
             r, lr = ranks[0], ranks[0]["lr"]

@@ -263,7 +263,7 @@ def make_ctx(mesh, par: ParallelismConfig) -> ShardingCtx:
 # ------------------------------------------------------ per-rank slices
 def placement_specs(specs, cfg: ModelConfig, mesh, par: ParallelismConfig):
     """The specs a rank holds its params by: :func:`param_specs` with
-    two departures, each giving the reference's result.
+    three departures, each giving the reference's result.
 
     * Attention: where the kv heads do not divide the tp axis the rules
       may still split ``wk``'s columns (qwen3-1.7b's 8 kv heads at tp 16 cut
@@ -282,15 +282,25 @@ def placement_specs(specs, cfg: ModelConfig, mesh, par: ParallelismConfig):
       mid-head, and the block runs replicated.  A hybrid's
       ``shared_block`` is placed as any GQA block; its SSM blocks are
       FSDP-only in the rules, so whole on every rank without FSDP.
+    * Sequence-parallel attention (``par.attn_sharding == "auto"``):
+      each rank computes every GQA head for its rows of the sequence,
+      so the GQA projections (``wq``, ``wk``, ``wv``, ``wo``, the
+      qk-norm scales; a hybrid's ``shared_block`` too) are whole over
+      tp on every rank, and their gradients are summed over tp (they
+      enter the rows through ``layers.tp_enter``).  The reference's
+      rules still split their columns here and GSPMD moves them to the
+      rows' ranks.  MLA, which the reference keeps off the sequence
+      path, is placed as without ``"auto"``.
     * MoE without expert parallelism: the reference's ``shard_map``
       gathers every expert to every device at each call (``in_specs``
       ``P()``); each rank holds them whole over tp instead, gathered once.
 
-    Either departure drops only the tp entry of a spec: under FSDP the
+    Each departure drops only the tp entry of a spec: under FSDP the
     data axis still shards the leaf (``fsdp_gather`` puts it together in
     each layer)."""
     tp = mesh.shape[par.tp_axis]
-    whole_attn = not heads_split(cfg, tp)
+    whole_attn = not heads_split(cfg, tp) or \
+        (par.attn_sharding == "auto" and cfg.mla is None)
     ep = cfg.moe is not None and par.expert_parallel \
         and cfg.moe.num_experts % tp == 0
     whole = lambda s: _drop_axis(s, par.tp_axis)

@@ -89,6 +89,7 @@ engine built on its mesh until rank 0 has closed each of them.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 import warnings
 from typing import Dict, List, Optional, Sequence
@@ -293,6 +294,12 @@ class Engine:
                                                       shard_leaf, tree_map)
         par = parallelism if parallelism is not None \
             else ParallelismConfig(fsdp=False)
+        # the reference's engine hands its forwards no ctx
+        # (src/repro/engine/engine.py:270, :281, :299), so there
+        # attn_sharding="auto" changes nothing: its prefills attend over
+        # the rank's heads as under "none", and so do this engine's (the
+        # params placed alike)
+        par = dataclasses.replace(par, attn_sharding="none")
         if any(n != 1 for a, n in mesh.shape.items() if a != par.tp_axis):
             raise NotImplementedError(
                 f"mesh {mesh.shape}: an engine runs on one tp group; "

@@ -60,10 +60,10 @@ SIGNATURES = {
     "decode_attention_paged_q8": [_P] * 11 + [_I] * 11 + [_P],
     "decode_attention": [_P] * 8 + [_I] * 8 + [_P],
     "decode_attention_q8": [_P] * 10 + [_I] * 8 + [_P],
-    "flash_attention": [_P] * 4 + [_I] * 8 + [_P],
-    "flash_attention_fwd_lse": [_P] * 5 + [_I] * 8 + [_P],
-    "flash_attention_dq": [_P] * 7 + [_I] * 8 + [_P],
-    "flash_attention_dkv": [_P] * 8 + [_I] * 8 + [_P],
+    "flash_attention": [_P] * 4 + [_I] * 10 + [_P],
+    "flash_attention_fwd_lse": [_P] * 5 + [_I] * 10 + [_P],
+    "flash_attention_dq": [_P] * 7 + [_I] * 10 + [_P],
+    "flash_attention_dkv": [_P] * 8 + [_I] * 10 + [_P],
     # + the C·Bᵀ workspace, and the plan's slices
     "ssd_scan": [_P] * 9 + [_I] * 7 + [_P],
     # x, dt, A, B, C, init_state, dy, dfinal, the C·Bᵀ and states

@@ -13,7 +13,11 @@
 //       dv = Σ_q Pᵀ dO,  dk = Σ_q (P ⊙ (dP − Δ) · scale)ᵀ Q, each summed
 //       over the H/KV q heads of the kv head's group
 // with dP = dO·Vᵀ and Δ = rowsum(out ⊙ dO) (computed by the caller, as
-// the JAX backward does outside its kernels).
+// the JAX backward does outside its kernels).  Each also takes a
+// sequence-parallel rank's rows: q, dO, out, lse, Δ and dq of Sq query
+// rows at key positions q_offset .. q_offset + Sq - 1 of k, v, dk and dv
+// [B,Sk,KV,hd] (the reference's _causal_mask(Sq, Sk, q_offset, window));
+// every dk / dv row is written, zeros where no query row sees its key.
 //
 // bf16 runs on the tensor cores: the forward on the shared block of
 // flash_attention_fwd_sm90.cuh, dq and dk/dv on the wgmma + TMA kernels
@@ -67,9 +71,9 @@ __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq, int S,
-                int num_heads, int num_kv_heads, int causal, int window,
-                float scale) {
+                const float* __restrict__ delta, T* __restrict__ dq, int Sq,
+                int Sk, int q_off, int num_heads, int num_kv_heads,
+                int causal, int window, float scale) {
   constexpr int kHalf = HD / 2;     // dq dims per thread
   constexpr int kCols = kBK / 2;    // score columns per thread
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -85,27 +89,27 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sS = sV + kBK * (HD + 1);       // [kBQ][kBK + 1] dS
 
   const int q0 = qt * kBQ;
-  stage_rows<T, HD, kBQ, kThreads>(q, sQ, HD + 1, b, q0, S, num_heads, h,
+  stage_rows<T, HD, kBQ, kThreads>(q, sQ, HD + 1, b, q0, Sq, num_heads, h,
                                    tid, scale);
-  stage_rows<T, HD, kBQ, kThreads>(dout, sO, HD + 1, b, q0, S, num_heads, h,
+  stage_rows<T, HD, kBQ, kThreads>(dout, sO, HD + 1, b, q0, Sq, num_heads, h,
                                    tid, 1.f);
-  const int qpos = q0 + row;
-  const size_t lrow = ((size_t)b * num_heads + h) * S + qpos;
-  const float lse_r = qpos < S ? lse[lrow] : 0.f;
-  const float del_r = qpos < S ? delta[lrow] : 0.f;
+  const int qrow = q0 + row;  // this row of q, at key position q_off + qrow
+  const size_t lrow = ((size_t)b * num_heads + h) * Sq + qrow;
+  const float lse_r = qrow < Sq ? lse[lrow] : 0.f;
+  const float del_r = qrow < Sq ? delta[lrow] : 0.f;
 
   float acc[kHalf];
 #pragma unroll
   for (int j = 0; j < kHalf; ++j) acc[j] = 0.f;
 
-  const int k_end = causal ? min(S, q0 + kBQ) : S;
+  const int k_end = causal ? min(Sk, q_off + q0 + kBQ) : Sk;
   int k_begin = 0;
-  if (window > 0) k_begin = (max(0, q0 - window + 1) / kBK) * kBK;
+  if (window > 0) k_begin = (max(0, q_off + q0 - window + 1) / kBK) * kBK;
 
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    stage_rows<T, HD, kBK, kThreads>(k, sK, HD + 1, b, k0, S, num_kv_heads,
+    stage_rows<T, HD, kBK, kThreads>(k, sK, HD + 1, b, k0, Sk, num_kv_heads,
                                      kvh, tid, 1.f);
-    stage_rows<T, HD, kBK, kThreads>(v, sV, HD + 1, b, k0, S, num_kv_heads,
+    stage_rows<T, HD, kBK, kThreads>(v, sV, HD + 1, b, k0, Sk, num_kv_heads,
                                      kvh, tid, 1.f);
     __syncthreads();
 
@@ -130,7 +134,9 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < kCols; ++j) {
       const int c = 2 * j + half;
       const float p =
-          live(qpos, k0 + c, S, causal, window) ? expf(sc[j] - lse_r) : 0.f;
+          live(qrow, k0 + c, Sq, Sk, q_off, causal, window)
+              ? expf(sc[j] - lse_r)
+              : 0.f;
       sS[row * (kBK + 1) + c] = p * (dp[j] - del_r) * scale;
     }
     __syncwarp();  // the partner's dS are visible
@@ -146,8 +152,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // before the next tile overwrites sK/sV/sS
   }
 
-  if (qpos < S) {
-    T* drow = dq + (((size_t)b * S + qpos) * num_heads + h) * HD;
+  if (qrow < Sq) {
+    T* drow = dq + (((size_t)b * Sq + qrow) * num_heads + h) * HD;
 #pragma unroll
     for (int j = 0; j < kHalf; ++j) store(drow + 2 * j + half, acc[j]);
   }
@@ -166,8 +172,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, T* __restrict__ dk,
-                 T* __restrict__ dv, int S, int num_heads, int num_kv_heads,
-                 int causal, int window, float scale) {
+                 T* __restrict__ dv, int Sq, int Sk, int q_off, int num_heads,
+                 int num_kv_heads, int causal, int window, float scale) {
   constexpr int kQuarter = HD / 4;  // dk/dv dims per thread
   constexpr int kCols = kBQV / 4;   // score columns per thread
   const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
@@ -186,9 +192,9 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sD = sL + kBQV;                 // [kBQV] delta
 
   const int k0 = kt * kBKV;
-  stage_rows<T, HD, kBKV, kDkvThreads>(k, sK, HD + 1, b, k0, S,
+  stage_rows<T, HD, kBKV, kDkvThreads>(k, sK, HD + 1, b, k0, Sk,
                                        num_kv_heads, kvh, tid, 1.f);
-  stage_rows<T, HD, kBKV, kDkvThreads>(v, sV, HD + 1, b, k0, S,
+  stage_rows<T, HD, kBKV, kDkvThreads>(v, sV, HD + 1, b, k0, Sk,
                                        num_kv_heads, kvh, tid, 1.f);
   const int kpos = k0 + row;
 
@@ -197,24 +203,27 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j < kQuarter; ++j) ak[j] = av[j] = 0.f;
 
   // q rows that can see this key tile: from its causal start to the
-  // window's end past its last key
-  const int q_begin = causal ? (k0 / kBQV) * kBQV : 0;
-  const int q_end = window > 0 ? min(S, k0 + kBKV - 1 + window) : S;
+  // window's end past its last key (q row i at key position q_off + i;
+  // none where the tile lies past the last row or before the first
+  // row's window, and its rows are then written as zeros)
+  const int q_begin = causal ? (max(0, k0 - q_off) / kBQV) * kBQV : 0;
+  const int q_end =
+      window > 0 ? min(Sq, k0 + kBKV - 1 + window - q_off) : Sq;
 
   for (int r = 0; r < rep; ++r) {
     const int h = kvh * rep + r;
-    const float* lse_h = lse + ((size_t)b * num_heads + h) * S;
-    const float* del_h = delta + ((size_t)b * num_heads + h) * S;
+    const float* lse_h = lse + ((size_t)b * num_heads + h) * Sq;
+    const float* del_h = delta + ((size_t)b * num_heads + h) * Sq;
     for (int q0 = q_begin; q0 < q_end; q0 += kBQV) {
       __syncthreads();  // the previous step is done with sQ/sO/sP/sS
-      stage_rows<T, HD, kBQV, kDkvThreads>(q, sQ, HD + 1, b, q0, S,
+      stage_rows<T, HD, kBQV, kDkvThreads>(q, sQ, HD + 1, b, q0, Sq,
                                            num_heads, h, tid, scale);
-      stage_rows<T, HD, kBQV, kDkvThreads>(dout, sO, HD + 1, b, q0, S,
+      stage_rows<T, HD, kBQV, kDkvThreads>(dout, sO, HD + 1, b, q0, Sq,
                                            num_heads, h, tid, 1.f);
       if (tid < kBQV) {
         const int qp = q0 + tid;
-        sL[tid] = qp < S ? lse_h[qp] : 0.f;
-        sD[tid] = qp < S ? del_h[qp] : 0.f;
+        sL[tid] = qp < Sq ? lse_h[qp] : 0.f;
+        sD[tid] = qp < Sq ? del_h[qp] : 0.f;
       }
       __syncthreads();
 
@@ -238,7 +247,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         const int c = 4 * j + part;
-        const float p = live(q0 + c, kpos, S, causal, window)
+        const float p = live(q0 + c, kpos, Sq, Sk, q_off, causal, window)
                             ? expf(sc[j] - sL[c])
                             : 0.f;
         sP[row * (kBQV + 1) + c] = p;
@@ -263,8 +272,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  if (kpos < S) {
-    const size_t off = (((size_t)b * S + kpos) * num_kv_heads + kvh) * HD;
+  if (kpos < Sk) {
+    const size_t off = (((size_t)b * Sk + kpos) * num_kv_heads + kvh) * HD;
 #pragma unroll
     for (int j = 0; j < kQuarter; ++j) {
       store(dk + off + 4 * j + part, ak[j]);
@@ -276,19 +285,19 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int HD>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
-                      void* dq, int batch, int S, int H, int KV, int causal,
-                      int window, cudaStream_t stream) {
+                      void* dq, int batch, int Sq, int Sk, int q_off, int H,
+                      int KV, int causal, int window, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<HD>();
   static bool attr_set = false;
   cudaError_t e =
       flash_tc::raise_smem_once(flash_dq_kernel<T, HD>, smem, &attr_set);
   if (e != cudaSuccess) return e;
   const float scale = flash_tc::bwd_scale(HD);
-  dim3 grid((S + kBQ - 1) / kBQ, H, batch);
+  dim3 grid((Sq + kBQ - 1) / kBQ, H, batch);
   flash_dq_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), S, H, KV, causal, window, scale);
+      static_cast<T*>(dq), Sq, Sk, q_off, H, KV, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -296,20 +305,20 @@ template <typename T, int HD>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse,
                        const float* delta, void* dk, void* dv, int batch,
-                       int S, int H, int KV, int causal, int window,
-                       cudaStream_t stream) {
+                       int Sq, int Sk, int q_off, int H, int KV, int causal,
+                       int window, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<HD>();
   static bool attr_set = false;
   cudaError_t e =
       flash_tc::raise_smem_once(flash_dkv_kernel<T, HD>, smem, &attr_set);
   if (e != cudaSuccess) return e;
   const float scale = flash_tc::bwd_scale(HD);
-  dim3 grid((S + kBKV - 1) / kBKV, KV, batch);
+  dim3 grid((Sk + kBKV - 1) / kBKV, KV, batch);
   flash_dkv_kernel<T, HD><<<grid, kDkvThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), S, H, KV, causal, window,
-      scale);
+      static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, q_off, H, KV, causal,
+      window, scale);
   return cudaGetLastError();
 }
 
@@ -329,22 +338,24 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 extern "C" int flash_attention_fwd_lse(const void* q, const void* k,
                                        const void* v, void* out, void* lse,
-                                       int batch, int seq_len, int num_heads,
+                                       int batch, int seq_q, int seq_k,
+                                       int q_offset, int num_heads,
                                        int num_kv_heads, int head_dim,
                                        int causal, int window, int dtype,
                                        void* stream) {
-  if (flash::bad_shape(batch, seq_len, num_heads, num_kv_heads))
+  if (flash::bad_shape(batch, seq_q, seq_k, q_offset, num_heads,
+                       num_kv_heads))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
 #define REPRO_F32(HD)                                                       \
-  flash::launch_fwd<float, HD, true>(q, k, v, out, l, batch, seq_len,       \
-                                     num_heads, num_kv_heads, causal,       \
-                                     window, s)
+  flash::launch_fwd<float, HD, true>(q, k, v, out, l, batch, seq_q, seq_k, \
+                                     q_offset, num_heads, num_kv_heads,     \
+                                     causal, window, s)
 #define REPRO_BF16(HD)                                                      \
-  flash_tc::launch_fwd_tc<HD, true>(q, k, v, out, l, batch, seq_len,        \
-                                    num_heads, num_kv_heads, causal,        \
-                                    window, s)
+  flash_tc::launch_fwd_tc<HD, true>(q, k, v, out, l, batch, seq_q, seq_k,  \
+                                    q_offset, num_heads, num_kv_heads,      \
+                                    causal, window, s)
   REPRO_DISPATCH(REPRO_F32, REPRO_BF16);
 #undef REPRO_F32
 #undef REPRO_BF16
@@ -353,21 +364,23 @@ extern "C" int flash_attention_fwd_lse(const void* q, const void* k,
 extern "C" int flash_attention_dq(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,
-                                  void* dq, int batch, int seq_len,
-                                  int num_heads, int num_kv_heads,
-                                  int head_dim, int causal, int window,
-                                  int dtype, void* stream) {
-  if (flash::bad_shape(batch, seq_len, num_heads, num_kv_heads))
+                                  void* dq, int batch, int seq_q, int seq_k,
+                                  int q_offset, int num_heads,
+                                  int num_kv_heads, int head_dim, int causal,
+                                  int window, int dtype, void* stream) {
+  if (flash::bad_shape(batch, seq_q, seq_k, q_offset, num_heads,
+                       num_kv_heads))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(delta);
 #define REPRO_F32(HD)                                                     \
-  launch_dq<float, HD>(q, k, v, dout, l, d, dq, batch, seq_len,           \
-                       num_heads, num_kv_heads, causal, window, s)
+  launch_dq<float, HD>(q, k, v, dout, l, d, dq, batch, seq_q, seq_k,      \
+                       q_offset, num_heads, num_kv_heads, causal, window, s)
 #define REPRO_BF16(HD)                                                    \
-  flash_tc::launch_dq_tc<HD>(q, k, v, dout, l, d, dq, batch, seq_len,     \
-                             num_heads, num_kv_heads, causal, window, s)
+  flash_tc::launch_dq_tc<HD>(q, k, v, dout, l, d, dq, batch, seq_q, seq_k,\
+                             q_offset, num_heads, num_kv_heads, causal,   \
+                             window, s)
   REPRO_DISPATCH(REPRO_F32, REPRO_BF16);
 #undef REPRO_F32
 #undef REPRO_BF16
@@ -376,24 +389,25 @@ extern "C" int flash_attention_dq(const void* q, const void* k,
 extern "C" int flash_attention_dkv(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* delta,
-                                   void* dk, void* dv, int batch,
-                                   int seq_len, int num_heads,
+                                   void* dk, void* dv, int batch, int seq_q,
+                                   int seq_k, int q_offset, int num_heads,
                                    int num_kv_heads, int head_dim,
                                    int causal, int window, int dtype,
                                    void* stream) {
-  if (flash::bad_shape(batch, seq_len, num_heads, num_kv_heads) ||
+  if (flash::bad_shape(batch, seq_q, seq_k, q_offset, num_heads,
+                       num_kv_heads) ||
       num_kv_heads > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(delta);
 #define REPRO_F32(HD)                                                     \
-  launch_dkv<float, HD>(q, k, v, dout, l, d, dk, dv, batch, seq_len,      \
-                        num_heads, num_kv_heads, causal, window, s)
+  launch_dkv<float, HD>(q, k, v, dout, l, d, dk, dv, batch, seq_q, seq_k, \
+                        q_offset, num_heads, num_kv_heads, causal, window, s)
 #define REPRO_BF16(HD)                                                    \
-  flash_tc::launch_dkv_tc<HD>(q, k, v, dout, l, d, dk, dv, batch,         \
-                              seq_len, num_heads, num_kv_heads, causal,   \
-                              window, s)
+  flash_tc::launch_dkv_tc<HD>(q, k, v, dout, l, d, dk, dv, batch, seq_q,  \
+                              seq_k, q_offset, num_heads, num_kv_heads,   \
+                              causal, window, s)
   REPRO_DISPATCH(REPRO_F32, REPRO_BF16);
 #undef REPRO_F32
 #undef REPRO_BF16

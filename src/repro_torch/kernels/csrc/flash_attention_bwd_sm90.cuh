@@ -12,7 +12,11 @@
 // with any S >= 1 (ragged last tiles masked), GQA groups read in place,
 // and hd 64, 80 or 128 (80 runs as 128: TMA zero-fills columns 80-127,
 // the products over hd stop at 80, and the padded output columns are
-// never stored).
+// never stored).  A sequence-parallel rank passes its Sq query rows
+// (q, dO, lse, Δ, dq) at key position q_off onwards of Sk keys (k, v,
+// dk, dv): the tile bounds and masks read positions, and a key tile no
+// query row sees (past the rank's last query, or before the window of
+// its first) gets no q tile and writes zero dk / dv rows.
 //
 // What bounds them on the card: operations, 6 (dq) and 8 (dk/dv) flops
 // per q head × hd × attended pair against a few bytes per row, so only
@@ -63,9 +67,11 @@ constexpr int kBwdN = 64;       // rows of a streamed tile: keys (dq), q (dk/dv)
 constexpr int kBwdStages = 2;   // ring depth
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ bool live(int qp, int kp, int S, int causal,
-                                     int window) {
-  bool ok = kp < S && qp < S;
+// query row qi (key position q_off + qi) attends key kp
+__device__ __forceinline__ bool live(int qi, int kp, int Sq, int Sk,
+                                     int q_off, int causal, int window) {
+  const int qp = q_off + qi;
+  bool ok = kp < Sk && qi < Sq;
   if (causal) ok = ok && kp <= qp;
   if (window > 0) ok = ok && kp > qp - window;
   return ok;
@@ -112,9 +118,9 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_do,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta,
-                   __nv_bfloat16* __restrict__ dq, int S, int num_heads,
-                   int num_kv_heads, int n_qt, int causal, int window,
-                   float scale, float scale_log2) {
+                   __nv_bfloat16* __restrict__ dq, int Sq, int Sk,
+                   int q_off, int num_heads, int num_kv_heads, int n_qt,
+                   int causal, int window, float scale, float scale_log2) {
   constexpr int HDP = HD == 64 ? 64 : 128;  // hd 80 runs as 128
   constexpr int kCB = HDP / 64;             // 64-column blocks of a row
   constexpr int BM = 64 * NC;               // q rows per block
@@ -141,9 +147,10 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int rem = (int)blockIdx.x % hb;
   const int h = rem % num_heads, b = rem / num_heads;
   const int kvh = h / (num_heads / num_kv_heads);
-  const int q0 = qt * BM;
-  const int k_end = causal ? min(S, q0 + BM) : S;
-  const int k_first = window > 0 ? max(0, q0 - window + 1) / kBwdN : 0;
+  const int q0 = qt * BM;   // the tile's first q row, at key q_off + q0
+  const int k_end = causal ? min(Sk, q_off + q0 + BM) : Sk;
+  const int k_first =
+      window > 0 ? max(0, q_off + q0 - window + 1) / kBwdN : 0;
   const int n_tiles = (k_end + kBwdN - 1) / kBwdN - k_first;
 
   if (threadIdx.x == 0) {
@@ -193,14 +200,15 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int ra = 16 * warp + (lane >> 2);  // rows ra, ra + 8 of the 64
     const int q_lo = q0 + 64 * cw;
     const int qa = q_lo + ra, qb = qa + 8;
+    const int p_lo = q_off + q_lo;  // the key position of row q_lo
     const uint32_t q_base = sQ + cw * 64 * kRowBytes;
     const uint32_t o_base = sO + cw * 64 * kRowBytes;
-    const size_t row0 = ((size_t)b * num_heads + h) * S;
+    const size_t row0 = ((size_t)b * num_heads + h) * Sq;
     // lse in log2 units, so P = 2^(s·scale·log2e − lse·log2e)
-    const float la = qa < S ? lse[row0 + qa] * kLog2e : 0.f;
-    const float lb = qb < S ? lse[row0 + qb] * kLog2e : 0.f;
-    const float da = qa < S ? delta[row0 + qa] : 0.f;
-    const float db = qb < S ? delta[row0 + qb] : 0.f;
+    const float la = qa < Sq ? lse[row0 + qa] * kLog2e : 0.f;
+    const float lb = qb < Sq ? lse[row0 + qb] * kLog2e : 0.f;
+    const float da = qa < Sq ? delta[row0 + qa] : 0.f;
+    const float db = qb < Sq ? delta[row0 + qb] : 0.f;
 
     float acc[HDP / 2];
     float s[kBwdN / 2], dp[kBwdN / 2];
@@ -217,8 +225,8 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint32_t k_base = sK + st * kTileBytes;
       const uint32_t v_base = sV + st * kTileBytes;
       // a tile wholly outside this consumer's rows' band adds nothing
-      const bool dead = q_lo >= S || (causal && k0 > q_lo + 63) ||
-                        (window > 0 && k0 + kBwdN - 1 <= q_lo - window);
+      const bool dead = q_lo >= Sq || (causal && k0 > p_lo + 63) ||
+                        (window > 0 && k0 + kBwdN - 1 <= p_lo - window);
       if (!dead) {
         // S = Q·Kᵀ and dP = dO·Vᵀ over the hd columns
         fence_regs(s);
@@ -239,8 +247,9 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         fence_regs(dp);
 
         // dS on the fragment, packed to bf16 as the A fragment of dS·K
-        const bool edge = k0 + kBwdN > S || (causal && k0 + kBwdN - 1 > q_lo) ||
-                          (window > 0 && k0 <= q_lo + 63 - window);
+        const bool edge = k0 + kBwdN > Sk ||
+                          (causal && k0 + kBwdN - 1 > p_lo) ||
+                          (window > 0 && k0 <= p_lo + 63 - window);
         uint32_t a[kBwdN / 4];
 #pragma unroll
         for (int i = 0; i < kBwdN / 8; ++i) {
@@ -249,8 +258,8 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
           for (int e = 0; e < 4; ++e) {
             const bool hi = e & 2;
             float p = ex2(fmaf(s[4 * i + e], scale_log2, -(hi ? lb : la)));
-            if (edge && !live(hi ? qb : qa, k0 + 8 * i + 2 * cq + (e & 1), S,
-                              causal, window))
+            if (edge && !live(hi ? qb : qa, k0 + 8 * i + 2 * cq + (e & 1), Sq,
+                              Sk, q_off, causal, window))
               p = 0.f;
             ds[e] = p * (dp[4 * i + e] - (hi ? db : da)) * scale;
           }
@@ -278,15 +287,19 @@ flash_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     // epilogue through this consumer's Q rows
     store_rows<HD, HDP>(acc, smem + cw * 64 * kRowBytes, BM * kRowBytes, ra,
                         cq, t, 1 + cw,
-                        dq + (((size_t)b * S + q_lo) * num_heads + h) * HD,
-                        (size_t)num_heads * HD, S - q_lo);
+                        dq + (((size_t)b * Sq + q_lo) * num_heads + h) * HD,
+                        (size_t)num_heads * HD, Sq - q_lo);
   }
 }
 
 // ----------------------------------------------------------------- dk/dv
 // One consumer warpgroup owning the block's 64 key rows, and one producer
-// warp: 160 threads, so the consumer may hold 255 registers.
-template <int HD>
+// warp: 160 threads, so the consumer may hold 255 registers.  kOffset:
+// query rows at an offset (a sequence-parallel rank's); without it the
+// whole sequence (Sq == Sk, no offset), whose instance folds the offset
+// arithmetic away (compiled in, it made the whole-sequence call slower on
+// the card).
+template <int HD, bool kOffset>
 __global__ void __launch_bounds__(160, 1)
 flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
@@ -295,9 +308,11 @@ flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
                     __nv_bfloat16* __restrict__ dk,
-                    __nv_bfloat16* __restrict__ dv, int S, int num_heads,
-                    int num_kv_heads, int n_kt, int causal, int window,
-                    float scale, float scale_log2) {
+                    __nv_bfloat16* __restrict__ dv, int Sq_arg, int Sk,
+                    int q_off_arg, int num_heads, int num_kv_heads, int n_kt,
+                    int causal, int window, float scale, float scale_log2) {
+  const int Sq = kOffset ? Sq_arg : Sk;
+  const int q_off = kOffset ? q_off_arg : 0;
   constexpr int HDP = HD == 64 ? 64 : 128;
   constexpr int kCB = HDP / 64;
   constexpr uint32_t kTileBytes = kBwdN * HDP * 2;  // K, V, one Q or dO tile
@@ -328,10 +343,16 @@ flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int k0 = kt * kBwdN;
   // q tiles that can see this key tile, from its causal start to the
   // window's end past its last key (each holds a live pair), the same
-  // run for each group head
-  const int q_first = causal ? kt : 0;
-  const int q_end = window > 0 ? min(S, k0 + kBwdN - 1 + window) : S;
-  const int n_q = (q_end + kBwdN - 1) / kBwdN - q_first;
+  // run for each group head; q row i sits at key q_off + i.  A tile past
+  // the last query row, or before the first one's window, has none: its
+  // dk / dv rows are written as zeros all the same
+  const int q_first = !causal ? 0 : kOffset ? max(0, k0 - q_off) / kBwdN
+                                            : kt;
+  const int q_end =
+      window > 0 ? min(Sq, k0 + kBwdN - 1 + window - q_off) : Sq;
+  const int n_q =
+      kOffset ? max(0, (max(q_end, 0) + kBwdN - 1) / kBwdN - q_first)
+              : (q_end + kBwdN - 1) / kBwdN - q_first;
   const int n_items = rep * n_q;
 
   if (threadIdx.x == 0) {
@@ -375,16 +396,16 @@ flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
           tma_load_4d(sO + off, &tm_do, full, c * 64, h, q0, b);
         }
       }
-      // lane l stages rows 2l, 2l + 1 (rows past S read as zeros and
+      // lane l stages rows 2l, 2l + 1 (rows past Sq read as zeros and
       // are masked by the consumer)
-      const size_t row0 = ((size_t)b * num_heads + h) * S;
+      const size_t row0 = ((size_t)b * num_heads + h) * Sq;
       const int qp = q0 + 2 * lane;
       float2 l2 = make_float2(0.f, 0.f), d2 = make_float2(0.f, 0.f);
-      if (qp < S) {
+      if (qp < Sq) {
         l2.x = lse[row0 + qp] * kLog2e;
         d2.x = delta[row0 + qp];
       }
-      if (qp + 1 < S) {
+      if (qp + 1 < Sq) {
         l2.y = lse[row0 + qp + 1] * kLog2e;
         d2.y = delta[row0 + qp + 1];
       }
@@ -434,9 +455,9 @@ flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 
       // Pᵀ and dSᵀ on the fragment (q along the columns), packed to bf16
       // as the A fragments of Pᵀ·dO and dSᵀ·Q
-      const bool edge = k0 + kBwdN > S || q0 + kBwdN > S ||
-                        (causal && k0 + kBwdN - 1 > q0) ||
-                        (window > 0 && q0 + kBwdN - 1 >= k0 + window);
+      const bool edge = k0 + kBwdN > Sk || q0 + kBwdN > Sq ||
+                        (causal && k0 + kBwdN - 1 > q_off + q0) ||
+                        (window > 0 && q_off + q0 + kBwdN - 1 >= k0 + window);
       uint32_t ap[kBwdN / 4], ad[kBwdN / 4];
 #pragma unroll
       for (int i = 0; i < kBwdN / 8; ++i) {
@@ -447,8 +468,8 @@ flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int e = 0; e < 4; ++e) {
           const bool odd = e & 1;
           p[e] = ex2(fmaf(s[4 * i + e], scale_log2, -(odd ? l2.y : l2.x)));
-          if (edge && !live(q0 + 8 * i + 2 * cq + odd, (e & 2) ? kb : ka, S,
-                            causal, window))
+          if (edge && !live(q0 + 8 * i + 2 * cq + odd, (e & 2) ? kb : ka, Sq,
+                            Sk, q_off, causal, window))
             p[e] = 0.f;
           ds[e] = p[e] * (dp[4 * i + e] - (odd ? d2.y : d2.x)) * scale;
         }
@@ -483,12 +504,12 @@ flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
 
     // epilogue through the K and V tiles
-    const size_t out0 = (((size_t)b * S + k0) * num_kv_heads + kvh) * HD;
+    const size_t out0 = (((size_t)b * Sk + k0) * num_kv_heads + kvh) * HD;
     const size_t stride = (size_t)num_kv_heads * HD;
     store_rows<HD, HDP>(adk, smem, kBwdN * kRowBytes, ra, cq, t, 1,
-                        dk + out0, stride, S - k0);
+                        dk + out0, stride, Sk - k0);
     store_rows<HD, HDP>(adv, smem + kTileBytes, kBwdN * kRowBytes, ra, cq,
-                        t, 1, dv + out0, stride, S - k0);
+                        t, 1, dv + out0, stride, Sk - k0);
   }
 }
 
@@ -510,15 +531,17 @@ constexpr size_t bwd_smem_bytes() {
          2 * (size_t)kBwdStages * kBwdN * hdp * 2;
 }
 
-// q, k, v, dO as the 4-D tensor maps of the two kernels: the resident
-// tensors in boxes of BM rows, the streamed ones in boxes of kBwdN rows
+// q, k, v, dO as the 4-D tensor maps of the two kernels (q, dO over Sq
+// rows, k, v over Sk): the resident tensors in boxes of BM rows, the
+// streamed ones in boxes of kBwdN rows
 inline bool bwd_maps(CUtensorMap* tm, const void* q, const void* k,
                      const void* v, const void* dout, int hd, int batch,
-                     int S, int H, int KV, int q_rows, int kv_rows) {
-  return make_map(&tm[0], q, hd, H, S, batch, q_rows) &&
-         make_map(&tm[1], k, hd, KV, S, batch, kv_rows) &&
-         make_map(&tm[2], v, hd, KV, S, batch, kv_rows) &&
-         make_map(&tm[3], dout, hd, H, S, batch, q_rows);
+                     int Sq, int Sk, int H, int KV, int q_rows,
+                     int kv_rows) {
+  return make_map(&tm[0], q, hd, H, Sq, batch, q_rows) &&
+         make_map(&tm[1], k, hd, KV, Sk, batch, kv_rows) &&
+         make_map(&tm[2], v, hd, KV, Sk, batch, kv_rows) &&
+         make_map(&tm[3], dout, hd, H, Sq, batch, q_rows);
 }
 
 inline float bwd_scale(int hd) { return (float)(1.0 / sqrt((double)hd)); }
@@ -529,9 +552,9 @@ inline float bwd_scale_log2(int hd) {
 template <int HD, int NC>
 cudaError_t launch_dq_nc(const void* q, const void* k, const void* v,
                          const void* dout, const float* lse,
-                         const float* delta, void* dq, int batch, int S,
-                         int H, int KV, int causal, int window,
-                         cudaStream_t stream) {
+                         const float* delta, void* dq, int batch, int Sq,
+                         int Sk, int q_off, int H, int KV, int causal,
+                         int window, cudaStream_t stream) {
   constexpr int BM = 64 * NC;
   constexpr size_t smem = bwd_smem_bytes<HD, NC>();
   static bool attr_set = false;
@@ -539,16 +562,16 @@ cudaError_t launch_dq_nc(const void* q, const void* k, const void* v,
       raise_smem_once(flash_dq_tc_kernel<HD, NC>, smem, &attr_set);
   if (e != cudaSuccess) return e;
   CUtensorMap tm[4];
-  if (!bwd_maps(tm, q, k, v, dout, HD, batch, S, H, KV, BM, kBwdN))
+  if (!bwd_maps(tm, q, k, v, dout, HD, batch, Sq, Sk, H, KV, BM, kBwdN))
     return cudaErrorInvalidValue;
-  const int n_qt = (S + BM - 1) / BM;
+  const int n_qt = (Sq + BM - 1) / BM;
   const long long blocks = (long long)n_qt * H * batch;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   flash_dq_tc_kernel<HD, NC><<<(unsigned)blocks, 128 * (NC + 1), smem,
                                stream>>>(
       tm[0], tm[1], tm[2], tm[3], lse, delta,
-      static_cast<__nv_bfloat16*>(dq), S, H, KV, n_qt, causal, window,
-      bwd_scale(HD), bwd_scale_log2(HD));
+      static_cast<__nv_bfloat16*>(dq), Sq, Sk, q_off, H, KV, n_qt, causal,
+      window, bwd_scale(HD), bwd_scale_log2(HD));
   return cudaGetLastError();
 }
 
@@ -557,39 +580,58 @@ cudaError_t launch_dq_nc(const void* q, const void* k, const void* v,
 template <int HD>
 cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
                          const void* dout, const float* lse,
-                         const float* delta, void* dq, int batch, int S,
-                         int H, int KV, int causal, int window,
-                         cudaStream_t stream) {
-  const long long tiles128 = (long long)((S + 127) / 128) * H * batch;
+                         const float* delta, void* dq, int batch, int Sq,
+                         int Sk, int q_off, int H, int KV, int causal,
+                         int window, cudaStream_t stream) {
+  const long long tiles128 = (long long)((Sq + 127) / 128) * H * batch;
   if (tiles128 >= num_sms())
-    return launch_dq_nc<HD, 2>(q, k, v, dout, lse, delta, dq, batch, S, H,
-                               KV, causal, window, stream);
-  return launch_dq_nc<HD, 1>(q, k, v, dout, lse, delta, dq, batch, S, H, KV,
-                             causal, window, stream);
+    return launch_dq_nc<HD, 2>(q, k, v, dout, lse, delta, dq, batch, Sq, Sk,
+                               q_off, H, KV, causal, window, stream);
+  return launch_dq_nc<HD, 1>(q, k, v, dout, lse, delta, dq, batch, Sq, Sk,
+                             q_off, H, KV, causal, window, stream);
 }
 
-// dk/dv: always 64-key blocks of one consumer (see the kernel)
+template <int HD, bool kOffset>
+cudaError_t launch_dkv_off(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* delta, void* dk, void* dv,
+                           int batch, int Sq, int Sk, int q_off, int H,
+                           int KV, int causal, int window,
+                           cudaStream_t stream) {
+  constexpr size_t smem = bwd_smem_bytes<HD, 1>();
+  static bool attr_set = false;
+  cudaError_t e = raise_smem_once(flash_dkv_tc_kernel<HD, kOffset>, smem,
+                                  &attr_set);
+  if (e != cudaSuccess) return e;
+  CUtensorMap tm[4];
+  if (!bwd_maps(tm, q, k, v, dout, HD, batch, Sq, Sk, H, KV, kBwdN, kBwdN))
+    return cudaErrorInvalidValue;
+  const int n_kt = (Sk + kBwdN - 1) / kBwdN;
+  const long long blocks = (long long)n_kt * KV * batch;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_dkv_tc_kernel<HD, kOffset><<<(unsigned)blocks, 160, smem, stream>>>(
+      tm[0], tm[1], tm[2], tm[3], lse, delta,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), Sq,
+      Sk, q_off, H, KV, n_kt, causal, window, bwd_scale(HD),
+      bwd_scale_log2(HD));
+  return cudaGetLastError();
+}
+
+// dk/dv: always 64-key blocks of one consumer (see the kernel); the
+// whole-sequence instance where there is no offset
 template <int HD>
 cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
                           const void* dout, const float* lse,
                           const float* delta, void* dk, void* dv, int batch,
-                          int S, int H, int KV, int causal, int window,
-                          cudaStream_t stream) {
-  constexpr size_t smem = bwd_smem_bytes<HD, 1>();
-  static bool attr_set = false;
-  cudaError_t e = raise_smem_once(flash_dkv_tc_kernel<HD>, smem, &attr_set);
-  if (e != cudaSuccess) return e;
-  CUtensorMap tm[4];
-  if (!bwd_maps(tm, q, k, v, dout, HD, batch, S, H, KV, kBwdN, kBwdN))
-    return cudaErrorInvalidValue;
-  const int n_kt = (S + kBwdN - 1) / kBwdN;
-  const long long blocks = (long long)n_kt * KV * batch;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_dkv_tc_kernel<HD><<<(unsigned)blocks, 160, smem, stream>>>(
-      tm[0], tm[1], tm[2], tm[3], lse, delta,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S,
-      H, KV, n_kt, causal, window, bwd_scale(HD), bwd_scale_log2(HD));
-  return cudaGetLastError();
+                          int Sq, int Sk, int q_off, int H, int KV,
+                          int causal, int window, cudaStream_t stream) {
+  if (q_off == 0 && Sq == Sk)
+    return launch_dkv_off<HD, false>(q, k, v, dout, lse, delta, dk, dv,
+                                     batch, Sq, Sk, 0, H, KV, causal, window,
+                                     stream);
+  return launch_dkv_off<HD, true>(q, k, v, dout, lse, delta, dk, dv, batch,
+                                  Sq, Sk, q_off, H, KV, causal, window,
+                                  stream);
 }
 
 }  // namespace flash_tc

@@ -7,10 +7,13 @@
 // stays on this scalar block because it is held to 2e-5 against the
 // plain version, which TF32 tensor cores (10-bit mantissa) cannot meet.
 //
-// q [B,S,H,hd], k/v [B,S,KV,hd] -> out [B,S,H,hd] (and lse [B,H,S] f32),
-// q head h reading kv head h / (H/KV) in place (heads are never repeated
-// in memory), online softmax over key tiles, key tiles wholly outside
-// the causal/window band skipped; hd 64, 80 or 128.  The design is
+// q [B,Sq,H,hd], k/v [B,Sk,KV,hd] -> out [B,Sq,H,hd] (and lse [B,H,Sq]
+// f32), query row i at key position q_off + i (q_off + Sq <= Sk: a
+// sequence-parallel rank's rows; q_off 0 and Sq == Sk for a whole
+// sequence), q head h reading kv head h / (H/KV) in place (heads are
+// never repeated in memory), online softmax over key tiles, key tiles
+// wholly outside the causal/window band skipped; hd 64, 80 or 128.  The
+// design is
 // simple and exact rather than fast:
 //   * one block of 128 threads per (batch, q head, 64-row q tile); the
 //     TPU kernel's sequential k grid axis becomes a loop inside the block
@@ -110,15 +113,15 @@ template <typename T, int HD, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int seq_len, int num_heads,
-                 int num_kv_heads, int causal, int window, float scale) {
+                 float* __restrict__ lse, int Sq, int Sk, int q_off,
+                 int num_heads, int num_kv_heads, int causal, int window,
+                 float scale) {
   constexpr int kHalf = HD / 2;     // outputs per thread
   constexpr int kCols = kBK / 2;    // score columns per thread
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (num_heads / num_kv_heads);
   const int tid = threadIdx.x;
   const int row = tid >> 1, half = tid & 1;
-  const int S = seq_len;
 
   extern __shared__ float smem[];
   float* sQ = smem;                      // [kBQ][HD + 1], pre-scaled
@@ -131,26 +134,27 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = i / HD, d = i % HD;
     const int s = q0 + r;
     sQ[r * (HD + 1) + d] =
-        s < S ? to_float(q[(((size_t)b * S + s) * num_heads + h) * HD + d]) *
-                    scale
-              : 0.f;
+        s < Sq ? to_float(q[(((size_t)b * Sq + s) * num_heads + h) * HD + d]) *
+                     scale
+               : 0.f;
   }
 
-  const int qpos = q0 + row;
+  const int qrow = q0 + row;      // this row of q, at key position qpos
+  const int qpos = q_off + qrow;
   float acc[kHalf];
 #pragma unroll
   for (int j = 0; j < kHalf; ++j) acc[j] = 0.f;
   float m = -INFINITY, l = 0.f;
 
-  const int k_end = causal ? min(S, q0 + kBQ) : S;
+  const int k_end = causal ? min(Sk, q_off + q0 + kBQ) : Sk;
   int k_begin = 0;
-  if (window > 0) k_begin = (max(0, q0 - window + 1) / kBK) * kBK;
+  if (window > 0) k_begin = (max(0, q_off + q0 - window + 1) / kBK) * kBK;
   __syncthreads();
 
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    stage_rows<T, HD, kBK, kThreads>(k, sK, HD + 1, b, k0, S, num_kv_heads,
+    stage_rows<T, HD, kBK, kThreads>(k, sK, HD + 1, b, k0, Sk, num_kv_heads,
                                      kvh, tid, 1.f);
-    stage_rows<T, HD, kBK, kThreads>(v, sV, HD, b, k0, S, num_kv_heads,
+    stage_rows<T, HD, kBK, kThreads>(v, sV, HD, b, k0, Sk, num_kv_heads,
                                      kvh, tid, 1.f);
     __syncthreads();
 
@@ -173,7 +177,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
       const int kpos = k0 + 2 * j + half;
-      bool ok = kpos < S && qpos < S;
+      bool ok = kpos < Sk && qrow < Sq;
       if (causal) ok = ok && kpos <= qpos;
       if (window > 0) ok = ok && kpos > qpos - window;
       if (!ok) sc[j] = -INFINITY;
@@ -209,22 +213,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // before the next tile overwrites sK/sV/sP
   }
 
-  if (qpos < S) {
+  if (qrow < Sq) {
     const float lc = fmaxf(l, 1e-30f);
     const float inv = 1.f / lc;
-    T* orow = out + (((size_t)b * S + qpos) * num_heads + h) * HD;
+    T* orow = out + (((size_t)b * Sq + qrow) * num_heads + h) * HD;
 #pragma unroll
     for (int j = 0; j < kHalf; ++j) store(orow + 2 * j + half, acc[j] * inv);
     if (kLse && half == 0)
-      lse[((size_t)b * num_heads + h) * S + qpos] = m + logf(lc);
+      lse[((size_t)b * num_heads + h) * Sq + qrow] = m + logf(lc);
   }
 }
 
 template <typename T, int HD, bool kLse>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
-                       void* out, float* lse, int batch, int seq_len,
-                       int num_heads, int num_kv_heads, int causal,
-                       int window, cudaStream_t stream) {
+                       void* out, float* lse, int batch, int Sq, int Sk,
+                       int q_off, int num_heads, int num_kv_heads,
+                       int causal, int window, cudaStream_t stream) {
   constexpr size_t smem = fwd_smem_bytes<HD>();
   static bool attr_set = false;
   if (!attr_set) {
@@ -236,18 +240,20 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
     attr_set = true;
   }
   const float scale = (float)(1.0 / sqrt((double)HD));
-  dim3 grid((seq_len + kBQ - 1) / kBQ, num_heads, batch);
+  dim3 grid((Sq + kBQ - 1) / kBQ, num_heads, batch);
   flash_fwd_kernel<T, HD, kLse><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, seq_len,
+      static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Sk, q_off,
       num_heads, num_kv_heads, causal, window, scale);
   return cudaGetLastError();
 }
 
-// Shapes every flash kernel refuses (grid limits, GQA divisibility).
-inline bool bad_shape(int batch, int seq_len, int num_heads,
-                      int num_kv_heads) {
-  return batch <= 0 || seq_len <= 0 || num_kv_heads <= 0 ||
+// Shapes every flash kernel refuses (grid limits, GQA divisibility, a
+// query row past the last key).
+inline bool bad_shape(int batch, int seq_q, int seq_k, int q_offset,
+                      int num_heads, int num_kv_heads) {
+  return batch <= 0 || seq_q <= 0 || seq_k <= 0 || q_offset < 0 ||
+         (long long)q_offset + seq_q > seq_k || num_kv_heads <= 0 ||
          num_heads % num_kv_heads != 0 || batch > 65535 ||
          num_heads > 65535;
 }

@@ -10,7 +10,11 @@
 // H; q head h reads kv head h / (H/KV) in place, never repeated in
 // memory) -> out [B,S,H,hd] and, with kLse, lse [B,H,S] in f32; causal,
 // an optional sliding window, any S >= 1 (ragged last tiles masked),
-// key tiles wholly outside the band never loaded.
+// key tiles wholly outside the band never loaded.  A sequence-parallel
+// rank passes its Sq query rows and the offset q_off of the first
+// (query row i at key position q_off + i, q_off + Sq <= Sk keys): the
+// tile bounds and masks then read positions, the q tensors (q, out, lse)
+// are Sq rows long and k / v Sk.
 //
 // What bounds it on the card: operations.  4·hd flops per attended
 // (q, key) pair against ~4 bytes per q row, far above Hopper's ~295
@@ -302,8 +306,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                    int S, int num_heads, int num_kv_heads, int n_qt,
-                    int causal, int window, float scale_log2) {
+                    int Sq, int Sk, int q_off, int num_heads,
+                    int num_kv_heads, int n_qt, int causal, int window,
+                    float scale_log2) {
   constexpr int HDP = HD == 64 ? 64 : 128;  // hd 80 runs as 128
   constexpr int kCB = HDP / 64;             // 64-column blocks of a row
   constexpr int BM = 64 * NC;               // q rows per block
@@ -330,9 +335,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int rem = (int)blockIdx.x % hb;
   const int h = rem % num_heads, b = rem / num_heads;
   const int kvh = h / (num_heads / num_kv_heads);
-  const int q0 = qt * BM;
-  const int k_end = causal ? min(S, q0 + BM) : S;
-  const int k_first = window > 0 ? max(0, q0 - window + 1) / kBN : 0;
+  const int q0 = qt * BM;   // the tile's first q row, at key q_off + q0
+  const int k_end = causal ? min(Sk, q_off + q0 + BM) : Sk;
+  const int k_first = window > 0 ? max(0, q_off + q0 - window + 1) / kBN : 0;
   const int n_tiles = (k_end + kBN - 1) / kBN - k_first;
 
   if (threadIdx.x == 0) {
@@ -381,6 +386,8 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int ra = 16 * warp + (lane >> 2);
     const int q_lo = q0 + 64 * cw;
     const int qa = q_lo + ra, qb = qa + 8;
+    // the key positions of rows q_lo, qa and qb
+    const int p_lo = q_off + q_lo, pa = q_off + qa, pb = pa + 8;
     const uint32_t q_base = sQ + cw * 64 * kRowBytes;
 
     float o[HDP / 2];
@@ -417,16 +424,16 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(s);
 
       // mask only where the tile crosses the diagonal, the window edge or S
-      const bool edge = k0 + kBN > S || (causal && k0 + kBN - 1 > q_lo) ||
-                        (window > 0 && k0 <= q_lo + 63 - window);
+      const bool edge = k0 + kBN > Sk || (causal && k0 + kBN - 1 > p_lo) ||
+                        (window > 0 && k0 <= p_lo + 63 - window);
       if (edge) {
 #pragma unroll
         for (int i = 0; i < kBN / 8; ++i) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int kp = k0 + 8 * i + 2 * cq + (e & 1);
-            const int qp = (e & 2) ? qb : qa;
-            bool ok = kp < S;
+            const int qp = (e & 2) ? pb : pa;
+            bool ok = kp < Sk;
             if (causal) ok = ok && kp <= qp;
             if (window > 0) ok = ok && kp > qp - window;
             if (!ok) s[4 * i + e] = -INFINITY;
@@ -503,9 +510,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     const float lc_a = fmaxf(l_a, 1e-30f), lc_b = fmaxf(l_b, 1e-30f);
     if (kLse && cq == 0) {
       constexpr float kLn2 = 0.6931471805599453f;
-      float* lrow = lse + ((size_t)b * num_heads + h) * S;
-      if (qa < S) lrow[qa] = m_a * kLn2 + logf(lc_a);
-      if (qb < S) lrow[qb] = m_b * kLn2 + logf(lc_b);
+      float* lrow = lse + ((size_t)b * num_heads + h) * Sq;
+      if (qa < Sq) lrow[qa] = m_a * kLn2 + logf(lc_a);
+      if (qb < Sq) lrow[qb] = m_b * kLn2 + logf(lc_b);
     }
     const float inv_a = 1.f / lc_a, inv_b = 1.f / lc_b;
     named_bar_sync(1 + cw, 128);  // every warp is past its last Q read
@@ -527,12 +534,12 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int idx = t; idx < 64 * kChunks; idx += 128) {
       const int r = idx / kChunks, ch = idx % kChunks;
       const int qp = q_lo + r;
-      if (qp >= S) continue;
+      if (qp >= Sq) continue;
       const uint4 val = *reinterpret_cast<const uint4*>(
           so + (ch / 8) * BM * kRowBytes + r * kRowBytes +
           (((ch % 8) ^ (r & 7)) * 16));
       *reinterpret_cast<uint4*>(
-          out + (((size_t)b * S + qp) * num_heads + h) * HD + ch * 8) = val;
+          out + (((size_t)b * Sq + qp) * num_heads + h) * HD + ch * 8) = val;
     }
   }
 }
@@ -587,8 +594,9 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int hd, int heads,
 
 template <int HD, int NC, bool kLse>
 cudaError_t launch_nc(const void* q, const void* k, const void* v, void* out,
-                      float* lse, int batch, int S, int H, int KV,
-                      int causal, int window, cudaStream_t stream) {
+                      float* lse, int batch, int Sq, int Sk, int q_off,
+                      int H, int KV, int causal, int window,
+                      cudaStream_t stream) {
   constexpr int HDP = HD == 64 ? 64 : 128;
   constexpr int BM = 64 * NC;
   constexpr size_t smem = kAtomBytes + (size_t)BM * HDP * 2 +
@@ -602,19 +610,19 @@ cudaError_t launch_nc(const void* q, const void* k, const void* v, void* out,
     attr_set = true;
   }
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!make_map(&tm_q, q, HD, H, S, batch, BM) ||
-      !make_map(&tm_k, k, HD, KV, S, batch, kBN) ||
-      !make_map(&tm_v, v, HD, KV, S, batch, kBN))
+  if (!make_map(&tm_q, q, HD, H, Sq, batch, BM) ||
+      !make_map(&tm_k, k, HD, KV, Sk, batch, kBN) ||
+      !make_map(&tm_v, v, HD, KV, Sk, batch, kBN))
     return cudaErrorInvalidValue;
-  const int n_qt = (S + BM - 1) / BM;
+  const int n_qt = (Sq + BM - 1) / BM;
   const long long blocks = (long long)n_qt * H * batch;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const float scale_log2 =
       (float)(1.0 / sqrt((double)HD) * 1.4426950408889634);
   flash_fwd_tc_kernel<HD, NC, kLse>
       <<<(unsigned)blocks, 128 * (NC + 1), smem, stream>>>(
-          tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), lse, S, H, KV,
-          n_qt, causal, window, scale_log2);
+          tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(out), lse, Sq, Sk,
+          q_off, H, KV, n_qt, causal, window, scale_log2);
   return cudaGetLastError();
 }
 
@@ -633,15 +641,15 @@ inline int num_sms() {
 
 template <int HD, bool kLse>
 cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
-                          void* out, float* lse, int batch, int S, int H,
-                          int KV, int causal, int window,
+                          void* out, float* lse, int batch, int Sq, int Sk,
+                          int q_off, int H, int KV, int causal, int window,
                           cudaStream_t stream) {
-  const long long tiles128 = (long long)((S + 127) / 128) * H * batch;
+  const long long tiles128 = (long long)((Sq + 127) / 128) * H * batch;
   if (tiles128 >= num_sms())
-    return launch_nc<HD, 2, kLse>(q, k, v, out, lse, batch, S, H, KV, causal,
-                                  window, stream);
-  return launch_nc<HD, 1, kLse>(q, k, v, out, lse, batch, S, H, KV, causal,
-                                window, stream);
+    return launch_nc<HD, 2, kLse>(q, k, v, out, lse, batch, Sq, Sk, q_off, H,
+                                  KV, causal, window, stream);
+  return launch_nc<HD, 1, kLse>(q, k, v, out, lse, batch, Sq, Sk, q_off, H,
+                                KV, causal, window, stream);
 }
 
 }  // namespace flash_tc

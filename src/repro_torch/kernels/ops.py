@@ -44,20 +44,26 @@ def reset_launch_counts():
     _build.LAUNCHES.clear()
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """Causal (windowed) GQA attention over a whole sequence.
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0):
+    """Causal (windowed) GQA attention over a whole sequence, or over
+    ``q``'s rows at position ``q_offset`` of the keys (a
+    sequence-parallel rank's rows: q [B,Sq,H,hd], k / v [B,Sk,KV,hd],
+    q_offset + Sq <= Sk).
 
     Differentiable: when grad mode is on and any of q/k/v requires grad,
     it runs :class:`~repro_torch.kernels.flash_attention_bwd.FlashAttentionFn`
     (the forward that saves the log-sum-exp, then the dq and dk/dv
     backward); otherwise the forward-only kernel."""
+    _flash.check_offset("flash_attention", q.shape[1], k.shape[1], q_offset)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _flash_bwd.FlashAttentionFn.apply(q, k, v, causal, window)
+        return _flash_bwd.FlashAttentionFn.apply(q, k, v, causal, window,
+                                                 q_offset)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
     if q.device.type == "cpu":
-        return _flash.flash_attention_plain(q, k, v, causal=causal,
-                                            window=window)
-    return _flash.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        return _flash.flash_attention_plain(q, k, v, **kw)
+    return _flash.flash_attention_cuda(q, k, v, **kw)
 
 
 def decode_attention_paged(q, k_pages, v_pages, block_tables, lengths, *,

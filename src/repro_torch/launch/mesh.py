@@ -22,7 +22,9 @@ process and touches no device.
   serving engine's step commands).
 * :func:`spawn` — starts one process per rank with the ``spawn`` start
   method (a forked child cannot use CUDA once the parent has), joins
-  them into a group on ``tcp://localhost:<free port>``, calls
+  them into a group through a ``TCPStore`` that the parent opens (on a
+  port the operating system picks) and holds until the ranks are
+  joined, calls
   ``fn(mesh, *args)`` on every rank and returns each rank's result.  On
   the CPU the ranks talk over gloo; on the card over NCCL when every
   rank has a card of its own, else over gloo (NCCL refuses two ranks on
@@ -37,7 +39,6 @@ import datetime
 import itertools
 import math
 import queue as queue_mod
-import socket
 import time
 import traceback
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -160,12 +161,6 @@ def make_host_mesh(tp: Optional[int] = None, data: int = 1, *,
                 groups=groups, control_group=control, timeout=timeout)
 
 
-def _free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def rank_device(device: str, rank: int, world: int) -> torch.device:
     """The device rank ``rank`` computes on: the CPU, or on the card
     ``cuda:<rank>`` when there is a card for every rank, else ``cuda:0``
@@ -186,8 +181,8 @@ def default_backend(device: str, world: int) -> str:
     return "gloo"
 
 
-def _rank_main(rank, world, data, fn, args, init, backend, device, timeout,
-               threads, out):
+def _rank_main(rank, world, data, fn, args, port, backend, device, timeout,
+               startup, threads, out):
     import torch.distributed as dist
     try:
         if threads:
@@ -195,7 +190,16 @@ def _rank_main(rank, world, data, fn, args, init, backend, device, timeout,
         dev = rank_device(device, rank, world)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
-        dist.init_process_group(backend, init_method=init, rank=rank,
+        # a client of the parent's store: the parent listens already, so
+        # no rank has a port to open
+        store = dist.TCPStore("localhost", port, world, is_master=False,
+                              timeout=_timeout(timeout))
+        # every rank started before the group's first wait, which takes
+        # the collectives' timeout: a rank slow to start (its imports on
+        # a loaded host) is not a peer that went silent
+        store.set(f"up/{rank}", "1")
+        store.wait([f"up/{r}" for r in range(world)], _timeout(startup))
+        dist.init_process_group(backend, store=store, rank=rank,
                                 world_size=world, timeout=_timeout(timeout))
         mesh = make_host_mesh(tp=world // data, data=data, device=dev,
                               timeout=timeout)
@@ -221,32 +225,42 @@ def spawn(fn: Callable, tp: int, args: Sequence = (), *, data: int = 1,
     :func:`rank_device`); ``backend`` defaults to
     :func:`default_backend`.  ``timeout``: seconds any collective may
     wait; ``threads``: ``torch.set_num_threads`` in each rank;
-    ``deadline``: seconds the whole run may take (default: four times
-    ``timeout``).  If a rank raises, the others are stopped and a
-    ``RuntimeError`` carries its traceback."""
+    ``deadline``: seconds the whole run may take, and the longest a rank
+    waits for the others to start (default: four times ``timeout``).  If
+    a rank raises, the others are stopped and a
+    ``RuntimeError`` carries its traceback.
+
+    The rendezvous is a ``TCPStore`` this process opens on port 0 (the
+    operating system picks a free one and the store keeps listening on
+    it) and holds until every rank has returned: no port is read, closed
+    and reopened, so concurrent calls never race for one."""
     import multiprocessing as mp
+
+    import torch.distributed as dist
     world = data * tp
     device = str(resolve_device(device))
     backend = backend or default_backend(device, world)
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
-    init = f"tcp://localhost:{_free_port()}"
+    store = dist.TCPStore("localhost", 0, world, is_master=True,
+                          wait_for_workers=False, timeout=_timeout(timeout))
+    limit = 4 * timeout if deadline is None else deadline
     procs = [ctx.Process(target=_rank_main,
-                         args=(r, world, data, fn, tuple(args), init,
-                               backend, device, timeout, threads, out),
+                         args=(r, world, data, fn, tuple(args), store.port,
+                               backend, device, timeout, limit, threads,
+                               out),
                          daemon=True)
              for r in range(world)]
     for p in procs:
         p.start()
     results: Dict[int, object] = {}
     error: Optional[Tuple[int, str]] = None
-    end = time.monotonic() + (4 * timeout if deadline is None else deadline)
+    end = time.monotonic() + limit
     try:
         while len(results) < world and error is None:
             left = end - time.monotonic()
             if left <= 0:
-                error = (-1, f"ranks still running after "
-                             f"{deadline or 4 * timeout:.0f} s")
+                error = (-1, f"ranks still running after {limit:.0f} s")
                 break
             try:
                 rank, ok, val = out.get(timeout=min(left, 1.0))
@@ -269,6 +283,7 @@ def spawn(fn: Callable, tp: int, args: Sequence = (), *, data: int = 1,
                 p.kill()
                 p.join()
         out.close()
+        del store                  # the ranks are joined: stop listening
     if error is not None:
         raise RuntimeError(f"rank {error[0]} of {world} failed:\n{error[1]}")
     return [results[r] for r in range(world)]

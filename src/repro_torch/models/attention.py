@@ -24,6 +24,19 @@ quantized per (token, kv head) and dequantize inside attention.  Kernel
 calls go through :mod:`repro_torch.kernels.ops`, which picks the CUDA
 kernel or its plain version by the tensors' device.
 
+Under ``attn_sharding="auto"`` (``layers.seq_parallel``: a tp axis that
+divides the sequence) ``gqa_full`` is sequence-parallel, as the
+reference's is: each rank projects its ``s/tp`` rows of the sequence
+with every head (the GQA weights whole on every rank,
+``sharding.placement_specs``, entering the rows through ``tp_enter``),
+gathers k and v over tp (the only gathers of the attention) and attends
+its rows at ``q_offset = rank * s/tp`` through ``ops.flash_attention``
+(K2, or K5a-c under grad, with that offset; a softcap arch through the
+einsum path with the offset mask).  It returns its rows of the output,
+and the whole sequence's k and v.  ``mla_full``, which the reference
+keeps off the sequence path, gathers the rows and hands back its rows
+of the output.
+
 Under a mesh (``ctx``, a ``ShardingCtx``) the paged paths and ``gqa_full``
 work on this rank's heads: where both the q and the kv heads divide the
 tp axis, ``nh/tp`` q heads over ``kv/tp`` kv heads (the contiguous
@@ -58,8 +71,11 @@ from repro_torch.models.cache import (dequantize_kv, gather_pages,
                                       paged_prefill_write, paged_token_write,
                                       quantize_kv)
 from repro_torch.models.layers import (apply_rope, dot, heads_split, normal,
-                                       rmsnorm, rope_cos_sin, tp_all_reduce,
-                                       tp_enter, tp_rank, tp_size)
+                                       rmsnorm, rope_cos_sin, seq_gather,
+                                       seq_parallel, seq_rows,
+                                       tp_all_gather, tp_all_reduce,
+                                       tp_enter, tp_enter_tree, tp_rank,
+                                       tp_size)
 
 NEG_INF = -1e30
 
@@ -112,7 +128,9 @@ def _local_heads(params, cfg, ctx):
     if ctx is None:
         return h, kv, False
     tp = tp_size(ctx)
-    split = heads_split(cfg, tp)
+    # under "auto" the rank holds every head (sequence-parallel
+    # attention); a length the tp axis does not divide runs replicated
+    split = heads_split(cfg, tp) and ctx.attn_sharding != "auto"
     if split:
         r, group = tp_rank(ctx), h // kv
         h, kv = h // tp, kv // tp
@@ -156,12 +174,17 @@ def _project_qkv(params, cfg, x, positions, heads=None, ctx=None):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def gqa_full(params, cfg, x, positions, ctx=None):
+def gqa_full(params, cfg, x, positions, ctx=None, rows: bool = False):
     """Full-sequence attention.
 
     x: [B, S, D]; positions: [B, S] (or [B, S, 3] for M-RoPE).
     Returns (out [B,S,D], (k, v) [B,S,kv,hd] for cache writing; under a
-    mesh the rank's kv heads)."""
+    mesh the rank's kv heads).  Sequence-parallel where
+    ``layers.seq_parallel`` holds (module docstring): ``rows`` says
+    that ``x`` is already this rank's rows (``positions`` stay whole)
+    and so is the output; else ``x`` and the output are whole."""
+    if rows or seq_parallel(ctx, positions.shape[1]):
+        return _gqa_seq_parallel(params, cfg, x, positions, ctx, rows)
     b, s, _ = x.shape
     h, kv, split = _local_heads(params, cfg, ctx)
     hd = cfg.head_dim
@@ -184,6 +207,46 @@ def gqa_full(params, cfg, x, positions, ctx=None):
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v).reshape(b, s, h * hd)
     return _out_proj(params, out, ctx, split), (k, v)
+
+
+def _gqa_seq_parallel(params, cfg, x, positions, ctx, rows: bool):
+    """``gqa_full`` on this rank's ``n = s/tp`` rows of the sequence at
+    offset ``rank * n``: every head, the weights whole on every rank
+    (entering the rows: their gradients are summed over tp), k and v
+    gathered over tp (backward: the rank's rows of their summed
+    gradients), the rank's query rows attending all s keys through the
+    flash kernels at that offset.  ``rows``: ``x`` is the rank's rows and
+    so is the output; else both are whole (a hybrid's residual)."""
+    s = positions.shape[1]
+    tp = tp_size(ctx)
+    n = s // tp
+    off = tp_rank(ctx) * n
+    h, kv, _ = _local_heads(params, cfg, ctx)     # every head, checked
+    hd = cfg.head_dim
+    if not rows:
+        x = seq_rows(x, ctx)
+    b = x.shape[0]
+    params = tp_enter_tree(params, ctx)
+    q, k, v = _project_qkv(params, cfg, x, positions[:, off:off + n],
+                           (h, kv))
+    k = seq_gather(k, ctx, summed=True)
+    v = seq_gather(v, ctx, summed=True)
+    if _use_attn_kernel(cfg, s):
+        out = ops.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=True,
+                                  window=cfg.sliding_window, q_offset=off)
+    else:
+        qg = q.reshape(b, n, kv, h // kv, hd)
+        mask = _causal_mask(n, s, off, cfg.sliding_window, x.device)
+        scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, k) / hd ** 0.5
+        if cfg.attn_logit_softcap:
+            c = cfg.attn_logit_softcap
+            scores = c * torch.tanh(scores / c)
+        scores = scores.float().masked_fill(~mask, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v)
+    y = dot(out.reshape(b, n, h * hd), params["wo"])
+    return (y if rows else tp_all_gather(y, ctx, dim=1)), (k, v)
 
 
 def _chunk_attend(params, cfg, x, positions, k_prefix, v_prefix, start_pos,
@@ -502,10 +565,17 @@ def _mla_project(params, cfg, x, positions, h=None, ctx=None):
             apply_rope(k_pe, cos, sin)[:, :, 0])
 
 
-def mla_full(params, cfg, x, positions, ctx=None):
+def mla_full(params, cfg, x, positions, ctx=None, rows: bool = False):
     """MLA prefill / train: expand the latent and run causal attention
     (under a mesh over this rank's heads).  Returns (out [B,S,D], (c_kv
-    [B,S,rank], k_pe [B,S,rope_d])) for cache writing."""
+    [B,S,rank], k_pe [B,S,rope_d])) for cache writing.  ``rows``: ``x``
+    is this rank's rows of a sequence-parallel residual: they are
+    gathered (MLA runs off the sequence path, as in the reference) and
+    the rank's rows of the output returned."""
+    if rows:
+        out, kv_out = mla_full(params, cfg, seq_gather(x, ctx), positions,
+                               ctx)
+        return seq_rows(out, ctx), kv_out
     m = cfg.mla
     b, s, _ = x.shape
     h, split = _mla_heads(params, cfg, ctx)

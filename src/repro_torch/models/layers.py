@@ -25,6 +25,27 @@ gradient needs (Megatron's "f" and "g"):
   consumes the same value (the loss, the MoE load-balance loss):
   backward the identity.
 
+Sequence parallelism (``attn_sharding="auto"``: each tp rank holds
+``s/tp`` rows of the sequence between the blocks) adds three:
+
+* :func:`seq_rows`: the rank's rows of a tensor whole over tp; backward
+  the ranks' row gradients put back together (every rank gets the
+  whole gradient, as every rank holds the whole tensor);
+* :func:`seq_gather`: the ranks' rows put back together on every rank;
+  backward the rank's rows of the gradient, summed over tp first where
+  each rank consumed a different part of the whole (``summed``: the
+  keys and values its own query rows read, the whole input of its
+  column shard of a split MLP), as they are where every rank ran the
+  same computation on it;
+* :func:`seq_scatter`: a row-parallel output summed over tp, of which
+  the rank keeps its rows (a reduce-scatter); backward the ranks' row
+  gradients put back together.
+
+A weight whole on every rank that a rank uses on its rows alone (a norm
+scale, the attention projections under ``"auto"``) enters through
+:func:`tp_enter`, so that its gradient is summed over the rows of every
+rank.
+
 The forwards are ``all_reduce`` calls, the one collective gloo runs on
 CUDA tensors (a gather is a zero-padded sum, exact); a bf16 tensor is
 reduced in float32 and rounded once.  Without a ctx (or on an axis of
@@ -207,6 +228,85 @@ def tp_all_gather(x: torch.Tensor, ctx, dim: int) -> torch.Tensor:
                       tp_size(ctx))
 
 
+class _Rows(torch.autograd.Function):
+    """Forward: this rank's slice of ``dim`` (number ``index`` of
+    ``parts``).  Backward: the ranks' slices of the gradient put back
+    together over ``group``."""
+
+    @staticmethod
+    def forward(fctx, x, dim, group, index, parts):
+        dim = dim % x.dim()
+        n = x.shape[dim] // parts
+        fctx.args = (dim, group, index, parts)
+        return x.narrow(dim, index * n, n).contiguous()
+
+    @staticmethod
+    def backward(fctx, g):
+        return (_gather(g.contiguous(), *fctx.args), None, None, None, None)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Forward: the sum over ``group``, of which this rank keeps its
+    slice of ``dim``.  Backward: the ranks' slices of the gradient put
+    back together."""
+
+    @staticmethod
+    def forward(fctx, x, dim, group, index, parts):
+        dim = dim % x.dim()
+        n = x.shape[dim] // parts
+        fctx.args = (dim, group, index, parts)
+        return _sum(x, group).narrow(dim, index * n, n).contiguous()
+
+    @staticmethod
+    def backward(fctx, g):
+        return (_gather(g.contiguous(), *fctx.args), None, None, None, None)
+
+
+def seq_parallel(ctx, s: int) -> bool:
+    """Whether a sequence of ``s`` tokens runs sequence-parallel on this
+    rank's mesh: ``attn_sharding="auto"``, ``s > 1``, and the tp axis (of
+    more than one rank) divides ``s`` (the reference's
+    ``_seq_parallel_wanted``; on a tp axis of one rank its constraints
+    change nothing)."""
+    if ctx is None or getattr(ctx, "attn_sharding", "none") != "auto":
+        return False
+    tp = tp_size(ctx)
+    return tp > 1 and s > 1 and s % tp == 0
+
+
+def seq_rows(x: torch.Tensor, ctx, dim: int = 1) -> torch.Tensor:
+    """This tp rank's ``1/tp`` of ``x``'s ``dim`` (its rows of the
+    sequence); backward: the ranks' row gradients put back together."""
+    return _Rows.apply(x, dim, ctx.mesh.group(ctx.tp_axis), tp_rank(ctx),
+                       tp_size(ctx))
+
+
+def seq_gather(x: torch.Tensor, ctx, dim: int = 1,
+               summed: bool = False) -> torch.Tensor:
+    """The tp ranks' rows ``x`` put back together along ``dim`` on every
+    rank.  Backward: this rank's rows of the gradient, first summed over
+    tp where each rank consumed a different part of the whole
+    (``summed``)."""
+    group = ctx.mesh.group(ctx.tp_axis)
+    return all_gather(x, dim, group, tp_rank(ctx), tp_size(ctx),
+                      bwd_group=group if summed else None)
+
+
+def seq_scatter(x: torch.Tensor, ctx, dim: int = 1) -> torch.Tensor:
+    """A row-parallel output summed over tp, of which this rank keeps
+    its rows of ``dim`` (a reduce-scatter); backward: the ranks' row
+    gradients put back together."""
+    return _ReduceScatter.apply(x, dim, ctx.mesh.group(ctx.tp_axis),
+                                tp_rank(ctx), tp_size(ctx))
+
+
+def tp_enter_tree(tree, ctx):
+    """:func:`tp_enter` over the leaves of a dict of tensors."""
+    if isinstance(tree, dict):
+        return {k: tp_enter_tree(v, ctx) for k, v in tree.items()}
+    return tp_enter(tree, ctx)
+
+
 @torch.no_grad()
 def tp_max(x: torch.Tensor, ctx) -> torch.Tensor:
     """The elementwise max of ``x`` over tp (no gradient): the ranks'
@@ -378,17 +478,37 @@ def init_mlp(cfg, d_model: int, d_ff: int, dtype: torch.dtype,
     }
 
 
-def apply_mlp(x, params, cfg, ctx=None, d_ff: int = 0):
+def apply_mlp(x, params, cfg, ctx=None, d_ff: int = 0, rows: bool = False):
     """The MLP; under a mesh its ``d_ff`` (the whole width) columns of
     ``w_gate``/``w_up`` and rows of ``w_down`` are split over the tp axis
-    where it divides: ``x`` enters the rank's columns and the
-    row-parallel ``w_down`` product is summed over the ranks."""
+    where it divides (:func:`tp_mlp`).  ``rows``: ``x`` is this rank's
+    rows of the sequence (``seq_parallel``)."""
     split = ctx is not None and tp_split(d_ff, params["w_down"].shape[0],
                                          ctx, "MLP width")
+    mlp = swiglu_mlp if cfg.mlp_type == "swiglu" else _gelu_mlp
+    return tp_mlp(x, params, mlp, ctx, split, rows)
+
+
+def swiglu_mlp(x, p):
+    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+
+
+def _gelu_mlp(x, p):
+    return gelu_mlp(x, p["w_up"], p["w_down"])
+
+
+def tp_mlp(x, params, mlp, ctx, split: bool, rows: bool = False):
+    """``mlp(x, params)`` of an MLP whose hidden columns the tp axis
+    splits (``split``: ``x`` enters the rank's columns and the
+    row-parallel down product is summed over the ranks) or not.
+    ``rows``: ``x`` is this rank's rows of the sequence: a split MLP
+    gathers them and reduce-scatters its output; one whole on every rank
+    runs on the rows, its weights entering them."""
+    if rows:
+        if split:
+            return seq_scatter(mlp(seq_gather(x, ctx, summed=True), params),
+                               ctx)
+        return mlp(x, tp_enter_tree(params, ctx))
     if split:
-        x = tp_enter(x, ctx)
-    if cfg.mlp_type == "swiglu":
-        y = swiglu(x, params["w_gate"], params["w_up"], params["w_down"])
-    else:
-        y = gelu_mlp(x, params["w_up"], params["w_down"])
-    return tp_all_reduce(y, ctx) if split else y
+        return tp_all_reduce(mlp(tp_enter(x, ctx), params), ctx)
+    return mlp(x, params)

@@ -41,6 +41,22 @@ and under FSDP (``ctx.fsdp_axes``) each layer gathers the weights the
 data axis shards (``layers.fsdp_gather``) inside its checkpointed
 function, so the re-forward gathers them again and no whole layer
 outlives its use.
+
+Under ``attn_sharding="auto"`` where the reference keeps the residual
+stream sequence-parallel (``layers.seq_parallel`` of the length, no SSM
+layers), ``forward_full`` keeps each tp rank's ``s/tp`` rows between the
+blocks: every rank embeds the whole sequence and keeps its rows; norms,
+MLPs and the baseline MoE run on the rows (their weights whole on every
+rank entering the rows, a split MLP gathering the rows and
+reduce-scattering its output); attention is sequence-parallel
+(:mod:`repro_torch.models.attention`); MLA and the expert-parallel MoE
+branches gather the rows and hand back the rank's.  After the last
+block the rows are put back together, and the final norm, the head and
+the loss run on the whole sequence as without ``"auto"``: the
+vocabulary-parallel head and loss stay as they are, and the logits come
+out whole, as the reference's do.  Zamba2's residual stays whole (its
+SSM layers run on the whole sequence); its shared attention block takes
+its rows inside ``gqa_full``.
 """
 from __future__ import annotations
 
@@ -55,8 +71,9 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.cache import write_prefill, write_prefill_paged
 from repro_torch.models.config import SSM, ModelConfig
 from repro_torch.models.layers import apply_mlp, apply_norm, dot, dp_size, \
-    fsdp_gather_tree, init_mlp, init_norm, normal, tp_all_gather, \
-    tp_all_reduce, tp_enter, tp_rank, tp_split
+    fsdp_gather_tree, init_mlp, init_norm, normal, seq_parallel, seq_rows, \
+    tp_all_gather, tp_all_reduce, tp_enter, tp_enter_tree, tp_rank, \
+    tp_split
 from repro_torch.models.moe import init_moe, moe_ffn
 
 
@@ -190,17 +207,26 @@ def _mlp_width(cfg) -> int:
         and cfg.moe.d_ff_dense else cfg.d_ff
 
 
-def _ffn_residual(block, cfg, x, ctx=None, dims=None):
+def _norm(x, params, cfg, ctx, rows: bool):
+    """``apply_norm``; on a sequence-parallel rank's rows its weights
+    enter the rows (their gradients summed over tp)."""
+    return apply_norm(x, tp_enter_tree(params, ctx) if rows else params,
+                      cfg)
+
+
+def _ffn_residual(block, cfg, x, ctx=None, dims=None, rows: bool = False):
     """(x + the block's FFN of its normed input, the MoE load-balance
     loss).  The FFN is the MLP, or the MoE on an MoE layer; the loss is
     0.0 on an MLP layer (the decode paths drop it, as the JAX package
-    does).  ``dims``: the block's FSDP dims (:func:`_gathered`)."""
-    y = apply_norm(x, block["mlp_norm"], cfg)
+    does).  ``dims``: the block's FSDP dims (:func:`_gathered`);
+    ``rows``: ``x`` is a sequence-parallel rank's rows."""
+    y = _norm(x, block["mlp_norm"], cfg, ctx, rows)
     if "moe" in block:
         y, loss = moe_ffn(block["moe"], cfg, y, ctx,
-                          fsdp_dims=dims["moe"] if dims else None)
+                          fsdp_dims=dims["moe"] if dims else None, rows=rows)
     else:
-        y, loss = apply_mlp(y, block["mlp"], cfg, ctx, _mlp_width(cfg)), 0.0
+        y, loss = apply_mlp(y, block["mlp"], cfg, ctx, _mlp_width(cfg),
+                            rows=rows), 0.0
     return x + y, loss
 
 
@@ -236,16 +262,17 @@ def _gathered(block, dims, ctx):
     return out
 
 
-def _attn_block_full(block, cfg, x, positions, ctx=None, dims=None):
+def _attn_block_full(block, cfg, x, positions, ctx=None, dims=None,
+                     rows: bool = False):
     """Returns (x, the layer's cache entries, the MoE load-balance loss or
-    0.0).  ``dims``: the block's FSDP dims, its shards gathered here."""
+    0.0).  ``dims``: the block's FSDP dims, its shards gathered here.
+    ``rows``: ``x`` is a sequence-parallel rank's rows (``positions``
+    whole)."""
     block = _gathered(block, dims, ctx)
-    xin = apply_norm(x, block["attn_norm"], cfg)
-    if cfg.mla is not None:
-        h, kv_out = attn.mla_full(block["attn"], cfg, xin, positions, ctx)
-    else:
-        h, kv_out = attn.gqa_full(block["attn"], cfg, xin, positions, ctx)
-    x, loss = _ffn_residual(block, cfg, x + h, ctx, dims)
+    xin = _norm(x, block["attn_norm"], cfg, ctx, rows)
+    full = attn.mla_full if cfg.mla is not None else attn.gqa_full
+    h, kv_out = full(block["attn"], cfg, xin, positions, ctx, rows=rows)
+    x, loss = _ffn_residual(block, cfg, x + h, ctx, dims, rows)
     return x, kv_out, loss
 
 
@@ -286,8 +313,8 @@ def _ssm_block_full(block, cfg, x, layer_cache=None, ctx=None, dims=None):
     return x + h, state
 
 
-def _remat_layer(block, cfg, x, positions, ctx, dims):
-    x, _, loss = _attn_block_full(block, cfg, x, positions, ctx, dims)
+def _remat_layer(block, cfg, x, positions, ctx, dims, rows):
+    x, _, loss = _attn_block_full(block, cfg, x, positions, ctx, dims, rows)
     return x, loss
 
 
@@ -316,9 +343,11 @@ def forward_full(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     number of attention layers, as in the JAX package (0.0 for models
     without MoE layers).  ``ctx``: run as one rank of a mesh (module
     docstring) on this data rank's rows of the batch; under FSDP the
-    params are this rank's shards (``sharding.rank_specs``).
-    ``gather_logits=False`` returns this rank's vocabulary slice of the
-    logits where the tp axis splits the vocabulary."""
+    params are this rank's shards (``sharding.rank_specs``); under
+    ``attn_sharding="auto"`` sequence-parallel between the blocks
+    (module docstring).  ``gather_logits=False`` returns this rank's
+    vocabulary slice of the logits where the tp axis splits the
+    vocabulary."""
     if remat and cache is not None:
         raise ValueError("remat recomputes layers in the backward pass and "
                          "cannot write a cache")
@@ -330,6 +359,11 @@ def forward_full(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     plan = _fsdp_plan(cfg, ctx)
     dims_of = _blocks(plan) if plan is not None else \
         [None] * len(cfg.layer_pattern)
+    # the residual as this rank's rows of the sequence between the
+    # blocks, as the reference constrains it (not with SSM layers)
+    rows = seq_parallel(ctx, s) and not cfg.ssm_layers
+    if rows:
+        x = seq_rows(x, ctx)
     aux_total = 0.0
     for i, (kind, block, dims) in enumerate(zip(cfg.layer_pattern,
                                                 _blocks(params), dims_of)):
@@ -344,13 +378,17 @@ def forward_full(params, cfg: ModelConfig, *, tokens=None, embeds=None,
             continue
         if remat:
             x, aux = checkpoint(_remat_layer, block, cfg, x, positions, ctx,
-                                dims, use_reentrant=False)
+                                dims, rows, use_reentrant=False)
         else:
             x, kv_out, aux = _attn_block_full(block, cfg, x, positions, ctx,
-                                              dims)
+                                              dims, rows)
             if cache is not None:
                 write_prefill(cache, i, kv_out, cfg)
         aux_total = aux_total + aux
+    if rows:
+        # the rows back together: the last position lives on the last
+        # rank, and the head and the loss run as without "auto"
+        x = tp_all_gather(x, ctx, dim=1)
     if last_only:
         x = x[:, -1:]
     x = apply_norm(x, params["final_norm"], cfg)

@@ -38,6 +38,14 @@ three branches, each rank a process holding its rows of the batch:
   of the slices' and the data ranks' losses, as the reference's
   ``pmean``.
 
+On a sequence-parallel rank's rows (``rows``, ``attn_sharding="auto"``)
+the baseline branch takes the rows as its slice of the sequence (no
+second slicing, the slices' outputs stay on their ranks, the loss still
+the mean of the slices'); the expert-parallel and 2-D branches gather
+the rows, run as on a whole sequence, and hand back the rank's rows; the
+shared experts gather the rows and reduce-scatter their output where
+the tp axis splits them, else run on the rows.
+
 Under FSDP the expert weights come in as this rank's shards and the
 expert-parallel and baseline branches gather them (``fsdp_dims``).  The
 gradients are the true ones on every branch: where a replicated tensor
@@ -61,8 +69,10 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import (all_gather, all_reduce,
                                        data_all_reduce, dp_axis, dp_rank,
                                        dp_size, enter, fsdp_gather, normal,
-                                       swiglu, tp_all_gather, tp_all_reduce,
-                                       tp_enter, tp_rank, tp_size, tp_split)
+                                       seq_gather, seq_rows, swiglu_mlp,
+                                       tp_all_gather, tp_all_reduce,
+                                       tp_enter, tp_mlp, tp_rank, tp_size,
+                                       tp_split)
 
 
 class ShardingCtx(NamedTuple):
@@ -240,15 +250,24 @@ def load_balance_loss(probs, expert_idx_probs, top_k: int):
     return n_experts * torch.sum(hard.float().mean(dim=0) * p_mean)
 
 
-def moe_ffn(params, cfg, x, ctx=None, fsdp_dims=None):
+def moe_ffn(params, cfg, x, ctx=None, fsdp_dims=None, rows: bool = False):
     """MoE FFN over x [B, S, D], shared experts included.  Returns (out,
     the load-balance loss as a float32 0-d tensor).  With a ``ctx``, the
     branch the reference takes (module docstring); ``x`` holds this data
     rank's rows, and the data axis must then split the batch evenly, so
     that the whole batch holds ``B * data`` rows.  ``fsdp_dims``: the
     FSDP dims of the expert weights, which ``params`` then holds as this
-    rank's shards (the router and the shared experts come whole)."""
+    rank's shards (the router and the shared experts come whole).
+    ``rows``: ``x`` is this tp rank's rows of a sequence-parallel
+    residual, and so is the output."""
     e = cfg.moe
+    if rows:
+        ep = ctx.expert_parallel and e.num_experts % tp_size(ctx) == 0
+        if ep or not ctx.seq_shard:
+            # these branches run on the whole sequence: gather the rows
+            out, loss = moe_ffn(params, cfg, seq_gather(x, ctx), ctx,
+                                fsdp_dims)
+            return seq_rows(out, ctx), loss
     b, s, d = x.shape
     wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
     router = params["router"]
@@ -280,14 +299,17 @@ def moe_ffn(params, cfg, x, ctx=None, fsdp_dims=None):
                          f"{e.num_experts}")
     ws = [whole(n, w) for n, w in (("w_gate", wg), ("w_up", wu),
                                    ("w_down", wd))]
-    if tp > 1 and ctx.seq_shard and s > 1 and s % tp == 0:
-        # this rank's slice of the sequence: the tokens, the router and
-        # the experts enter it
-        n = s // tp
-        xs = tp_enter(x, ctx)[:, tp_rank(ctx) * n:(tp_rank(ctx) + 1) * n]
+    if rows or (tp > 1 and ctx.seq_shard and s > 1 and s % tp == 0):
+        # this rank's slice of the sequence (on a sequence-parallel
+        # residual, its rows already, and the output stays on them): the
+        # router and the experts enter it
+        xs = x if rows else seq_rows(x, ctx)
+        n = xs.shape[1]
         out, probs = _local_moe(xs.reshape(b * n, d), tp_enter(router, ctx),
                                 *(tp_enter(w, ctx) for w in ws), e.top_k)
-        out = tp_all_gather(out.reshape(b, n, d), ctx, dim=1)
+        out = out.reshape(b, n, d)
+        if not rows:
+            out = tp_all_gather(out, ctx, dim=1)
         loss = tp_all_reduce(load_balance_loss(probs, None, e.top_k),
                              ctx) / tp
     else:
@@ -297,7 +319,7 @@ def moe_ffn(params, cfg, x, ctx=None, fsdp_dims=None):
         out, probs = _local_moe(x.reshape(b * s, d), router, *ws, e.top_k)
         out = out.reshape(b, s, d)
         loss = load_balance_loss(probs, None, e.top_k)
-    return _shared(params, cfg, x, out, ctx), _data_mean(loss, ctx)
+    return _shared(params, cfg, x, out, ctx, rows), _data_mean(loss, ctx)
 
 
 def _data_mean(loss, ctx):
@@ -307,9 +329,10 @@ def _data_mean(loss, ctx):
     return loss if data == 1 else data_all_reduce(loss, ctx) / data
 
 
-def _shared(params, cfg, x, out, ctx):
+def _shared(params, cfg, x, out, ctx, rows: bool = False):
     """``out`` plus the shared experts' MLP of ``x`` (an MLP split over
-    tp like any other)."""
+    tp like any other, ``layers.tp_mlp``; ``rows``: on a
+    sequence-parallel rank's rows)."""
     e = cfg.moe
     if not e.num_shared_experts:
         return out
@@ -317,6 +340,4 @@ def _shared(params, cfg, x, out, ctx):
     split = ctx is not None and tp_split(
         e.d_ff_expert * e.num_shared_experts, sh["w_down"].shape[0], ctx,
         "shared experts")
-    xin = tp_enter(x, ctx) if split else x
-    y = swiglu(xin, sh["w_gate"], sh["w_up"], sh["w_down"])
-    return out + (tp_all_reduce(y, ctx) if split else y)
+    return out + tp_mlp(x, sh, swiglu_mlp, ctx, split, rows)

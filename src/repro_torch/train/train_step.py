@@ -23,7 +23,12 @@ every rank; the cross entropy runs on the rank's vocabulary slice of the
 logits (a masked pick of the target and ``[B, S]`` sums over tp, as the
 reference's ``lm_loss`` lets GSPMD do); gradients of leaves whole over
 the data axis are summed over it, and those of FSDP leaves arrive
-summed from ``layers.fsdp_gather``'s backward.
+summed from ``layers.fsdp_gather``'s backward.  Under
+``attn_sharding="auto"`` (sequence-parallel attention) each tp rank
+runs its rows of the sequence, and the gradients of the weights whole
+on every tp rank that the rows use (the GQA projections, norm scales,
+an unsplit MLP) arrive summed over tp from ``layers.tp_enter``'s
+backward; the loss runs on the whole sequence, as without it.
 """
 from __future__ import annotations
 

@@ -8,12 +8,14 @@ divides.
         PYTHONPATH=src python tests/helpers/jax_mesh_train.py IN.npz OUT.npz
 
 ``IN.npz`` holds ``spec`` (JSON: the arch, the config fields to replace,
-and the cases, each a name, ``mesh`` [data, model], ``ep``, ``fsdp`` and
-the batch's name), the params' leaves ``p0``, ``p1``, ... in
+and the cases, each a name, ``mesh`` [data, model], ``ep``, ``fsdp``,
+the batch's name and optionally ``attn``, the ``attn_sharding``
+(default ``"none"``), and ``logits``: also run ``forward_full`` under
+the mesh), the params' leaves ``p0``, ``p1``, ... in
 ``jax.tree.flatten`` order, and each batch's ``<batch>/tokens`` and
 ``<batch>/labels``.  ``OUT.npz`` holds per case ``<name>/loss``,
 ``/lm_loss``, ``/aux`` and the gradients ``<name>/g0``, ... in the same
-order.
+order, and ``<name>/logits`` where asked.
 
 The mesh is built as ``Mesh(np.array(jax.devices()[:n]).reshape(data,
 model), ...)``: under jax 0.9.0 the sharded step fails on a mesh of
@@ -33,14 +35,16 @@ from jax.sharding import PartitionSpec as P
 from repro.configs import get_reduced
 from repro.distributed.sharding import (ParallelismConfig, input_sharding,
                                         make_ctx, named, param_specs)
-from repro.models import init_params
+from repro.models import forward_full, init_params
 from repro.train.train_step import lm_loss
 
 
 def run(src: str, dst: str):
     z = np.load(src)
     spec = json.loads(str(z["spec"]))
-    cfg = dataclasses.replace(get_reduced(spec["arch"]), **spec["replace"])
+    cfg = dataclasses.replace(get_reduced(spec["arch"]), **{
+        k: tuple(v) if isinstance(v, list) else v
+        for k, v in spec["replace"].items()})
     shapes = jax.eval_shape(lambda: init_params(jax.random.PRNGKey(0), cfg))
     treedef = jax.tree.structure(shapes)
     params = jax.tree.unflatten(treedef, [jnp.asarray(z[f"p{i}"]) for i in
@@ -51,7 +55,8 @@ def run(src: str, dst: str):
         mesh = Mesh(np.array(jax.devices()[:data * tp]).reshape(data, tp),
                     ("data", "model"))
         par = ParallelismConfig(fsdp=case["fsdp"],
-                                expert_parallel=case["ep"])
+                                expert_parallel=case["ep"],
+                                attn_sharding=case.get("attn", "none"))
         ctx = make_ctx(mesh, par)
         psh = named(mesh, param_specs(params, cfg, mesh, par))
         batch = {k: jnp.asarray(z[f"{case['batch']}/{k}"])
@@ -70,6 +75,13 @@ def run(src: str, dst: str):
         loss, lm, aux, grads = step(jax.device_put(params, psh),
                                     jax.device_put(batch, bsh))
         name = case["name"]
+        if case.get("logits"):
+            full = jax.jit(lambda p, t: forward_full(p, cfg, tokens=t,
+                                                     ctx=ctx)[0],
+                           in_shardings=(psh, bsh["tokens"]))
+            out[f"{name}/logits"] = np.asarray(full(
+                jax.device_put(params, psh),
+                jax.device_put(batch["tokens"], bsh["tokens"])))
         out.update({f"{name}/loss": np.asarray(loss),
                     f"{name}/lm_loss": np.asarray(lm),
                     f"{name}/aux": np.asarray(aux)})

@@ -246,7 +246,8 @@ def engine_suite(mesh, jobs):
         engine_mod.time = FixedClock(job.get("clock", 1e-3))
         cfg = job["cfg"]
         par = ParallelismConfig(fsdp=False,
-                                expert_parallel=job.get("ep", False))
+                                expert_parallel=job.get("ep", False),
+                                attn_sharding=job.get("attn", "none"))
         params = from_jax_params(job["tree"], CPU, mesh, cfg=cfg,
                                  parallelism=par)
         eng = Engine(cfg, params, device="cpu", mesh=mesh, parallelism=par,
@@ -266,7 +267,10 @@ def engine_suite(mesh, jobs):
                "specs": [local_shape(whole["layers"][0][k].shape,
                                      specs["layers"][0][k], mesh)
                          for k in whole["layers"][0]] ==
-               [tuple(v.shape) for v in eng.cache["layers"][0].values()]}
+               [tuple(v.shape) for v in eng.cache["layers"][0].values()],
+               "attn_sharding": eng.ctx.attn_sharding,
+               "attn_shapes": {k: tuple(v.shape) for k, v in
+                               first_attn(eng.params, cfg)["attn"].items()}}
         if mesh.rank != 0:
             eng.follow()
         else:
@@ -356,3 +360,13 @@ def model_suite(mesh, cases, jobs):
     over ``jobs``, in one start of the ranks."""
     return {"forwards": forward_suite(mesh, cases)["forwards"],
             "engines": engine_suite(mesh, jobs)}
+
+
+# ------------------------------------------------------------- rendezvous
+def rank_sum(mesh, value):
+    """This rank's (rank, coords, the sum over every rank of ``value +
+    rank``): one collective over the world the rendezvous joined."""
+    import torch.distributed as dist
+    t = torch.tensor([float(value + mesh.rank)])
+    dist.all_reduce(t, group=mesh.group(("data", "model")))
+    return mesh.rank, dict(mesh.coords), float(t)

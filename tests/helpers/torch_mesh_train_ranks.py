@@ -12,6 +12,8 @@ import torch
 
 from repro_torch.bridge import from_jax_params
 from repro_torch.distributed import sharding as sh
+from repro_torch.kernels import ops
+from repro_torch.models.model import forward_full
 from repro_torch.train import checkpoint
 from repro_torch.train import optimizer as opt
 from repro_torch.train.train_step import loss_and_grads, train_step
@@ -72,6 +74,24 @@ def train_job(mesh, job):
     if mesh.rank == 0:
         out["grads"] = _np(whole)
     del grads, whole
+    if job.get("logits"):
+        # the forward alone on the first batch's rows of this data rank,
+        # with the (q rows, keys, q_offset) of each flash-attention call
+        calls, flash = [], ops.flash_attention
+
+        def record(q, k, v, **kw):
+            calls.append((q.shape[1], k.shape[1], kw.get("q_offset", 0)))
+            return flash(q, k, v, **kw)
+        ops.flash_attention = record
+        try:
+            with torch.no_grad():
+                logits = forward_full(params, cfg,
+                                      tokens=batches[0]["tokens"],
+                                      ctx=ctx)[0]
+        finally:
+            ops.flash_attention = flash
+        out["logits"] = logits.numpy()
+        out["attention_calls"] = calls
     steps = job.get("steps", 0)
     if not steps:
         return out

@@ -71,13 +71,13 @@ def moe_inputs():
     return jp, jax.tree.map(np.asarray, jp), batches()
 
 
-def jax_mesh(cases, jp, data, tmp):
+def jax_mesh(cases, jp, data, tmp, arch=ARCH, replace=REPLACE):
     """The cases' JAX mesh steps, all in one subprocess of 4 host
     devices -> {case: {"loss", "lm_loss", "aux", "grads": {path:
-    array}}}."""
+    array}}, and "logits" where a case asks for its forward}."""
     leaves, treedef = jax.tree.flatten(jp)
     src, dst = str(tmp / "in.npz"), str(tmp / "out.npz")
-    spec = {"arch": ARCH, "replace": REPLACE,
+    spec = {"arch": arch, "replace": replace,
             "cases": [dict(c, name=n) for n, c in cases.items()]}
     np.savez(src, spec=json.dumps(spec),
              **{f"p{i}": np.asarray(x) for i, x in enumerate(leaves)},
@@ -97,6 +97,8 @@ def jax_mesh(cases, jp, data, tmp):
             out[n] = {k: float(z[f"{n}/{k}"])
                       for k in ("loss", "lm_loss", "aux")}
             out[n]["grads"] = dict(ranks.named(grads))
+            if f"{n}/logits" in z.files:
+                out[n]["logits"] = z[f"{n}/logits"]
     return out
 
 

@@ -3,12 +3,14 @@
 repository, on one NVIDIA GPU: the bf16 decode kernels (default), the
 int8 decode kernels (``--kernels q8``), the SSD chunk scan
 (``--kernels ssd``), its backward (``--kernels ssd_bwd``), the batched
-annealer (``--kernels anneal``) or the engine's dispatched decode round
-(``--kernels round``).
+annealer (``--kernels anneal``), the engine's dispatched decode round
+(``--kernels round``) or the flash-attention kernels (``--kernels
+flash``).
 
     git archive <commit> | tar -x -C build/other
     python3 tools/decode_ab.py build/other \
-        [--kernels q8|ssd|ssd_bwd|anneal|round] [--turns N] [--out ab.json]
+        [--kernels q8|ssd|ssd_bwd|anneal|round|flash] [--turns N] \
+        [--out ab.json]
 
 ``decode``: the paged decode (``decode_attention_paged``, K1) and the
 dense decode (``decode_attention``, K6) at the serve shape (Qwen2.5-7B
@@ -40,7 +42,13 @@ the next, nothing read back), ROUND_CHAINS chains; ``dispatch_ms``, the
 host clock around each ``dispatch_decode`` call (the loop's
 ``dispatch_ms_per_round``), and ``round_ms``, the host clock over a
 chain and one synchronize, a round: the median chain's, and the
-fastest chain's (``_min``).  Through each
+fastest chain's (``_min``).  ``flash``: K2, K5a, K5b and K5c over the
+whole sequence (no query offset: the call every checkout takes) at the
+train shape (B4 S2048 H16 KV8 hd128 bf16, causal), timed, and a digest
+of every output's bits over ``FLASH_DIGEST_CASES`` in bf16 and float32
+(ragged S, hd 64 / 80 / 128, windows, both block sizes); the run
+prints whether every checkout's digests are equal (the kernels' bits
+unchanged between the checkouts).  Through each
 checkout's own wrappers, each building its kernels in its own
 ``build/``.  Runs in turns: the other checkout, this one, this one, the
 other (``--turns`` times over), each in a process of its own.  Every kernel time is given twice:
@@ -72,6 +80,10 @@ SSD_BWD_SHAPES = (("mamba2 B4 S2048", 48, 128), ("zamba2 B4 S2048", 64, 64))
 PROMPT = 2048
 # the decode round's chain: active slots (a pow-2 width) and rounds
 ROUND_WIDTH, ROUND_N, ROUND_CHAINS = 32, 100, 5
+# the flash kernels' bit-digest cases: (b, s, h, kv, hd, window)
+FLASH_DIGEST_CASES = ((1, 16, 4, 4, 64, 0), (1, 100, 14, 2, 80, 0),
+                      (2, 128, 32, 8, 80, 64), (8, 100, 24, 2, 64, 0),
+                      (1, 2048, 4, 2, 64, 64), (4, 2048, 16, 8, 128, 0))
 
 
 def _inputs(paged: bool, b: int, lengths, L: int):
@@ -320,9 +332,67 @@ def round_worker(tree: str) -> dict:
     return out
 
 
+def _digest(t) -> str:
+    """sha1 of a tensor's bytes."""
+    import hashlib
+
+    import torch
+    raw = t.detach().contiguous().view(-1).view(torch.uint8)
+    return hashlib.sha1(raw.cpu().numpy().tobytes()).hexdigest()
+
+
+def flash_worker(tree: str) -> dict:
+    import torch
+    sys.path.insert(0, os.path.join(tree, "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    _build.build(["flash_attention", "flash_attention_fwd_lse"])
+    out, digests = {"tree": tree}, {}
+
+    def inputs(b, s, h, kv, hd, dtype):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(b * 1000 + s)
+        kw = dict(device="cuda", dtype=dtype)
+        return (torch.randn((b, s, h, hd), generator=gen, **kw),
+                torch.randn((b, s, kv, hd), generator=gen, **kw),
+                torch.randn((b, s, kv, hd), generator=gen, **kw),
+                torch.randn((b, s, h, hd), generator=gen, **kw))
+
+    for b, s, h, kv, hd, window in FLASH_DIGEST_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = inputs(b, s, h, kv, hd, dtype)
+            kw = {"causal": True, "window": window}
+            o2 = fa.flash_attention_cuda(q, k, v, **kw)
+            o, lse = fb.flash_attention_fwd_lse_cuda(q, k, v, **kw)
+            delta = fb.attention_delta(o, do)
+            dq = fb.flash_attention_dq_cuda(q, k, v, do, lse, delta, **kw)
+            dk, dv = fb.flash_attention_dkv_cuda(q, k, v, do, lse, delta,
+                                                 **kw)
+            digests[f"B{b} S{s} H{h} KV{kv} hd{hd} w{window} {dtype}"] = [
+                _digest(t) for t in (o2, o, lse, dq, dk, dv)]
+    out["digests"] = digests
+    q, k, v, do = inputs(4, 2048, 16, 8, 128, torch.bfloat16)
+    kw = {"causal": True, "window": 0}
+    o, lse = fb.flash_attention_fwd_lse_cuda(q, k, v, **kw)
+    delta = fb.attention_delta(o, do)
+    for name, fn in (
+            ("flash_attention", lambda: fa.flash_attention_cuda(q, k, v,
+                                                                **kw)),
+            ("flash_attention_fwd_lse",
+             lambda: fb.flash_attention_fwd_lse_cuda(q, k, v, **kw)),
+            ("flash_attention_dq", lambda: fb.flash_attention_dq_cuda(
+                q, k, v, do, lse, delta, **kw)),
+            ("flash_attention_dkv", lambda: fb.flash_attention_dkv_cuda(
+                q, k, v, do, lse, delta, **kw))):
+        out[f"{name} B4 S2048"] = {"eager_ms": eager_ms(fn, 5),
+                                   "device_ms": device_ms(fn, 5)}
+    return out
+
+
 WORKERS = {"decode": decode_worker, "q8": q8_worker, "ssd": ssd_worker,
            "ssd_bwd": ssd_bwd_worker, "anneal": anneal_worker,
-           "round": round_worker}
+           "round": round_worker, "flash": flash_worker}
 
 
 def main(argv=None) -> int:
@@ -365,7 +435,13 @@ def main(argv=None) -> int:
         mine = [r for r in runs if r["tree"] == tree]
         means[label] = {key: {t: sum(r[key][t] for r in mine) / len(mine)
                               for t in mine[0][key]}
-                        for key in mine[0] if key != "tree"}
+                        for key in mine[0] if key not in ("tree", "digests")}
+    if "digests" in runs[0]:
+        same = all(r["digests"] == runs[0]["digests"] for r in runs)
+        print(f"flash kernels bitwise equal across the checkouts and runs "
+              f"({len(runs[0]['digests'])} cases x 6 outputs): {same}",
+              flush=True)
+        means["bitwise_equal"] = same
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "runs": runs, "means": means}, f,
