@@ -440,15 +440,14 @@ def replication(spec, mesh) -> int:
 
 def shard_batch(batch, cfg: ModelConfig, mesh, par: ParallelismConfig):
     """This data rank's rows of each array of a global ``batch`` (dim 0,
-    under :func:`input_sharding`).  The port's training path runs each
-    data rank on rows of its own, so a data axis of more than one rank
-    must divide the batch."""
+    under :func:`input_sharding`).  Where the data axes do not divide the
+    batch, every data rank takes it whole, as the reference replicates
+    it: the training step then runs ``data`` copies of the batch, whose
+    loss and gradients are the batch's own (the loss is a mean over the
+    tokens of every copy)."""
     b = next(iter(batch.values())).shape[0]
     spec = input_sharding(cfg, mesh, par, b)
     if spec is None:
-        if math.prod(mesh.shape[a] for a in _axes(par.dp_axes)) > 1:
-            raise ValueError(f"a batch of {b} rows does not split over the "
-                             f"data axes {par.dp_axes} of {mesh.shape}")
         return dict(batch)
     return {k: shard_leaf(v, P(spec), mesh) for k, v in batch.items()}
 
@@ -461,6 +460,8 @@ def gather_params(params, specs, mesh):
     slice."""
     import torch
     import torch.distributed as dist
+
+    from repro_torch.models.layers import tally
     group = mesh.group(tuple(mesh.axis_names))
 
     def whole(t, spec):
@@ -475,6 +476,7 @@ def gather_params(params, specs, mesh):
         if all(mesh.coords[a] == 0 for a in mesh.axis_names
                if a not in named):
             full[leaf_index(shape, spec, mesh)] = t.to(wide)
+        tally("gather_params", full)
         dist.all_reduce(full, group=group)
         return full.to(t.dtype)
     return tree_map(whole, params, specs)

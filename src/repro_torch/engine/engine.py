@@ -77,9 +77,15 @@ since the last one (block-table rows, ``pos``, copy-on-write page
 copies, a token draw).  Each rank draws from the same whole logits with
 its own identically seeded generator, so every rank samples the same
 ids and the next round's inputs stay on the device; a dispatched round
-also broadcasts the caller's feed from rank 0 over the tp group, so the
-ranks decode the same tokens whoever wrote it.  Every collective has the
-mesh's timeout: ranks that disagree fail instead of hanging.  Rank 0
+also broadcasts the caller's feed from rank 0 to every rank, so the
+ranks decode the same tokens whoever wrote it.  On a mesh with a data
+axis (``(data, tp)``) the pages are whole over ``data``, as the
+reference places them: every data group holds the same pool and runs
+the same steps, each rank following rank 0; under
+``ParallelismConfig(fsdp=True)`` each rank holds its FSDP slices of the
+params and the paged forwards gather each layer's shards.  Every
+collective has the mesh's timeout: ranks that disagree fail instead of
+hanging.  Rank 0
 calls :meth:`Engine.close` when done.  Several engines may share one
 mesh (an :class:`~repro_torch.serving.fleet.EngineFleet` on one tp
 group, the reference's layout): every rank builds them in the same order
@@ -175,16 +181,17 @@ class Engine:
         copy-on-write on divergent writes) for full-attention archs.
 
         ``mesh`` (this rank's :class:`~repro_torch.launch.mesh.Mesh` of
-        ``(1, tp)``, from ``launch.mesh.make_host_mesh`` or ``spawn``)
-        runs the engine tensor-parallel (module docstring): every rank
+        ``(data, tp)``, from ``launch.mesh.make_host_mesh`` or ``spawn``)
+        runs the engine on the mesh (module docstring): every rank
         builds it with the same arguments and the whole ``params`` (or
         already its own slice: engines on one rank may share another
         engine's ``params``); rank 0 then drives it and the others call
         :meth:`follow`.  Requires the paged layout, as the JAX engine
         does.  ``parallelism`` overrides the
         :class:`~repro_torch.distributed.sharding.ParallelismConfig`
-        (default: tp on the ``model`` axis, no FSDP; ``expert_parallel``
-        picks the MoE FFN's expert-parallel branch)."""
+        (default: tp on the ``model`` axis, no FSDP; ``fsdp=True`` slices
+        the params over ``data`` too; ``expert_parallel`` picks the MoE
+        FFN's expert-parallel branch)."""
         if cfg.num_codebooks > 1:
             # a K-codebook model emits [.., K, V] logits a step; the
             # engines sample one token a slot, as the JAX Engine does,
@@ -300,11 +307,6 @@ class Engine:
         # the rank's heads as under "none", and so do this engine's (the
         # params placed alike)
         par = dataclasses.replace(par, attn_sharding="none")
-        if any(n != 1 for a, n in mesh.shape.items() if a != par.tp_axis):
-            raise NotImplementedError(
-                f"mesh {mesh.shape}: an engine runs on one tp group; "
-                "data-parallel engines (engines on different tp groups) "
-                "are ROADMAP M11b")
         self.parallelism = par
         self.ctx = make_ctx(mesh, par)
         full = init_params(self.cfg, device="meta")
@@ -339,7 +341,7 @@ class Engine:
         mine = (self.cfg, self.max_slots, self.max_seq_len,
                 self.num_blocks, self.block_size, self.temperature,
                 self.chunked_prefill, self.prefix is not None,
-                self.parallelism)
+                self.parallelism, tuple(self.mesh.shape.items()))
         if self._peers:
             self._send(mine)
         elif self.mesh.size > 1:
@@ -453,9 +455,13 @@ class Engine:
                                          device=self.device)
             feed = self._feed
         if self.ctx is not None and self.mesh.size > 1:
+            # every rank, each data group's tp ranks alike
             import torch.distributed as dist
+
+            from repro_torch.models.layers import tally
+            tally("feed", feed[:width])
             dist.broadcast(feed[:width], src=0,
-                           group=self.mesh.group(self.parallelism.tp_axis))
+                           group=self.mesh.group(self.mesh.axis_names))
         active = torch.from_numpy(np.array(active_np, dtype=bool))
         if self.device.type == "cuda":
             # a blocking host-to-device copy would wait for the rounds

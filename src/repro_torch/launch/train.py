@@ -11,8 +11,10 @@ Random weights from seed 0; batches as the JAX launcher draws them
 ``embeds`` and labels from ``np.random.default_rng(0)``, a K-codebook
 model on ``[B, S, K]`` tokens from that generator (labels = tokens),
 every other arch (dense, MoE, Mamba2, hybrid) on ``token_stream(seq,
-vocab, seed=step, batch=batch)`` with ``labels = tokens``.  The mesh
-dry-run (``launch/dryrun.py`` of the JAX package) waits for M11.
+vocab, seed=step, batch=batch)`` with ``labels = tokens``.  Training on
+a mesh is ``train_step(..., ctx=)`` on every rank of
+``launch.mesh.spawn``; the production meshes' per-device bytes and
+collectives come from the dry run, :mod:`repro_torch.launch.dryrun`.
 """
 from __future__ import annotations
 

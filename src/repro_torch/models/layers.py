@@ -50,10 +50,16 @@ The forwards are ``all_reduce`` calls, the one collective gloo runs on
 CUDA tensors (a gather is a zero-padded sum, exact); a bf16 tensor is
 reduced in float32 and rounded once.  Without a ctx (or on an axis of
 size 1) they are the identity.
+
+Every collective of the port is tallied on its process by kind (its
+calls and the bytes of the buffer it reduces: :func:`collective_counts`,
+:func:`reset_collective_counts`): a helper's ``kind`` names the forward
+collective and ``kind + ".bwd"`` the one its backward issues.  The dry
+run (:mod:`repro_torch.launch.dryrun`) predicts these tallies.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -107,21 +113,42 @@ def tp_split(full: int, local: int, ctx, what: str = "dim") -> bool:
     return split
 
 
+# kind -> [calls, bytes] of this process's collectives
+_TALLY: Dict[str, List[int]] = {}
+
+
+def tally(kind: str, buf: torch.Tensor):
+    """Count one collective of ``kind`` over the buffer ``buf``."""
+    row = _TALLY.setdefault(kind, [0, 0])
+    row[0] += 1
+    row[1] += buf.numel() * buf.element_size()
+
+
+def collective_counts() -> Dict[str, Dict[str, int]]:
+    """``{kind: {"calls": n, "bytes": b}}`` since the last reset."""
+    return {k: {"calls": c, "bytes": b} for k, (c, b) in _TALLY.items()}
+
+
+def reset_collective_counts():
+    _TALLY.clear()
+
+
 def _reduce_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.float32 if x.dtype in (torch.bfloat16, torch.float16) \
         else x.dtype
 
 
-def _sum(x: torch.Tensor, group) -> torch.Tensor:
+def _sum(x: torch.Tensor, group, kind: str) -> torch.Tensor:
     """A new tensor: ``x`` summed over ``group``."""
     import torch.distributed as dist
     y = x.to(_reduce_dtype(x), copy=True).contiguous()
+    tally(kind, y)
     dist.all_reduce(y, group=group)
     return y.to(x.dtype)
 
 
 def _gather(x: torch.Tensor, dim: int, group, index: int,
-            parts: int) -> torch.Tensor:
+            parts: int, kind: str) -> torch.Tensor:
     """Each rank's ``x`` concatenated along ``dim`` in group order: the
     rank writes its slice (number ``index`` of ``parts``) into zeros and
     the group sums them (a sum with zeros is exact, and every rank gets
@@ -132,6 +159,7 @@ def _gather(x: torch.Tensor, dim: int, group, index: int,
     shape[dim] = n * parts
     full = torch.zeros(shape, dtype=_reduce_dtype(x), device=x.device)
     full.narrow(dim, index * n, n).copy_(x)
+    tally(kind, full)
     dist.all_reduce(full, group=group)
     return full.to(x.dtype)
 
@@ -142,28 +170,28 @@ class _AllReduce(torch.autograd.Function):
     where the ranks of that group consume different parts of it."""
 
     @staticmethod
-    def forward(fctx, x, group, bwd_group):
-        fctx.bwd_group = bwd_group
-        return _sum(x, group)
+    def forward(fctx, x, group, bwd_group, kind):
+        fctx.bwd_group, fctx.kind = bwd_group, kind
+        return _sum(x, group, kind)
 
     @staticmethod
     def backward(fctx, g):
         if fctx.bwd_group is not None:
-            g = _sum(g, fctx.bwd_group)
-        return g, None, None
+            g = _sum(g, fctx.bwd_group, fctx.kind + ".bwd")
+        return g, None, None, None
 
 
 class _Enter(torch.autograd.Function):
     """Forward: the identity.  Backward: the sum over ``group``."""
 
     @staticmethod
-    def forward(fctx, x, group):
-        fctx.group = group
+    def forward(fctx, x, group, kind):
+        fctx.group, fctx.kind = group, kind
         return x
 
     @staticmethod
     def backward(fctx, g):
-        return _sum(g, fctx.group), None
+        return _sum(g, fctx.group, fctx.kind + ".bwd"), None, None
 
 
 class _AllGather(torch.autograd.Function):
@@ -171,61 +199,63 @@ class _AllGather(torch.autograd.Function):
     gradient, summed over ``bwd_group`` first where given."""
 
     @staticmethod
-    def forward(fctx, x, dim, group, index, parts, bwd_group):
+    def forward(fctx, x, dim, group, index, parts, bwd_group, kind):
         dim = dim % x.dim()
         fctx.slice = (dim, index * x.shape[dim], x.shape[dim])
-        fctx.bwd_group = bwd_group
-        return _gather(x, dim, group, index, parts)
+        fctx.bwd_group, fctx.kind = bwd_group, kind
+        return _gather(x, dim, group, index, parts, kind)
 
     @staticmethod
     def backward(fctx, g):
         if fctx.bwd_group is not None:
-            g = _sum(g, fctx.bwd_group)
+            g = _sum(g, fctx.bwd_group, fctx.kind + ".bwd")
         return (g.narrow(*fctx.slice).contiguous(), None, None, None, None,
-                None)
+                None, None)
 
 
-def all_reduce(x, group, bwd_group=None):
+def all_reduce(x, group, bwd_group=None, kind: str = "all_reduce"):
     """:class:`_AllReduce`: the sum over ``group`` under autograd."""
-    return _AllReduce.apply(x, group, bwd_group)
+    return _AllReduce.apply(x, group, bwd_group, kind)
 
 
-def enter(x, group):
+def enter(x, group, kind: str = "enter"):
     """:class:`_Enter`: the identity, whose backward sums over
     ``group``."""
-    return _Enter.apply(x, group)
+    return _Enter.apply(x, group, kind)
 
 
 def all_gather(x, dim: int, group, index: int, parts: int,
-               bwd_group=None):
+               bwd_group=None, kind: str = "all_gather"):
     """:class:`_AllGather`: the ranks' ``x`` along ``dim`` under
     autograd."""
-    return _AllGather.apply(x, dim, group, index, parts, bwd_group)
+    return _AllGather.apply(x, dim, group, index, parts, bwd_group, kind)
 
 
-def tp_all_reduce(x: torch.Tensor, ctx) -> torch.Tensor:
+def tp_all_reduce(x: torch.Tensor, ctx,
+                  kind: str = "tp_all_reduce") -> torch.Tensor:
     """Sum ``x`` over the ctx's tp group (a row-parallel product's
     partial sums); identity without a ctx.  Backward: the identity."""
     if tp_size(ctx) == 1:
         return x
-    return all_reduce(x, ctx.mesh.group(ctx.tp_axis))
+    return all_reduce(x, ctx.mesh.group(ctx.tp_axis), kind=kind)
 
 
-def tp_enter(x: torch.Tensor, ctx) -> torch.Tensor:
+def tp_enter(x: torch.Tensor, ctx, kind: str = "tp_enter") -> torch.Tensor:
     """``x``, replicated over tp, entering this rank's shard; backward
     sums the ranks' gradients (identity without a ctx)."""
     if tp_size(ctx) == 1:
         return x
-    return enter(x, ctx.mesh.group(ctx.tp_axis))
+    return enter(x, ctx.mesh.group(ctx.tp_axis), kind)
 
 
-def tp_all_gather(x: torch.Tensor, ctx, dim: int) -> torch.Tensor:
+def tp_all_gather(x: torch.Tensor, ctx, dim: int,
+                  kind: str = "tp_all_gather") -> torch.Tensor:
     """Concatenate each rank's ``x`` along ``dim`` in rank order, on
     every rank.  Backward: this rank's slice of the gradient."""
     if tp_size(ctx) == 1:
         return x
     return all_gather(x, dim, ctx.mesh.group(ctx.tp_axis), tp_rank(ctx),
-                      tp_size(ctx))
+                      tp_size(ctx), kind=kind)
 
 
 class _Rows(torch.autograd.Function):
@@ -234,15 +264,16 @@ class _Rows(torch.autograd.Function):
     together over ``group``."""
 
     @staticmethod
-    def forward(fctx, x, dim, group, index, parts):
+    def forward(fctx, x, dim, group, index, parts, kind):
         dim = dim % x.dim()
         n = x.shape[dim] // parts
-        fctx.args = (dim, group, index, parts)
+        fctx.args = (dim, group, index, parts, kind + ".bwd")
         return x.narrow(dim, index * n, n).contiguous()
 
     @staticmethod
     def backward(fctx, g):
-        return (_gather(g.contiguous(), *fctx.args), None, None, None, None)
+        return (_gather(g.contiguous(), *fctx.args), None, None, None, None,
+                None)
 
 
 class _ReduceScatter(torch.autograd.Function):
@@ -251,15 +282,16 @@ class _ReduceScatter(torch.autograd.Function):
     back together."""
 
     @staticmethod
-    def forward(fctx, x, dim, group, index, parts):
+    def forward(fctx, x, dim, group, index, parts, kind):
         dim = dim % x.dim()
         n = x.shape[dim] // parts
-        fctx.args = (dim, group, index, parts)
-        return _sum(x, group).narrow(dim, index * n, n).contiguous()
+        fctx.args = (dim, group, index, parts, kind + ".bwd")
+        return _sum(x, group, kind).narrow(dim, index * n, n).contiguous()
 
     @staticmethod
     def backward(fctx, g):
-        return (_gather(g.contiguous(), *fctx.args), None, None, None, None)
+        return (_gather(g.contiguous(), *fctx.args), None, None, None, None,
+                None)
 
 
 def seq_parallel(ctx, s: int) -> bool:
@@ -278,7 +310,7 @@ def seq_rows(x: torch.Tensor, ctx, dim: int = 1) -> torch.Tensor:
     """This tp rank's ``1/tp`` of ``x``'s ``dim`` (its rows of the
     sequence); backward: the ranks' row gradients put back together."""
     return _Rows.apply(x, dim, ctx.mesh.group(ctx.tp_axis), tp_rank(ctx),
-                       tp_size(ctx))
+                       tp_size(ctx), "seq_rows")
 
 
 def seq_gather(x: torch.Tensor, ctx, dim: int = 1,
@@ -289,7 +321,7 @@ def seq_gather(x: torch.Tensor, ctx, dim: int = 1,
     (``summed``)."""
     group = ctx.mesh.group(ctx.tp_axis)
     return all_gather(x, dim, group, tp_rank(ctx), tp_size(ctx),
-                      bwd_group=group if summed else None)
+                      bwd_group=group if summed else None, kind="seq_gather")
 
 
 def seq_scatter(x: torch.Tensor, ctx, dim: int = 1) -> torch.Tensor:
@@ -297,24 +329,25 @@ def seq_scatter(x: torch.Tensor, ctx, dim: int = 1) -> torch.Tensor:
     its rows of ``dim`` (a reduce-scatter); backward: the ranks' row
     gradients put back together."""
     return _ReduceScatter.apply(x, dim, ctx.mesh.group(ctx.tp_axis),
-                                tp_rank(ctx), tp_size(ctx))
+                                tp_rank(ctx), tp_size(ctx), "seq_scatter")
 
 
 def tp_enter_tree(tree, ctx):
-    """:func:`tp_enter` over the leaves of a dict of tensors."""
+    """:func:`tp_enter` over the leaves of a dict of tensors (their
+    backward sums are the kind ``tp_enter_weight``)."""
     if isinstance(tree, dict):
         return {k: tp_enter_tree(v, ctx) for k, v in tree.items()}
-    return tp_enter(tree, ctx)
+    return tp_enter(tree, ctx, "tp_enter_weight")
 
 
 @torch.no_grad()
-def tp_max(x: torch.Tensor, ctx) -> torch.Tensor:
+def tp_max(x: torch.Tensor, ctx, kind: str = "tp_max") -> torch.Tensor:
     """The elementwise max of ``x`` over tp (no gradient): the ranks'
     tensors gathered, then reduced (only sums run on every backend)."""
     if tp_size(ctx) == 1:
         return x
     return _gather(x[None], 0, ctx.mesh.group(ctx.tp_axis), tp_rank(ctx),
-                   tp_size(ctx)).amax(dim=0)
+                   tp_size(ctx), kind).amax(dim=0)
 
 
 # ------------------------------------------------------------ data axis
@@ -341,7 +374,8 @@ def data_all_reduce(x: torch.Tensor, ctx) -> torch.Tensor:
     backward is the identity."""
     if dp_size(ctx) == 1:
         return x
-    return all_reduce(x, ctx.mesh.group(dp_axis(ctx)))
+    return all_reduce(x, ctx.mesh.group(dp_axis(ctx)),
+                      kind="data_all_reduce")
 
 
 def fsdp_gather(leaf: torch.Tensor, dim, ctx) -> torch.Tensor:
@@ -353,7 +387,7 @@ def fsdp_gather(leaf: torch.Tensor, dim, ctx) -> torch.Tensor:
         return leaf
     group = ctx.mesh.group(dp_axis(ctx))
     return all_gather(leaf, dim, group, dp_rank(ctx), dp_size(ctx),
-                      bwd_group=group)
+                      bwd_group=group, kind="fsdp_gather")
 
 
 def fsdp_gather_tree(tree, dims, ctx):

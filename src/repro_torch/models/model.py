@@ -26,8 +26,9 @@ refuse them, as the JAX package asserts): the engine prefills them whole.
 
 ``forward_full`` and the three paged forwards take a ``ctx``
 (``ShardingCtx``) to run as one rank of a mesh on that rank's slice of
-the params (``distributed.sharding.shard_params``) and pages: GQA or MLA
-attention over its heads (a hybrid's shared block too; MLA's latent
+the params (``distributed.sharding.shard_params``; under FSDP each
+layer gathers its shards first, ``layers.fsdp_gather``) and pages: GQA
+or MLA attention over its heads (a hybrid's shared block too; MLA's latent
 whole on every rank), the MLP's and MoE's splits
 (:mod:`repro_torch.models.layers`, :mod:`repro_torch.models.moe`), a
 vocabulary-parallel embedding (rows outside the rank's slice masked, then
@@ -172,7 +173,7 @@ def embed_tokens(params, cfg, tokens, ctx=None):
                 for i in range(k))
     else:
         x = _vocab_rows(emb, tokens.long(), ctx, split)
-    return tp_all_reduce(x, ctx) if split else x
+    return tp_all_reduce(x, ctx, "vocab") if split else x
 
 
 def lm_head(params, cfg, x, ctx=None, gather: bool = True):
@@ -189,14 +190,14 @@ def lm_head(params, cfg, x, ctx=None, gather: bool = True):
     split = ctx is not None and tp_split(cfg.vocab_size, w.shape[-1], ctx,
                                          "vocabulary")
     if split:
-        x = tp_enter(x, ctx)
+        x = tp_enter(x, ctx, "vocab")
     if cfg.num_codebooks > 1:
         logits = torch.stack([dot(x, w[i])
                               for i in range(cfg.num_codebooks)], dim=2)
     else:
         logits = dot(x, w)
     if split and gather:
-        logits = tp_all_gather(logits, ctx, dim=-1)
+        logits = tp_all_gather(logits, ctx, dim=-1, kind="vocab")
     return logits
 
 
@@ -233,15 +234,17 @@ def _ffn_residual(block, cfg, x, ctx=None, dims=None, rows: bool = False):
 _EXPERTS = ("w_gate", "w_up", "w_down")
 
 
-def _fsdp_plan(cfg, ctx):
-    """Each leaf's FSDP dim (``sharding.fsdp_dims`` of the placement
-    specs), or None where no leaf is sharded over the data axis (no
-    ctx, no FSDP, or a data axis of one rank)."""
+def _layer_dims(cfg, ctx):
+    """Each layer's FSDP dims (``sharding.fsdp_dims`` of the placement
+    specs; a shared block's at every use), or None a layer where no leaf
+    is sharded over the data axis (no ctx, no FSDP, or a data axis of
+    one rank)."""
     if ctx is None or not ctx.fsdp_axes or dp_size(ctx) == 1:
-        return None
+        return [None] * len(cfg.layer_pattern)
     from repro_torch.distributed import sharding
     par = sharding.parallelism_of(ctx)
-    return sharding.fsdp_dims(sharding.rank_specs(cfg, ctx.mesh, par), par)
+    return _blocks(sharding.fsdp_dims(sharding.rank_specs(cfg, ctx.mesh,
+                                                          par), par))
 
 
 def _gathered(block, dims, ctx):
@@ -356,9 +359,7 @@ def forward_full(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     b, s = x.shape[0], x.shape[1]
     if positions is None:
         positions = _default_positions(cfg, b, s, 0, x.device)
-    plan = _fsdp_plan(cfg, ctx)
-    dims_of = _blocks(plan) if plan is not None else \
-        [None] * len(cfg.layer_pattern)
+    dims_of = _layer_dims(cfg, ctx)
     # the residual as this rank's rows of the sequence between the
     # blocks, as the reference constrains it (not with SSM layers)
     rows = seq_parallel(ctx, s) and not cfg.ssm_layers
@@ -505,8 +506,10 @@ def forward_decode_paged(params, cfg: ModelConfig, *, tokens=None,
     block_tables = cache["block_tables"]
     if positions is None:
         positions = _decode_positions(cfg, cache_pos, b)
-    for kind, block, layer_cache in zip(cfg.layer_pattern, _blocks(params),
-                                        cache["layers"]):
+    for kind, block, layer_cache, dims in zip(
+            cfg.layer_pattern, _blocks(params), cache["layers"],
+            _layer_dims(cfg, ctx)):
+        block = _gathered(block, dims, ctx)
         if kind == SSM:
             x = _ssm_block_decode(block, cfg, x, layer_cache, active)
             continue
@@ -519,7 +522,7 @@ def forward_decode_paged(params, cfg: ModelConfig, *, tokens=None,
             h, _ = attn.gqa_decode_paged(block["attn"], cfg, xin, positions,
                                          layer_cache, block_tables,
                                          cache_pos, ctx)
-        x = _ffn_residual(block, cfg, x + h, ctx)[0]
+        x = _ffn_residual(block, cfg, x + h, ctx, dims)[0]
     x = apply_norm(x, params["final_norm"], cfg)
     return lm_head(params, cfg, x, ctx), {"pos": cache_pos + 1,
                                      "block_tables": block_tables,
@@ -544,12 +547,13 @@ def forward_prefill_paged(params, cfg: ModelConfig, *, tokens=None,
         length = s
     if positions is None:
         positions = _default_positions(cfg, b, s, 0, x.device)
-    for i, (kind, block) in enumerate(zip(cfg.layer_pattern,
-                                          _blocks(params))):
+    for i, (kind, block, dims) in enumerate(zip(
+            cfg.layer_pattern, _blocks(params), _layer_dims(cfg, ctx))):
         if kind == SSM:
-            x, kv_out = _ssm_block_full(block, cfg, x)
+            x, kv_out = _ssm_block_full(block, cfg, x, ctx=ctx, dims=dims)
         else:
-            x, kv_out, _ = _attn_block_full(block, cfg, x, positions, ctx)
+            x, kv_out, _ = _attn_block_full(block, cfg, x, positions, ctx,
+                                            dims)
         write_prefill_paged(cache, i, kv_out, cfg, slot, length)
     x = apply_norm(x[:, length - 1:length], params["final_norm"], cfg)
     logits = lm_head(params, cfg, x, ctx)
@@ -585,8 +589,10 @@ def forward_chunk_paged(params, cfg: ModelConfig, *, tokens=None,
                                      dtype=torch.int32))[None].expand(b, c)
     if cfg.mrope_sections:
         positions = positions[..., None].expand(b, c, 3)
-    for i, (kind, block, layer_cache) in enumerate(zip(
-            cfg.layer_pattern, _blocks(params), cache["layers"])):
+    for i, (kind, block, layer_cache, dims) in enumerate(zip(
+            cfg.layer_pattern, _blocks(params), cache["layers"],
+            _layer_dims(cfg, ctx))):
+        block = _gathered(block, dims, ctx)
         if kind == SSM:
             x, state = _ssm_block_full(block, cfg, x, {
                 name: layer_cache[name][slot:slot + 1]
@@ -597,7 +603,7 @@ def forward_chunk_paged(params, cfg: ModelConfig, *, tokens=None,
         h, _ = attn.gqa_continue_paged(block["attn"], cfg, xin, positions,
                                        layer_cache, bt, pos0, n=length,
                                        ctx=ctx)
-        x = _ffn_residual(block, cfg, x + h, ctx)[0]
+        x = _ffn_residual(block, cfg, x + h, ctx, dims)[0]
     x = apply_norm(x[:, length - 1:length], params["final_norm"], cfg)
     logits = lm_head(params, cfg, x, ctx)
     cache["pos"][slot] += length

@@ -222,19 +222,21 @@ def _local_moe_2d(x2d, router, w_gate, w_up, w_down, top_k: int, ctx):
     t = x2d.shape[0]
     data, pair = ctx.mesh.group(dp_axis(ctx)), \
         ctx.mesh.group((dp_axis(ctx), ctx.tp_axis))
-    gather = dict(dim=0, group=data, index=dp_rank(ctx), parts=dp_size(ctx))
+    gather = dict(dim=0, group=data, index=dp_rank(ctx), parts=dp_size(ctx),
+                  kind="moe_2d")
     probs = torch.softmax(x2d.float() @ router, dim=-1)        # [t, E]
     p_all = all_gather(probs, **gather)                        # [T, E]
     x_all = all_gather(x2d, **gather, bwd_group=pair)          # [T, d]
     gate_vals, expert_idx = torch.topk(p_all, top_k, dim=-1)
-    gate_vals = enter(gate_vals / gate_vals.sum(dim=-1, keepdim=True), pair)
+    gate_vals = enter(gate_vals / gate_vals.sum(dim=-1, keepdim=True), pair,
+                      "moe_2d")
     e_local = w_gate.shape[0]
     sort_key, in_range = _local_pairs(expert_idx, tp_rank(ctx) * e_local,
                                       e_local)
     pairs = _experts(x_all, sort_key, e_local, w_gate, w_up, w_down, top_k,
                      keep=in_range)
     out = _combine(pairs, gate_vals, x_all.shape[0], top_k, x2d.dtype)
-    out = all_reduce(out, pair, bwd_group=data)
+    out = all_reduce(out, pair, bwd_group=data, kind="moe_2d")
     return out.narrow(0, dp_rank(ctx) * t, t), \
         load_balance_loss(p_all, None, top_k)
 
@@ -254,10 +256,12 @@ def moe_ffn(params, cfg, x, ctx=None, fsdp_dims=None, rows: bool = False):
     """MoE FFN over x [B, S, D], shared experts included.  Returns (out,
     the load-balance loss as a float32 0-d tensor).  With a ``ctx``, the
     branch the reference takes (module docstring); ``x`` holds this data
-    rank's rows, and the data axis must then split the batch evenly, so
-    that the whole batch holds ``B * data`` rows.  ``fsdp_dims``: the
-    FSDP dims of the expert weights, which ``params`` then holds as this
-    rank's shards (the router and the shared experts come whole).
+    rank's rows, the whole batch ``B * data`` rows (a batch the data
+    axis does not divide is whole on every data rank: the step then
+    runs ``data`` copies of it, whose loss and gradients are its own).
+    ``fsdp_dims``: the FSDP dims of the expert weights, which ``params``
+    then holds as this rank's shards (the router and the shared experts
+    come whole).
     ``rows``: ``x`` is this tp rank's rows of a sequence-parallel
     residual, and so is the output."""
     e = cfg.moe

@@ -92,11 +92,11 @@ class EngineFleet:
         if len(meshes) > 1 and any(eng.mesh is not None
                                    and eng.mesh.size > 1 for eng in engines):
             # the other ranks' follow() replays the engines of one mesh:
-            # engines on different tp groups (a data axis) have no
-            # counterpart in the reference
+            # engines on different meshes have no counterpart in the
+            # reference (its engines on a data axis run the same step)
             raise NotImplementedError("a fleet of engines on different "
-                                      "tensor-parallel groups is not ported "
-                                      "(ROADMAP M11b)")
+                                      "meshes has no counterpart in the "
+                                      "reference (ROADMAP M11b)")
         if engines[0].mesh is not None and engines[0].mesh.rank != 0:
             raise RuntimeError("rank 0 runs the fleet; the other ranks of "
                                "its mesh call Engine.follow()")

@@ -84,10 +84,12 @@ def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
                               for g in leaves(tree)))
     import torch.distributed as dist
     from repro_torch.distributed.sharding import replication
+    from repro_torch.models.layers import tally
     reps = leaves(tree_map(lambda _, s: replication(s, mesh), tree, specs))
     total = sum(torch.sum(g.float() ** 2) / r
                 for g, r in zip(leaves(tree), reps))
     total = total.reshape(1).clone()
+    tally("grad_norm", total)
     dist.all_reduce(total, group=mesh.group(tuple(mesh.axis_names)))
     return torch.sqrt(total[0])
 

@@ -17,11 +17,15 @@ Under a ``(data, tp)`` mesh (``ctx``, :func:`repro_torch.distributed.
 sharding.make_ctx`) every rank calls these with its slice of the params
 and moments (``sharding.rank_specs``; under FSDP the data axis shards
 the large weights too) and its data rank's rows of the global batch
-(``sharding.shard_batch``).  The loss is the sum of the data ranks'
-token losses over the global count of valid tokens, the same value on
-every rank; the cross entropy runs on the rank's vocabulary slice of the
-logits (a masked pick of the target and ``[B, S]`` sums over tp, as the
-reference's ``lm_loss`` lets GSPMD do); gradients of leaves whole over
+(``sharding.shard_batch``; all of them where the data axis does not
+divide the batch, as the reference replicates it: the loss sums the
+data ranks' copies over the count of every copy's tokens, so the loss
+and, summed over the data axis, the gradients are the batch's own).
+The loss is the sum of the data ranks' token losses over the global
+count of valid tokens, the same value on every rank; the cross entropy
+runs on the rank's vocabulary slice of the logits (a masked pick of the
+target and ``[B, S]`` sums over tp, as the reference's ``lm_loss`` lets
+GSPMD do); gradients of leaves whole over
 the data axis are summed over it, and those of FSDP leaves arrive
 summed from ``layers.fsdp_gather``'s backward.  Under
 ``attn_sharding="auto"`` (sequence-parallel attention) each tp rank
@@ -40,8 +44,8 @@ from repro_torch.device import upcast
 from repro_torch.distributed import sharding
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (data_all_reduce, dp_axis, dp_size,
-                                       tp_all_reduce, tp_max, tp_rank,
-                                       tp_split)
+                                       tally, tp_all_reduce, tp_max,
+                                       tp_rank, tp_split)
 from repro_torch.models.model import forward_full
 from repro_torch.train import optimizer as opt
 
@@ -92,9 +96,10 @@ def _vocab_parallel_nll(lg, safe, ctx):
     local = safe - tp_rank(ctx) * n
     mine = (local >= 0) & (local < n)
     picked = torch.gather(lg, -1, local.clamp(0, n - 1)[..., None])[..., 0]
-    target = tp_all_reduce(torch.where(mine, picked, 0.0), ctx)
-    m = tp_max(torch.amax(lg, dim=-1).detach(), ctx)
-    se = tp_all_reduce(torch.sum(torch.exp(lg - m[..., None]), dim=-1), ctx)
+    target = tp_all_reduce(torch.where(mine, picked, 0.0), ctx, "vocab")
+    m = tp_max(torch.amax(lg, dim=-1).detach(), ctx, "vocab")
+    se = tp_all_reduce(torch.sum(torch.exp(lg - m[..., None]), dim=-1), ctx,
+                       "vocab")
     return m + torch.log(se) - target
 
 
@@ -153,6 +158,7 @@ def _sum_over_data(grads, params, cfg, ctx):
     group = ctx.mesh.group(dp_axis(ctx))
     for bucket in buckets:
         flat = torch.cat([grads[i].float().reshape(-1) for i in bucket])
+        tally("data_grad_sum", flat)
         dist.all_reduce(flat, group=group)
         for i, part in zip(bucket, flat.split([grads[i].numel()
                                                for i in bucket])):

@@ -233,19 +233,19 @@ def run_job(eng, job, vocab):
 
 def engine_suite(mesh, jobs):
     """Each job: ``{"cfg", "tree", "engine": kwargs, "kind": "policy" |
-    "loop", "policy", "discipline", "workload", "ep", "cow", "clock"}``
-    (``clock``: seconds a timed step, default 1 ms).  Every
+    "loop", "policy", "discipline", "workload", "ep", "fsdp", "cow",
+    "clock"}`` (``clock``: seconds a timed step, default 1 ms).  Every
     rank builds the engine on its shard; rank 0 runs the job while the
-    others follow.  Per job and rank: the op log, the page shapes, and
-    on rank 0 the results, ``prefix_stats()`` and the copy-on-write
-    count."""
+    others follow.  Per job and rank: the op log, the page shapes, every
+    param's shape, and on rank 0 the results, ``prefix_stats()`` and the
+    copy-on-write count."""
     from repro_torch.engine import engine as engine_mod
     from repro_torch.engine.engine import Engine
     out = []
     for job in jobs:
         engine_mod.time = FixedClock(job.get("clock", 1e-3))
         cfg = job["cfg"]
-        par = ParallelismConfig(fsdp=False,
+        par = ParallelismConfig(fsdp=job.get("fsdp", False),
                                 expert_parallel=job.get("ep", False),
                                 attn_sharding=job.get("attn", "none"))
         params = from_jax_params(job["tree"], CPU, mesh, cfg=cfg,
@@ -269,6 +269,8 @@ def engine_suite(mesh, jobs):
                          for k in whole["layers"][0]] ==
                [tuple(v.shape) for v in eng.cache["layers"][0].values()],
                "attn_sharding": eng.ctx.attn_sharding,
+               "param_shapes": {p: tuple(t.shape)
+                                for p, t in _named(eng.params)},
                "attn_shapes": {k: tuple(v.shape) for k, v in
                                first_attn(eng.params, cfg)["attn"].items()}}
         if mesh.rank != 0:
@@ -282,6 +284,18 @@ def engine_suite(mesh, jobs):
         rec["replicated"] = replicated_digests(eng.cache, specs)
         out.append(rec)
     return out
+
+
+def _named(tree, prefix=""):
+    """(dotted path, leaf) over a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named(v, f"{prefix}{k}.")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _named(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
 
 
 def replicated_digests(cache, specs):

@@ -35,6 +35,8 @@ from repro_torch.engine.request import RuntimeRequest
 torch.set_num_threads(2)
 CFG = dataclasses.replace(get_reduced("qwen3-1.7b"), dtype="float32")
 SSM_CFG = dataclasses.replace(get_reduced("mamba2-780m"), dtype="float32")
+DANUBE_CFG = dataclasses.replace(get_reduced("h2o-danube-1.8b"),
+                                 dtype="float32")
 ENGINE_KW = dict(max_slots=3, max_seq_len=256)
 
 
@@ -181,19 +183,31 @@ def ssm_params():
     return jp, from_jax_params(jax.tree.map(np.asarray, jp), device="cpu")
 
 
+@pytest.fixture(scope="module")
+def danube_params():
+    jp = jax.jit(init_params, static_argnums=1)(jax.random.PRNGKey(0),
+                                                DANUBE_CFG)
+    return jp, from_jax_params(jax.tree.map(np.asarray, jp), device="cpu")
+
+
 @pytest.mark.parametrize("arch,paged,prefix,discipline", [
     pytest.param("qwen3-1.7b", *row, id="-".join(map(str, row)))
     for row in ((True, True, "stall"), (True, False, "stall"),
                 (True, True, "chunked:16"), (False, False, "stall"),
                 (False, False, "chunked:16"))] + [
     pytest.param("mamba2-780m", False, False, disc, id=f"mamba2-{disc}")
-    for disc in ("stall", "chunked:16")])
+    for disc in ("stall", "chunked:16")] + [
+    pytest.param("h2o-danube-1.8b", True, False, "stall",
+                 id="danube-paged-stall")])
 def test_preemption_by_hand_matches_jax(request, arch, paged, prefix,
                                         discipline):
-    """Reduced qwen3-1.7b on both layouts, and Mamba2 on the dense one
-    (its conv / SSM state re-prefilled after each eviction)."""
+    """Reduced qwen3-1.7b on both layouts, Mamba2 on the dense one (its
+    conv / SSM state re-prefilled after each eviction), and Danube's
+    sliding window on the paged one (no prefix cache for a window)."""
     if arch == "mamba2-780m":
         params, cfg = request.getfixturevalue("ssm_params"), SSM_CFG
+    elif arch == "h2o-danube-1.8b":
+        params, cfg = request.getfixturevalue("danube_params"), DANUBE_CFG
     else:
         params, cfg = request.getfixturevalue("params"), CFG
     got = _preempt_by_hand(True, params, paged, prefix, discipline, cfg)

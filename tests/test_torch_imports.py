@@ -31,7 +31,8 @@ sys.exit(1 if bad else 0)
 # Mamba2 block and the SSD scan kernel's wrapper; the streaming serving
 # loop, the fleet, their streams and metrics, trace replay, the serve
 # launcher; the batched annealer and its kernel's wrapper; the MoE FFN
-# and its grouped product; the device mesh and the partition rules)
+# and its grouped product; the device mesh and the partition rules; the
+# dry run by spec arithmetic)
 NEW_MODULES = ("repro_torch.kernels.decode_attention",
                "repro_torch.kernels.decode_attention_q8",
                "repro_torch.kernels.decode_attention_paged",
@@ -52,7 +53,8 @@ NEW_MODULES = ("repro_torch.kernels.decode_attention",
                "repro_torch.kernels.anneal",
                "repro_torch.models.moe", "repro_torch.kernels.ragged_dot",
                "repro_torch.launch.mesh", "repro_torch.distributed",
-               "repro_torch.distributed.sharding")
+               "repro_torch.distributed.sharding",
+               "repro_torch.launch.dryrun")
 
 
 def test_import_loads_no_jax_and_no_reference():

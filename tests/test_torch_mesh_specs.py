@@ -280,10 +280,13 @@ def test_placement_holds_whole_heads(arch, mesh):
 
 
 def test_mesh_paths_not_ported_raise():
-    """What the mesh does not run yet raises naming ROADMAP M11b before
-    any rank would wait on another: a data axis on an engine (engines on
-    different tp groups) and a fleet of engines on different meshes.
-    Training under a mesh and a multi-codebook model under tp do run now
+    """What the mesh does not run raises before any rank would wait on
+    another: a fleet of engines on different meshes (no counterpart in
+    the reference) names ROADMAP M11b.  An engine on a data axis > 1
+    runs now (``tests/test_torch_mesh_engine_data*.py``): on a
+    shape-only mesh it gets as far as its first message to the other
+    ranks, for which such a mesh has no process group.  Training under a
+    mesh and a multi-codebook model under tp do run now
     (``tests/test_torch_mesh_train*.py``): on a 1 x 1 mesh they give the
     single-device logits bit for bit, and on a shape-only 1 x 2 mesh they
     get as far as their first collective, for which such a mesh has no
@@ -320,7 +323,7 @@ def test_mesh_paths_not_ported_raise():
     with pytest.raises(ValueError, match="paged"):
         Engine(ssm, init_params(ssm, seed=0, device="cpu"), device="cpu",
                mesh=mesh)
-    with pytest.raises(NotImplementedError, match="M11b"):
+    with pytest.raises(ValueError, match="process group"):
         Engine(cfg, params, device="cpu",
                mesh=Mesh({"data": 2, "model": 2}, rank=0))
     from repro_torch.serving import EngineFleet
