@@ -86,9 +86,9 @@ Phases (any failure exits non-zero before the last line):
   anneal   the batched annealer's kernel (csrc/anneal.cu: one launch
            anneals every instance x chain) against its plain version on
            the same draws, on both scoring paths (incremental and full
-           evaluate), over padded N 8/64/256/1024 x max_batch 1/32 x
-           (instances, chains) (1, 8)/(4, 2)/(8, 8) (ragged instances, an
-           empty one) x contended/loose SLOs under the default budget,
+           evaluate), over padded N 8/64/256 x max_batch 1/32 x
+           (instances, chains) (1, 8)/(8, 8) (ragged instances, an empty
+           one) x contended SLOs under the default budget,
            and at the shapes of benchmarks/bench_overhead.py (N 64/128/256
            x 8 chains, 4 instances x 64 x 2 chains, max_batch 8) under
            iters=100 per level; then a case at each threshold of the
@@ -180,8 +180,8 @@ Phases (any failure exits non-zero before the last line):
            (torch._grouped_mm) against a product per expert at both
            models' expert widths, bf16 and f32, routed rows and every
            row to one expert, timed at DeepSeek's decode shape; f32
-           (DeepSeek 2 layers, DBRX 1) cuda vs cpu: tokens identical,
-           logits within 1e-4 of max
+           (DeepSeek 2 layers) cuda vs cpu: tokens identical, logits
+           within 1e-4 of max
   int8     Qwen2.5-7B: one 128-token prompt and 32 greedy decode
            steps through an int8 paged cache and an int8 dense cache,
            each against the same run on a bf16 cache, with the
@@ -205,8 +205,7 @@ Phases (any failure exits non-zero before the last line):
            the ServeLoop's tokens on both layouts, cuda vs cpu and
            overlapped vs synchronous, must be identical;
            one train step at 2 layers in float32, cuda vs cpu, of
-           Qwen3-1.7B, Mamba2-780M, Zamba2-1.2B (SSM, ATTN) and
-           MusicGen-medium: loss,
+           Qwen3-1.7B, Mamba2-780M and Zamba2-1.2B (SSM, ATTN): loss,
            every gradient and the updated params, bounded;
            Mamba2-780M at 2 layers in float32: the dense engine's tokens
            under fcfs and slo-preempt + chunked:32, and the logits of one
@@ -233,8 +232,9 @@ Phases (any failure exits non-zero before the last line):
            27 layers (MLA on 8 of its 16 heads a rank, the latent pages
            whole on each rank) on the expert-parallel branch (32 experts
            a rank); in float32 (TF32 off) Qwen at 2 layers, its fleet
-           under least-loaded against one tp 1 ServeLoop, DBRX and
-           DeepSeek at 2 layers on both branches, Zamba2 at 4 (SSM, ATTN,
+           under least-loaded against one tp 1 ServeLoop, DBRX at 2
+           layers on the expert-parallel branch and DeepSeek at 2 layers
+           on both branches, Zamba2 at 4 (SSM, ATTN,
            SSM, ATTN): tokens identical to tp 1 and first-step logits
            within 1e-4 of max |logit|; the grouped product on one rank's
            8 of DBRX's 16 experts, the other rank's pairs sorted past the
@@ -260,8 +260,8 @@ Phases (any failure exits non-zero before the last line):
            (data 2, tp 1) Zamba2-1.2B (B4 S2048, K4 / K4b
            on 2 rows a rank) and DeepSeek-V2-Lite at B2 S2048 (the 2-D
            expert-parallel branch), at (data 1, tp 2) Qwen3-1.7B,
-           DeepSeek on the expert-parallel and the baseline branch, and
-           MusicGen-medium, and Qwen3-1.7B at (1, 2) under
+           DeepSeek on the expert-parallel branch, and MusicGen-medium,
+           and Qwen3-1.7B at (1, 2) under
            attn_sharding="auto" (sequence-parallel attention: each
            rank's 1024 rows through K5a-c at its offset, every call's
            (q rows, keys, offset) checked; beside the "none" run's step
@@ -284,6 +284,21 @@ Phases (any failure exits non-zero before the last line):
            but max(8, 1e-3 numel) of a leaf (the baseline branch's
            single-rank loss takes its load-balance loss as the mean over
            the tp slices of the sequence, as the reference does)
+  dryrun   the dry run's measured step (launch/dryrun.py run_one on
+           the card): one rank of a fake 256-rank world at 16 x 16
+           running qwen3-1.7b x train_4k (B16 S4096 a rank),
+           phi4-mini-3.8b x prefill_32k (B2 S32768) and qwen3-1.7b x
+           decode_32k (8 rows of 2048 pages) at published widths, each
+           held to the spec arithmetic exactly (params, moments and
+           inputs to memory()'s bytes, collectives to collectives()'),
+           its launches to the layer count, its peak, temporaries,
+           FLOPs and bytes printed; K2 at S 32768 (B2, 24 q / 8 kv
+           heads) against its plain version head by head, K1 at 2048
+           pages a row, K5a-c at B16 S4096 (H16 KV8) a batch row at a
+           time, K4 at B2 S32768 and K4b at B16 S4096 against theirs,
+           bitwise repeatable, timed beside their bounds and SDPA; a
+           tiny case (reduced Qwen3 at (2, 2)) counted on the cpu and on
+           the card, FLOPs and bytes equal
 Each path (paged serve, dense serve, h2o-danube serve, the five
 streaming paths, Mamba2 serve, the hybrid's paged, dense and stream
 paths, DeepSeek's paged, dense and stream paths, DBRX's paged path,
@@ -310,11 +325,19 @@ import time
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "src"))
+try:
+    # the kernels' FLOP and byte formulas and the card's peaks
+    from repro_torch.kernels.cost import (  # noqa: E402
+        PEAK_BYTES, TRAIN_PER_PAIR, anneal_work, attn_flops, bound,
+        decode_cost, decode_q8_cost, dense_cost, dense_q8_cost, flash_cost,
+        flash_train_cost, ssd_bwd_cost, ssd_cost)
+    PORT_MISSING = None
+except ImportError as _e:         # run alone: main() reports it and fails
+    PORT_MISSING = _e
 PHASES = ("device", "build", "kernels", "anneal", "serve", "stream", "ssm",
-          "hybrid", "moe", "int8", "train", "parity", "mesh", "train_mesh")
-PEAK_BYTES = 3.35e12                       # H100 SXM HBM3, bytes/s
-PEAK_FLOPS = {"bfloat16": 989e12,          # dense tensor-core bf16
-              "float32": 67e12}            # float32 outside tensor cores
+          "hybrid", "moe", "int8", "train", "parity", "mesh", "train_mesh",
+          "dryrun")
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # gradient kernels, as a share of max |plain| over the tensor: both sides
 # round the same f32 sums to the output dtype once, so bf16 may differ by
@@ -346,14 +369,8 @@ DBRX_HEADS = dict(h=48, kv=8, hd=128)
 # tp 2 and 4, DBRX at tp 2, Zamba2's shared block at tp 2
 MESH_HEADS = (("qwen2.5-7b tp2", 14, 2, 128), ("qwen2.5-7b tp4", 7, 1, 128),
               ("dbrx tp2", 24, 4, 128), ("zamba2 tp2", 16, 16, 64))
-# Mamba2-780M's SSD widths (configs/mamba2_780m.py); the chunk whose
-# flops the f32 CUDA-core bound counts (64 rows: PR 15's yardstick, kept
-# so that it compares across kernel versions), and the kernel's own chunk
-# (csrc/ssd_scan.cu kQ), whose flops the 3xTF32 bound and the achieved
-# rate count
-SSM_NH, SSM_HD, SSM_DS, SSD_Q, SSD_KQ = 48, 64, 128, 64, 32
-# f32-accurate tensor-core products (3xTF32: three TF32 products each)
-PEAK_3XTF32 = 495e12 / 3
+# Mamba2-780M's SSD widths (configs/mamba2_780m.py)
+SSM_NH, SSM_HD, SSM_DS = 48, 64, 128
 KERNELS = {
     "decode_attention_paged": {
         "route": "cuda",
@@ -453,7 +470,11 @@ PATHS = {"serve_paged": ("decode_attention_paged", "flash_attention"),
          "train_mesh": TRAIN_KERNELS,
          "train_mesh_hybrid": ("ssd_scan", "ssd_scan_bwd") + TRAIN_KERNELS,
          "train_mesh_moe": ("ragged_dot",),
-         "train_mesh_audio": TRAIN_KERNELS}
+         "train_mesh_audio": TRAIN_KERNELS,
+         # one rank's step of the dry run's production cases at 16 x 16
+         "dryrun_train": TRAIN_KERNELS,
+         "dryrun_prefill": ("flash_attention",),
+         "dryrun_decode": ("decode_attention_paged",)}
 # the int8 KV library yardstick: no single PyTorch call dequantizes int8
 # K/V with per-row scales inside attention
 NO_LIBRARY = {
@@ -675,12 +696,6 @@ def alternate(plain, kernel, iters):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def bound(nbytes: float, flops: float, dtype: str):
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 # ----------------------------------------------------------- kernel inputs
 def decode_inputs(b, lengths, pages_per_seq, dtype, window, gen, n_blocks=None,
                   h=H, kv=KV, hd=HD):
@@ -698,25 +713,6 @@ def decode_inputs(b, lengths, pages_per_seq, dtype, window, gen, n_blocks=None,
     return (q, k, v, bt, ln), {"window": window}
 
 
-def decode_bound(q, lengths, L, row_bytes, index_bytes, window, dtype_name):
-    """Bound of one decode call: q read and out written once, each live
-    K/V row (``row_bytes`` per token for K and V each) read once, the
-    index tensors read once; 4 flops per q head x hd x attended key."""
-    live = [min(int(n), L) for n in lengths.tolist()]
-    attended = [min(x, window) if window else x for x in live]
-    nbytes = (2 * q.numel() * q.element_size() + 2 * sum(live) * row_bytes
-              + index_bytes)
-    return bound(nbytes, 4 * q.shape[1] * q.shape[2] * sum(attended),
-                 dtype_name)
-
-
-def decode_cost(args, window, dtype_name):
-    q, k, _, bt, ln = args
-    return decode_bound(q, ln, bt.shape[1] * PAGE,
-                        k.shape[2] * k.shape[3] * k.element_size(),
-                        (bt.numel() + ln.numel()) * 4, window, dtype_name)
-
-
 def decode_q8_inputs(b, lengths, pages_per_seq, dtype, window, gen,
                      n_blocks=None, **heads):
     """int8 pages quantized (by the port's quantize_kv) from float32
@@ -729,14 +725,6 @@ def decode_q8_inputs(b, lengths, pages_per_seq, dtype, window, gen,
     kq, ks = quantize_kv(k)
     vq, vs = quantize_kv(v)
     return (q.to(dtype), kq, ks, vq, vs, bt, ln), kw
-
-
-def decode_q8_cost(args, window, dtype_name):
-    """int8 values + one bf16 scale per (token, kv head), for K and V."""
-    q, kq, _, _, _, bt, ln = args
-    return decode_bound(q, ln, bt.shape[1] * PAGE,
-                        kq.shape[2] * (kq.shape[3] + 2),
-                        (bt.numel() + ln.numel()) * 4, window, dtype_name)
 
 
 def dense_inputs(b, n_valid, L, dtype, gen, h=H, kv=KV, hd=HD):
@@ -757,19 +745,6 @@ def dense_q8_inputs(b, n_valid, L, dtype, gen, **heads):
     kq, ks = quantize_kv(k)
     vq, vs = quantize_kv(v)
     return (q.to(dtype), kq, ks, vq, vs, nv), {}
-
-
-def dense_cost(args, window, dtype_name):
-    q, k, _, nv = args
-    return decode_bound(q, nv, k.shape[1],
-                        k.shape[2] * k.shape[3] * k.element_size(),
-                        nv.numel() * 4, window, dtype_name)
-
-
-def dense_q8_cost(args, window, dtype_name):
-    q, k, _, _, _, nv = args
-    return decode_bound(q, nv, k.shape[1], k.shape[2] * (k.shape[3] + 2),
-                        nv.numel() * 4, window, dtype_name)
 
 
 def sdpa_decode_fn(args):
@@ -863,24 +838,6 @@ def flash_inputs(b, s, dtype, window, gen):
     return (q, k, v), {"causal": True, "window": window}
 
 
-def attn_flops(q, window, per_pair=4, q_offset=0):
-    """``per_pair`` flops per q head x hd x attended (q, key) pair of
-    causal attention over q [B,S,H,hd] (4 for a forward: QKᵀ and PV),
-    its rows at key positions ``q_offset`` onwards (a sequence-parallel
-    rank's rows: only the band of those rows is counted)."""
-    b, s, h, hd = q.shape
-    pairs = sum(min(i + 1, window) if window else i + 1
-                for i in range(q_offset, q_offset + s))
-    return float(per_pair) * b * h * hd * pairs
-
-
-def flash_cost(args, window, dtype_name):
-    q, k, v = args
-    nbytes = 2 * q.numel() * q.element_size() + \
-        2 * k.numel() * k.element_size()
-    return bound(nbytes, attn_flops(q, window), dtype_name)
-
-
 def sdpa_fn(args):
     """One PyTorch call computing causal GQA attention: the yardstick."""
     import torch.nn.functional as F
@@ -917,27 +874,6 @@ def flash_train_inputs(b, s, h, kv, hd, dtype, gen):
             torch.randn((b, s, kv, hd), generator=gen, **kw),
             torch.randn((b, s, kv, hd), generator=gen, **kw),
             torch.randn((b, s, h, hd), generator=gen, **kw))
-
-
-# flops per q head x hd x attended pair: the forward (QKᵀ, PV), dq (QKᵀ,
-# dO·Vᵀ, dS·K) and dk/dv (QKᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q)
-TRAIN_PER_PAIR = {"flash_attention_fwd_lse": 4, "flash_attention_dq": 6,
-                  "flash_attention_dkv": 8}
-
-
-def flash_train_cost(name, q, k, window, dtype_name, q_offset=0):
-    """Bound of one training-kernel call: each input read once and each
-    output written once (q-sized out/dout/dq, k-sized dk/dv, f32
-    [B,H,Sq] lse and delta); TRAIN_PER_PAIR flops per q head x hd x
-    attended pair of q's rows at ``q_offset``."""
-    b, s, h, hd = q.shape
-    qb, kb, rows = q.numel() * q.element_size(), \
-        k.numel() * k.element_size(), b * h * s * 4
-    nbytes = {"flash_attention_fwd_lse": 2 * qb + 2 * kb + rows,
-              "flash_attention_dq": 3 * qb + 2 * kb + 2 * rows,
-              "flash_attention_dkv": 2 * qb + 4 * kb + 2 * rows}[name]
-    return bound(nbytes, attn_flops(q, window, TRAIN_PER_PAIR[name],
-                                    q_offset), dtype_name)
 
 
 # K2 and K5a cases (label, b, s, h, kv, hd, window): both q-tile sizes of
@@ -1442,37 +1378,6 @@ def ssd_inputs(b, s, dtype, with_state, gen, nh=SSM_NH, hd=SSM_HD,
     return x, dt, A, B, C, st
 
 
-def ssd_flops(b, s, nh, hd, ds, q):
-    """The flops of the chunked SSD over chunks of ``q`` rows: per batch
-    row and chunk of n rows, 2n²·ds for C·Bᵀ, once (B and C are shared
-    by every head), and per head 2n²·hd (with x·dt) + 2n·hd·ds (the
-    inter-chunk term) + 2n·hd·ds (the state update)."""
-    rows = [min(q, s - r) for r in range(0, s, q)]
-    return b * sum(2 * n * n * ds + nh * (2 * n * n * hd + 4 * n * hd * ds)
-                   for n in rows)
-
-
-def ssd_cost(x, B, st, dtype_name):
-    """Bounds of one scan: x, dt, A, B, C (and the initial state) read
-    once, y and the final state written once.  -> ((bound ms, bound_by)
-    at the f32 CUDA-core peak over 64-row chunks, PR 15's yardstick),
-    ((bound ms, bound_by) at the rate of the f32-accurate 3xTF32
-    tensor-core products the kernel issues, 495/3 TFLOP/s, over the
-    kernel's own 32-row chunks), and those chunks' flops."""
-    b, s, nh, hd = x.shape
-    ds = B.shape[-1]
-    el = x.element_size()
-    nbytes = (2 * x.numel() * el + b * s * nh * 4 + nh * 4
-              + 2 * b * s * ds * el
-              + b * nh * hd * ds * 4 * (1 if st is None else 2))
-    flops = ssd_flops(b, s, nh, hd, ds, SSD_KQ)
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_tc = flops / PEAK_3XTF32 * 1e3
-    tc = (t_bytes, "bytes") if t_bytes >= t_tc else (t_tc, "operations")
-    return (bound(nbytes, ssd_flops(b, s, nh, hd, ds, SSD_Q), dtype_name),
-            tc, flops)
-
-
 # (label, b, s, nh, hd, ds): the model's widths over batch and length,
 # then the edges of the kernel's decomposition: one row, a 32-row chunk
 # boundary on either side of 64, a batch of 3, 7 heads (fewer blocks than
@@ -1586,42 +1491,6 @@ def check_ssd_kernel(results):
             f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, f32 CUDA cores, "
             f"64-row chunks) / {tc_ms:.4f} ms ({tc_by}, 3xTF32, "
             f"{flops / 1e9:.3f} GFLOP over 32-row chunks) at {row['shape']}")
-
-
-def ssd_bwd_flops(b, s, nh, hd, ds, q=SSD_KQ):
-    """The flops of the SSD backward over chunks of ``q`` rows, reckoned
-    as :func:`ssd_flops` does: per batch row and chunk of n rows, the
-    n x n tile C·Bᵀ once (2n²·ds: B and C are shared by every head, and
-    the kernel computes it once into a workspace every head reads, as K4
-    does), and per head the tile dy·uᵀ (2n²·hd), the tiles' products with
-    dy, B and C (2n²·hd + 4n²·ds), and five n x hd x ds products (the
-    recomputed state, dS'·B, Sᵀ·dy, dS'ᵀ·u and the carried dS:
-    10n·hd·ds)."""
-    rows = [min(q, s - r) for r in range(0, s, q)]
-    return b * sum(2 * n * n * ds
-                   + nh * (4 * n * n * hd + 4 * n * n * ds
-                           + 10 * n * hd * ds)
-                   for n in rows)
-
-
-def ssd_bwd_cost(x, B, st, dfinal):
-    """Bounds of one backward: x, dt, A, B, C, dy (and the initial state
-    and dfinal) read once, dx, ddt, dA, dB, dC (and dinit) written once,
-    all float32.  -> ((bound ms, bound_by) at the f32 CUDA-core peak,
-    (bound ms, bound_by) at the rate of the f32-accurate 3xTF32
-    tensor-core products the kernel issues (495/3 TFLOP/s), flops)."""
-    b, s, nh, hd = x.shape
-    ds = B.shape[-1]
-    state = b * nh * hd * ds
-    n_in = 2 * x.numel() + b * s * nh + nh + 2 * b * s * ds \
-        + state * ((st is not None) + (dfinal is not None))
-    n_out = x.numel() + b * s * nh + nh + 2 * b * s * ds \
-        + state * (st is not None)
-    flops = ssd_bwd_flops(b, s, nh, hd, ds)
-    t_bytes = 4 * (n_in + n_out) / PEAK_BYTES * 1e3
-    t_tc = flops / PEAK_3XTF32 * 1e3
-    tc = (t_bytes, "bytes") if t_bytes >= t_tc else (t_tc, "operations")
-    return bound(4 * (n_in + n_out), flops, "float32"), tc, flops
 
 
 def ssd_bwd_bytes(b, s, nh, hd, ds, slices, group, with_state=False,
@@ -3163,8 +3032,7 @@ def phase_moe(ctx):
     its published width and 4 of its 40 layers (GQA group 6): paged fcfs
     and slo-preempt chunked:32 with the prefix cache, the multi-turn
     run, K1 and K2 launched.  The grouped product against its plain
-    version; cuda-vs-cpu parity in float32 for both (DeepSeek 2 layers,
-    DBRX 1)."""
+    version; cuda-vs-cpu parity in float32 for DeepSeek (2 layers)."""
     import gc
     import numpy as np
     import torch
@@ -3316,21 +3184,17 @@ def phase_moe(ctx):
 
 
 def _moe_parity():
-    """DeepSeek-V2-Lite (2 layers: layer 0 dense, layer 1 MoE) and DBRX
-    (1 MoE layer) at full width, float32, under fcfs (an MLA arch
-    serves every discipline stalling): identical greedy tokens, cuda vs
-    cpu, and logits within 1e-4 of max |logit| (``_recurrent_parity``),
-    DeepSeek on both layouts, DBRX on the paged one (its GQA layout,
-    the one it serves on) with 2 requests: its float32 experts are 12.7
-    GB a layer and copy, and the cpu side reads them every round (both
-    layouts at 2 layers took 73 s against DeepSeek's 17 s, the paged one
-    32 s, on the host of an H100 machine; 2 layers until the script ran
-    past its time limit)."""
+    """DeepSeek-V2-Lite (2 layers: layer 0 dense, layer 1 MoE) at full
+    width, float32, under fcfs (an MLA arch serves every discipline
+    stalling) on both layouts: identical greedy tokens, cuda vs cpu,
+    and logits within 1e-4 of max |logit| (``_recurrent_parity``)."""
     from repro_torch.configs import get_config
     out = {}
+    # DBRX's (1 layer, paged: 17.4 s of host work beside an NVIDIA H100
+    # 80GB HBM3, 700.00 W) left to pay for the dryrun phase: GQA with the MoE FFN is held on
+    # the card by the mesh phase's f32 parity against one rank
     for arch, layers, layouts, n in (
-            ("deepseek-v2-lite-16b", 2, ("paged", "dense"), 4),
-            ("dbrx-132b", 1, ("paged",), 2)):
+            ("deepseek-v2-lite-16b", 2, ("paged", "dense"), 4),):
         t0 = time.perf_counter()
         out[arch] = _recurrent_parity(dataclasses.replace(
             get_config(arch), num_layers=layers, layer_pattern=(),
@@ -3912,9 +3776,10 @@ def _recurrent_parity(cfg, layouts, policies=(("fcfs", "stall"),
 # 1.1 B float32 params took 25-33 and 18-27 s; Qwen2-VL's K5a-c instance,
 # float32 at group 7, is held in the kernels phase, and DeepSeek's mesh
 # steps against its single-rank step in the train_mesh phase)
+# MusicGen's left to pay for the dryrun phase (its codebook loss is
+# held on the card by the train phase and by train_mesh's f32 parity)
 TRAIN_PARITY = (("qwen3-1.7b", None), ("mamba2-780m", None),
-                ("zamba2-1.2b", ("ssm", "attn")),
-                ("musicgen-medium", None))
+                ("zamba2-1.2b", ("ssm", "attn")))
 
 
 def _train_parity():
@@ -4030,6 +3895,9 @@ ANNEAL_MB = (1, 32)
 # one and eight instances (4 x 2 left the sweep in the same cut as N 1024;
 # it is held at the benchmark shapes, I4 N64 C2)
 ANNEAL_IC = ((1, 8), (8, 8))
+# contended SLOs only: the loose ones (chains that meet every SLO and
+# stop early) left the sweep to pay for the dryrun phase; the early exit
+# inside a draw tile is held among the thresholds below, on loose SLOs
 # a case at each threshold of the kernel's launch plan (csrc/anneal.cu:
 # a warp per chain to N 32, three rows at once there to max_batch 10, a
 # thread a position to N 256, the request rows and the state in shared
@@ -4115,21 +3983,6 @@ def _anneal_case(sizes, pad, regime, cfg, seed):
     draws = at.make_draws([at.instance_seed(seed, k)
                            for k in range(len(sizes))], cfg).cuda()
     return arrays, reqc, nv, draws
-
-
-def _anneal_cost(n_inst, chains, n, mb, props, incremental):
-    """Bytes and operations of one anneal: reqc and n_valid read once,
-    each chain's draw rows read once, its best schedule and G written
-    once; per proposal (every proposal of the schedule, as no chain of
-    a contended instance meets every SLO) the incremental path rebuilds
-    3 rows of mb members at 10 flops each, takes an N-long scan and
-    three N-long sums and compares each of the N slacks with its batch's
-    wait once (no row needs sorting for that count); the full path 25
-    flops per position."""
-    nbytes = n_inst * (n * 11 * 4 + 4) + n_inst * chains * (
-        props * 16 + n * 5 + 4)
-    per = 30 * mb + 4 * n + n if incremental else 25 * n
-    return nbytes, n_inst * chains * props * per
 
 
 def _check_anneal(arrays, nv, mb, got, plain, again, label, stats):
@@ -4287,7 +4140,7 @@ def _anneal_sweep(stats, plans, pool):
                          for k in range(n_inst)]
                 if n_inst == 8:
                     sizes[-1] = 0          # an empty instance
-                for regime in ("contended", "loose"):
+                for regime in ("contended",):
                     arrays, reqc, nv, draws = _anneal_case(
                         sizes, n, regime, cfg, seed=n + mb + n_inst)
                     for inc in (True, False):
@@ -4339,7 +4192,7 @@ def _anneal_sweep(stats, plans, pool):
         for key in ("g_rel", "g_abs", "eval_rel"):
             stats[key] = max(stats[key], got[key])
     log(f"  anneal sweep: {sweep} runs (N {ANNEAL_N} x max_batch "
-        f"{ANNEAL_MB} x (instances, chains) {ANNEAL_IC} x contended/loose x "
+        f"{ANNEAL_MB} x (instances, chains) {ANNEAL_IC} x contended x "
         f"incremental/full, global budget) and plan thresholds: "
         f"{runs - sweep} runs, their plain versions in worker processes, "
         f"in {time.perf_counter() - t0:.1f} s; plans taken: "
@@ -4423,7 +4276,7 @@ def phase_anneal(ctx):
         ms = time_ms(lambda: ops.anneal_chains(*args), 10)
         props = at.temperature_levels(cfg.T0, cfg.T_thres,
                                       cfg.tau) * cfg.iters
-        nbytes, flops = _anneal_cost(n_inst, chains, n, mb, props, inc)
+        nbytes, flops = anneal_work(n_inst, chains, n, mb, props, inc)
         b_ms, b_by = bound(nbytes, flops, "float32")
         row = {"shape": tag, "instances": n_inst, "chains": chains,
                "n": n, "max_batch": mb, "proposals": props, "ms": ms,
@@ -4514,9 +4367,10 @@ MESH_JOBS = (
          **_F32),
     dict(_DBRX, name="dbrx expert-parallel fcfs", ep=True),
     dict(_DBRX, name="dbrx baseline fcfs", ep=False),
+    # the f32 parity on the expert-parallel branch; the baseline branch's
+    # f32 parity is DeepSeek's (DBRX's left to pay for the dryrun phase)
     dict(_DBRX, name="dbrx f32 2 layers expert-parallel fcfs", ep=True,
          **_F32),
-    dict(_DBRX, name="dbrx f32 2 layers baseline fcfs", ep=False, **_F32),
     dict(_ZAMBA2, name="zamba2 fcfs", policy="fcfs"),
     dict(_ZAMBA2, name="zamba2 slo-reanneal:jax", policy="slo-reanneal:jax",
          clock=True),
@@ -5065,7 +4919,8 @@ def _dryrun_table():
     from repro_torch.configs import ASSIGNED
     from repro_torch.launch import dryrun
     t0 = time.perf_counter()
-    recs = [dryrun.run_one(arch, shape, mp, save=False, verbose=False)
+    recs = [dryrun.run_one(arch, shape, mp, save=False, verbose=False,
+                           device="cpu")
             for arch in ASSIGNED for shape in dryrun.SHAPES
             for mp in (False, True)]
     return recs, time.perf_counter() - t0
@@ -5250,10 +5105,10 @@ TRAIN_MESH_RUNS = (
     # K5a-c at its offset against the gathered k / v
     ("qwen3 auto 1x2", "qwen3-1.7b", 4, (1, 2), 4, 2048, False, "auto",
      "train_mesh"),
+    # the baseline branch's bf16 run left to pay for the dryrun phase: its
+    # f32 parity below holds that branch at (1, 2)
     ("deepseek ep 1x2", "deepseek-v2-lite-16b", 4, (1, 2), 2, 2048, True,
      "none", "train_mesh_moe"),
-    ("deepseek base 1x2", "deepseek-v2-lite-16b", 2, (1, 2), 2, 2048,
-     False, "none", "train_mesh_moe"),
     ("musicgen 1x2", "musicgen-medium", 4, (1, 2), 4, 2048, False, "none",
      "train_mesh_audio"))
 # f32 parity runs, 2 layers (Zamba2 4: SSM, ATTN, SSM, ATTN), S64:
@@ -5699,6 +5554,334 @@ def phase_train_mesh(ctx):
                                      "bounds")
 
 
+# ---------------------------------------------------------------- dryrun
+# production cases at 16 x 16 (launch/dryrun.py: one rank of a fake world
+# of 256, its real step on the card at published widths), each with the
+# path its kernels must launch on
+DRYRUN_CASES = (("qwen3-1.7b", "train_4k", "dryrun_train"),
+                ("phi4-mini-3.8b", "prefill_32k", "dryrun_prefill"),
+                ("qwen3-1.7b", "decode_32k", "dryrun_decode"))
+# the tiny case counted on the cpu and on the card: reduced Qwen3-1.7B
+# (2 layers, d 256) at (data 2, tp 2), its shapes cut to these
+DRYRUN_TINY = {"train_4k": dict(kind="train", seq=64, batch=4),
+               "prefill_32k": dict(kind="prefill", seq=64, batch=4),
+               "decode_32k": dict(kind="decode", seq=64, batch=4)}
+
+
+def _dryrun_launch_check(cfg, kind, launches):
+    """The measured step's launches against the layer count: a train
+    step's (``_launches_per_step``), a prefill's K2 once per GQA layer,
+    a decode round's K1 once per GQA layer."""
+    if kind == "train":
+        want = {k: n for k, n in _launches_per_step(cfg).items() if n}
+    else:
+        name = "flash_attention" if kind == "prefill" \
+            else "decode_attention_paged"
+        want = {name: len(cfg.attn_layers)}
+    if launches != want:
+        raise AssertionError(f"dryrun {cfg.name} {kind}: launches "
+                             f"{launches}, the layer count says {want}")
+
+
+def _hold_rows(name, runs, want_of, rows, tol, tag):
+    """Two launches' outputs (tuples) against the plain version one
+    batch row (or head) at a time: ``want_of(i)`` the plain outputs of
+    slice ``rows[i]``, each element within tol + tol |plain|, the
+    launches bitwise equal.  -> the worst error."""
+    import torch
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(*runs))
+    worst, ok = 0.0, same
+    for i, sl in enumerate(rows):
+        for got, ref in zip(runs[0], want_of(i)):
+            e = (got[sl].float() - ref.float()).abs()
+            worst = max(worst, float(e.max()))
+            ok = ok and bool((e <= tol + tol * ref.float().abs()).all())
+            del e
+    log(f"  {name:<24} {tag:<44} max_abs_err={worst:.3e} tol={tol:g} "
+        f"bitwise_repeat={same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} {tag} disagrees or is not "
+                             "repeatable")
+    return worst
+
+
+def _production_kernels(results):
+    """The kernels at the production cases' shapes, bf16 as the model
+    runs them (the SSD scans float32): K2 at S 32768 (phi4-mini's
+    prefill_32k rank: B2, 24 q / 8 kv heads of hd 128, whole over tp 16)
+    against its plain version head by head (one S x S score matrix at a
+    time); K1 at 2048 pages a row (qwen3-1.7b's decode_32k rank: 8 rows
+    of 32768 tokens, 16 q / 8 kv heads) against its plain version; K5a-c
+    at qwen3-1.7b's train_4k rank (B16 S4096 H16 KV8) against their
+    plain versions a batch row at a time; K4 at mamba2-780m's
+    prefill_32k rank (B2 S32768) and K4b at its train_4k rank (B16
+    S4096) against theirs.  Each bitwise equal across two launches;
+    CUDA-event times beside the bound and, where one PyTorch call
+    computes the function, the library's."""
+    import torch
+    from repro_torch.kernels import decode_attention_paged as dap
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import ssd_scan as ss
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(33)
+    bf = torch.bfloat16
+
+    def row(name, shape, k_ms, p_ms, cost, lib_ms, **extra):
+        b_ms, b_by = cost
+        r = {"shape": shape, "ms": k_ms, "plain_ms": p_ms,
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+             **extra}
+        results.setdefault(name, {"name": name, **KERNELS[name]}) \
+            .setdefault("production", {})[shape] = r
+        log(f"  {name:<24} production {shape}: kernel {k_ms:.4f} ms, "
+            f"plain {p_ms if p_ms is None else f'{p_ms:.4f}'} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), library "
+            f"{lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms")
+
+    # K2 at S 32768, head by head
+    b, s, h, kv, hd = 2, 32768, 24, 8, 128
+    q, k, v, _ = flash_train_inputs(b, s, h, kv, hd, bf, gen)
+    kw = {"causal": True, "window": 0}
+    runs = [(fa.flash_attention_cuda(q, k, v, **kw),) for _ in range(2)]
+    heads = [(bi, hi) for bi in range(b) for hi in range(h)]
+    rep = h // kv
+    t0 = time.perf_counter()
+    err = _hold_rows(
+        "flash_attention", runs,
+        lambda i: (fa.flash_attention_plain(
+            q[heads[i][0]:heads[i][0] + 1, :, heads[i][1]:heads[i][1] + 1],
+            k[heads[i][0]:heads[i][0] + 1, :,
+              heads[i][1] // rep:heads[i][1] // rep + 1],
+            v[heads[i][0]:heads[i][0] + 1, :,
+              heads[i][1] // rep:heads[i][1] // rep + 1], **kw),),
+        [(slice(bi, bi + 1), slice(None), slice(hi, hi + 1))
+         for bi, hi in heads], TOL["bfloat16"], "B2 S32768 H24 KV8 hd128")
+    p_ms = (time.perf_counter() - t0) * 1e3
+    del runs
+    a = (q, k, v)
+    row("flash_attention", "B2 S32768 H24 KV8 hd128 bf16",
+        time_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), 3),
+        p_ms, flash_cost(a, 0, "bfloat16"), time_ms(sdpa_fn(a), 3),
+        max_abs_err=err, plain_covers="head by head, with the check")
+    del q, k, v, a
+    torch.cuda.empty_cache()
+    # K1 at 2048 pages a row
+    a, kw = decode_inputs(8, [32768] * 8, 2048, bf, 0, gen, h=16, kv=8,
+                          hd=128)
+    runs = [(dap.decode_attention_paged_cuda(*a, **kw),) for _ in range(2)]
+    t0 = time.perf_counter()
+    err = _hold_rows("decode_attention_paged", runs,
+                     lambda i: (dap.decode_attention_paged_plain(*a, **kw),),
+                     [slice(None)], TOL["bfloat16"],
+                     "8 rows x 2048 pages H16 KV8 hd128")
+    p_ms = (time.perf_counter() - t0) * 1e3
+    del runs
+    row("decode_attention_paged", "B8 H16 KV8 hd128 2048 pages a row bf16",
+        time_ms(lambda: dap.decode_attention_paged_cuda(*a, **kw), 20),
+        p_ms, decode_cost(a, 0, "bfloat16"), None, max_abs_err=err,
+        device_ms=graph_ms(lambda: dap.decode_attention_paged_cuda(
+            *a, **kw), 20))
+    del a
+    # K5a-c at B16 S4096, a batch row at a time
+    b, s, h, kv, hd = 16, 4096, 16, 8, 128
+    q, k, v, dout = flash_train_inputs(b, s, h, kv, hd, bf, gen)
+    kw = {"causal": True, "window": 0}
+    fwd = [fb.flash_attention_fwd_lse_cuda(q, k, v, **kw) for _ in range(2)]
+    out, lse = fwd[0]
+    delta = fb.attention_delta(out, dout)
+    dq = [(fb.flash_attention_dq_cuda(q, k, v, dout, lse, delta, **kw),)
+          for _ in range(2)]
+    dkv = [fb.flash_attention_dkv_cuda(q, k, v, dout, lse, delta, **kw)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    errs = {}
+    for name, (first, second) in (("flash_attention_fwd_lse", fwd),
+                                  ("flash_attention_dq", dq),
+                                  ("flash_attention_dkv", dkv)):
+        if not all(torch.equal(x, y) for x, y in zip(first, second)):
+            raise AssertionError(f"{name} B16 S4096 is not repeatable")
+        errs[name] = 0.0
+    t0 = time.perf_counter()
+    for bi in range(b):
+        # one batch row's plain forward and backward: out and lse within
+        # TOL of plain, dq / dk / dv within GRAD_TOL of the row's max
+        # |plain|, as the kernels phase holds them
+        sl = slice(bi, bi + 1)
+        o, l_ = fb.flash_attention_fwd_lse_plain(q[sl], k[sl], v[sl], **kw)
+        gq, gk, gv = fb.flash_attention_bwd_plain(
+            q[sl], k[sl], v[sl], out[sl], lse[sl], dout[sl], **kw)
+        for name, pairs in (
+                ("flash_attention_fwd_lse", ((out, o), (lse, l_))),
+                ("flash_attention_dq", ((dq[0][0], gq),)),
+                ("flash_attention_dkv", ((dkv[0][0], gk), (dkv[0][1], gv)))):
+            for got, ref in pairs:
+                e = (got[sl].float() - ref.float()).abs()
+                if name == "flash_attention_fwd_lse":
+                    err = float(e.max())
+                    ok = bool((e <= TOL["bfloat16"] + TOL["bfloat16"]
+                               * ref.float().abs()).all())
+                else:
+                    err = float(e.max()) / float(ref.float().abs().max())
+                    ok = err <= GRAD_TOL["bfloat16"]
+                errs[name] = max(errs[name], err)
+                if not ok:
+                    raise AssertionError(f"{name} B16 S4096 row {bi} "
+                                         f"disagrees ({err:.3e})")
+    p_ms = (time.perf_counter() - t0) * 1e3
+    log(f"  K5a-c B16 S4096 H16 KV8 hd128 bf16: out / lse max_abs_err "
+        f"{errs['flash_attention_fwd_lse']:.3e} (tol {TOL['bfloat16']:g}), "
+        f"dq / dk,dv {errs['flash_attention_dq']:.3e} / "
+        f"{errs['flash_attention_dkv']:.3e} of max |plain| (tol "
+        f"{GRAD_TOL['bfloat16']:g}), each bitwise repeatable: ok")
+    del fwd, dq, dkv
+    lib_fwd = time_ms(sdpa_fn((q, k, v)), 3)
+    lib_bwd = time_ms(sdpa_bwd_fn((q, k, v), dout), 3)
+    shape = "B16 S4096 H16 KV8 hd128 bf16"
+    for name, kernel in (
+            ("flash_attention_fwd_lse",
+             lambda: fb.flash_attention_fwd_lse_cuda(q, k, v, **kw)),
+            ("flash_attention_dq",
+             lambda: fb.flash_attention_dq_cuda(q, k, v, dout, lse, delta,
+                                                **kw)),
+            ("flash_attention_dkv",
+             lambda: fb.flash_attention_dkv_cuda(q, k, v, dout, lse, delta,
+                                                 **kw))):
+        k_ms = time_ms(kernel, 3)
+        row(name, shape, k_ms, p_ms if name == "flash_attention_fwd_lse"
+            else None, flash_train_cost(name, q, k, 0, "bfloat16"),
+            lib_fwd if name == "flash_attention_fwd_lse" else lib_bwd,
+            max_abs_err=errs[name],
+            achieved_tflops=attn_flops(q, 0, TRAIN_PER_PAIR[name])
+            / k_ms / 1e9,
+            plain_covers="the forward and dq, dk, dv a batch row at a "
+                         "time, with the checks")
+    del q, k, v, dout, out, lse, delta
+    torch.cuda.empty_cache()
+    # K4 at B2 S32768, K4b at B16 S4096 (float32, as the model runs them)
+    f32 = torch.float32
+    x, d, A, B, C, _ = ssd_inputs(2, 32768, f32, False, gen)
+    runs = [ss.ssd_scan_cuda(x, d, A, B, C) for _ in range(2)]
+    t0 = time.perf_counter()
+    want = ss.ssd_scan_plain(x, d, A, B, C, chunk=256)
+    p_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    same = all(torch.equal(p, q_) for p, q_ in zip(*runs))
+    worst = 0.0
+    for what, got, ref in zip(("y", "state"), runs[0], want):
+        share, cap, rel = SSD_TOL["float32"]
+        e = (got - ref).abs()
+        lim = min(share * float(ref.abs().max()), cap)
+        worst = max(worst, float(e.max()))
+        if not same or not bool((e <= lim + rel * ref.abs()).all()):
+            raise AssertionError(f"ssd_scan B2 S32768 {what} disagrees or "
+                                 "is not repeatable")
+    log(f"  ssd_scan                 B2 S32768 nh48 hd64 ds128 f32 "
+        f"max_abs_err={worst:.3e} bitwise_repeat={same} ok")
+    del runs, want
+    (b_ms, b_by), tc, flops = ssd_cost(x, B, None, "float32")
+    row("ssd_scan", "B2 S32768 nh48 hd64 ds128 f32",
+        time_ms(lambda: ss.ssd_scan_cuda(x, d, A, B, C), 3), p_ms,
+        (b_ms, b_by), None, max_abs_err=worst, bound_3xtf32_ms=tc[0],
+        bound_3xtf32_by=tc[1])
+    del x, d, A, B, C
+    x, d, A, B, C, _ = ssd_inputs(16, 4096, f32, False, gen)
+    dy = torch.randn(x.shape, device="cuda", generator=gen)
+    runs = [ss.ssd_scan_bwd_cuda(x, d, A, B, C, dy) for _ in range(2)]
+    t0 = time.perf_counter()
+    want = ss.ssd_scan_bwd_plain(x, d, A, B, C, dy, chunk=ss.CHUNK)
+    torch.cuda.synchronize()
+    p_ms = (time.perf_counter() - t0) * 1e3
+    worst = _hold_ssd_bwd("B16 S4096 nh48 hd64 ds128 (production)", runs,
+                          want)
+    del runs, want
+    (b_ms, b_by), tc, flops = ssd_bwd_cost(x, B, None, None)
+    row("ssd_scan_bwd", "B16 S4096 nh48 hd64 ds128 f32",
+        time_ms(lambda: ss.ssd_scan_bwd_cuda(x, d, A, B, C, dy), 3), p_ms,
+        (b_ms, b_by), None, max_abs_err=worst, bound_3xtf32_ms=tc[0],
+        bound_3xtf32_by=tc[1])
+    del x, d, A, B, C, dy
+    torch.cuda.empty_cache()
+
+
+def _tiny_counts(device):
+    """The tiny case's (FLOPs, bytes) by shape on ``device``, and each
+    shape's count by aten op."""
+    from unittest import mock
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    cfg = get_reduced("qwen3-1.7b")
+    mesh = Mesh({"data": 2, "model": 2})
+    out, ops = {}, {}
+    with mock.patch.dict(dryrun.SHAPES, DRYRUN_TINY):
+        for shape in DRYRUN_TINY:
+            par = dryrun.default_parallelism(cfg, shape, False)
+            rec = dryrun.measure(cfg, shape, mesh, par, device=device)
+            out[shape] = (rec["flops_per_device"],
+                          rec["bytes_accessed_per_device"])
+            ops[shape] = rec["count"]["ops"]
+    return out, ops
+
+
+def phase_dryrun(ctx):
+    """The dry run's measured cases (``launch/dryrun.py``): three
+    production cases at 16 x 16, each one rank's real step held to the
+    spec arithmetic, the kernels at the production shapes against their
+    plain versions, and the tiny case counted alike on the cpu and the
+    card."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    smi, results = ctx["smi"], ctx["results"]
+    for k in [k for k in ctx if k not in ("card", "smi", "results")]:
+        del ctx[k]
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, shape, path in DRYRUN_CASES:
+        t0 = time.perf_counter()
+        rec = count_path(results, path, lambda: dryrun.run_one(
+            arch, shape, False, save=False, verbose=False, device="cuda"))
+        log(f"  dryrun {smi}: " + _dryrun_line(rec))
+        log(f"  dryrun {arch} x {shape}: the rank holds a {rec['pool_bytes']}"
+            f"-byte cache, the reference's dense cache under cache_specs "
+            f"{rec['cache_bytes']} bytes; held {rec['held']}; warm-up "
+            f"{rec['warmup_s']:.2f} s, measured step {rec['step_s']:.2f} s; "
+            f"case {time.perf_counter() - t0:.1f} s")
+        if rec["oom"] or rec["mismatch"]:
+            raise AssertionError(f"dryrun {arch} x {shape}: oom "
+                                 f"{rec['oom']}, mismatch {rec['mismatch']}")
+        _dryrun_launch_check(get_config(arch), dryrun.SHAPES[shape]["kind"],
+                             rec["launches"])
+        for name, n in rec["launches"].items():
+            results.setdefault(name, {"name": name, **KERNELS[name]}) \
+                .setdefault("production_launches", {})[
+                f"{arch} x {shape} x 16x16"] = n
+        gc.collect()
+        torch.cuda.empty_cache()
+    _production_kernels(results)
+    t0 = time.perf_counter()
+    (cpu, cpu_ops), (card, card_ops) = _tiny_counts("cpu"), \
+        _tiny_counts("cuda")
+    log(f"  dryrun tiny case (reduced qwen3-1.7b at (2, 2)), (flops, bytes) "
+        f"by shape: cpu {cpu}, cuda {card} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if cpu != card:
+        for shape in cpu_ops:
+            for op in sorted(set(cpu_ops[shape]) | set(card_ops[shape])):
+                a = cpu_ops[shape].get(op)
+                b = card_ops[shape].get(op)
+                if a != b:
+                    log(f"  dryrun tiny {shape} {op}: cpu {a}, cuda {b}")
+        raise AssertionError(f"dryrun: the cpu and the card count the tiny "
+                             f"case differently: {cpu} vs {card}")
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5709,13 +5892,11 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(HERE, "src"))
-    try:
-        from repro_torch.kernels import _build
-    except ImportError as e:
-        print(f"chip_smoke: the port is not beside this script ({e})",
-              file=sys.stderr)
+    if PORT_MISSING is not None:
+        print(f"chip_smoke: the port is not beside this script "
+              f"({PORT_MISSING})", file=sys.stderr)
         return 2
+    from repro_torch.kernels import _build
     t_all = time.perf_counter()
     card = torch.cuda.get_device_name(0)
     smi = smi_line()
@@ -5749,7 +5930,8 @@ def main(argv=None) -> int:
                       ("train", lambda: phase_train(ctx)),
                       ("parity", lambda: phase_parity(ctx)),
                       ("mesh", lambda: phase_mesh(ctx)),
-                      ("train_mesh", lambda: phase_train_mesh(ctx))):
+                      ("train_mesh", lambda: phase_train_mesh(ctx)),
+                      ("dryrun", lambda: phase_dryrun(ctx))):
         if phase not in phases:
             continue
         t = time.perf_counter()

@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import annealing_torch as at
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 
 NAME = "anneal"
 # what the kernel takes: its float64 sums, taken in another order than
@@ -31,6 +31,15 @@ NAME = "anneal"
 # mantissa + 16 binary orders of latency + log2(N) fit float64's 53, that
 # is to N 8192 (tests/test_torch_anneal_order.py)
 MAX_N, MAX_BATCH = 8192, 256
+
+
+def anneal_work(reqc, draws, max_batch: int, T0: float, T_thres: float,
+                tau: float, iters: int, incremental: bool = True):
+    """(bytes, flops) of one anneal (:func:`repro_torch.kernels.cost.
+    anneal_work`), every proposal of the schedule counted."""
+    props = at.temperature_levels(T0, T_thres, tau) * iters
+    return cost.anneal_work(reqc.shape[0], draws.shape[1], reqc.shape[1],
+                            max_batch, props, incremental)
 
 
 def anneal_chains_plain(reqc, n_valid, draws, max_batch: int, T0: float,

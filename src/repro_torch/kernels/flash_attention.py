@@ -59,7 +59,10 @@ def flash_attention_fwd_lse_plain(q, k, v, *, causal: bool = True,
         v = v.repeat_interleave(rep, dim=2)
     scores, _ = masked_scores(q, k, causal, window, q_offset)
     p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, upcast(v)).to(q.dtype)
+    # contiguous, as the kernels write it (the step after it then runs
+    # the same ops on either device)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, upcast(v)).to(q.dtype) \
+        .contiguous()
     return out, torch.logsumexp(scores, dim=-1)
 
 

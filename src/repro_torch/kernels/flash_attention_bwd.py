@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import upcast
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.flash_attention import (  # noqa: F401  (K5a plain)
     check_inputs, flash_attention_fwd_lse_plain, masked_scores)
 
@@ -56,7 +56,8 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
     dk = dk.reshape(b, sk, kv, rep, hd).sum(3)
     dv = dv.reshape(b, sk, kv, rep, hd).sum(3)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    # contiguous, as the kernels write them
+    return dq.to(q.dtype).contiguous(), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # ------------------------------------------------------------ CUDA wrappers
@@ -151,15 +152,19 @@ class FlashAttentionFn(torch.autograd.Function):
     on CPU tensors and the CUDA kernels on CUDA tensors.  The residuals
     are q, k, v, out and the f32 lse [B,H,Sq].  ``q_offset``: q's rows
     sit at that position of k / v (a sequence-parallel rank's rows): dq
-    is [B,Sq,H,hd], dk / dv [B,Sk,KV,hd]."""
+    is [B,Sq,H,hd], dk / dv [B,Sk,KV,hd].  Each pass adds its kernels'
+    formulas to a :class:`~repro_torch.kernels.cost.CostCounter` in
+    force."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int = 0):
         kw = dict(causal=causal, window=window, q_offset=q_offset)
-        if q.device.type == "cpu":
-            out, lse = flash_attention_fwd_lse_plain(q, k, v, **kw)
-        else:
-            out, lse = flash_attention_fwd_lse_cuda(q, k, v, **kw)
+        fwd = flash_attention_fwd_lse_plain if q.device.type == "cpu" \
+            else flash_attention_fwd_lse_cuda
+        out, lse = cost.counted(
+            lambda: fwd(q, k, v, **kw),
+            (FWD, lambda: cost.flash_train_work(FWD, q, k, window,
+                                                q_offset)))
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = kw
         return out
@@ -169,5 +174,9 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         bwd = (flash_attention_bwd_plain if q.device.type == "cpu"
                else flash_attention_bwd_cuda)
-        dq, dk, dv = bwd(q, k, v, out, lse, dout.contiguous(), **ctx.kw)
+        window, off = ctx.kw["window"], ctx.kw["q_offset"]
+        dq, dk, dv = cost.counted(
+            lambda: bwd(q, k, v, out, lse, dout.contiguous(), **ctx.kw),
+            *((name, lambda name=name: cost.flash_train_work(
+                name, q, k, window, off)) for name in (DQ, DKV)))
         return dq, dk, dv, None, None, None

@@ -11,6 +11,11 @@ partition under GSPMD.  Here each tensor-parallel rank is a process
 whose pages hold whole kv heads of its shard, so K1 and K2 run on them
 unchanged, and a tp > 1 call on a CUDA tensor launches the kernel like
 any other.
+
+Under a :class:`~repro_torch.kernels.cost.CostCounter` (the dry run's
+count of a step) each wrapper adds its kernel's formula from
+:mod:`repro_torch.kernels.cost`, whichever implementation runs, and the
+aten ops inside it are not counted (:func:`~repro_torch.kernels.cost.counted`).
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import anneal as _anneal
+from repro_torch.kernels import cost
 from repro_torch.kernels import decode_attention as _dense
 from repro_torch.kernels import decode_attention_paged as _paged
 from repro_torch.kernels import decode_attention_q8 as _dense_q8
@@ -61,47 +67,50 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         return _flash_bwd.FlashAttentionFn.apply(q, k, v, causal, window,
                                                  q_offset)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    if q.device.type == "cpu":
-        return _flash.flash_attention_plain(q, k, v, **kw)
-    return _flash.flash_attention_cuda(q, k, v, **kw)
+    fn = _flash.flash_attention_plain if q.device.type == "cpu" \
+        else _flash.flash_attention_cuda
+    return cost.counted(lambda: fn(q, k, v, **kw),
+                        (_flash.NAME, lambda: cost.flash_work(q, k, window,
+                                                              q_offset)))
 
 
 def decode_attention_paged(q, k_pages, v_pages, block_tables, lengths, *,
                            window: int = 0):
     """Flash-decode through a block table (paged KV pool)."""
-    if q.device.type == "cpu":
-        return _paged.decode_attention_paged_plain(
-            q, k_pages, v_pages, block_tables, lengths, window=window)
-    return _paged.decode_attention_paged_cuda(
-        q, k_pages, v_pages, block_tables, lengths, window=window)
+    args = (q, k_pages, v_pages, block_tables, lengths)
+    fn = _paged.decode_attention_paged_plain if q.device.type == "cpu" \
+        else _paged.decode_attention_paged_cuda
+    return cost.counted(lambda: fn(*args, window=window),
+                        (_paged.NAME, lambda: cost.paged_work(args, window)))
 
 
 def decode_attention_paged_q8(q, k_pages, k_scale, v_pages, v_scale,
                               block_tables, lengths, *, window: int = 0):
     """int8-KV paged flash-decode (per-(token, head) bf16 scales)."""
-    if q.device.type == "cpu":
-        return _paged.decode_attention_paged_q8_plain(
-            q, k_pages, k_scale, v_pages, v_scale, block_tables, lengths,
-            window=window)
-    return _paged.decode_attention_paged_q8_cuda(
-        q, k_pages, k_scale, v_pages, v_scale, block_tables, lengths,
-        window=window)
+    args = (q, k_pages, k_scale, v_pages, v_scale, block_tables, lengths)
+    fn = _paged.decode_attention_paged_q8_plain if q.device.type == "cpu" \
+        else _paged.decode_attention_paged_q8_cuda
+    return cost.counted(lambda: fn(*args, window=window),
+                        (_paged.NAME_Q8,
+                         lambda: cost.paged_q8_work(args, window)))
 
 
 def decode_attention(q, k_cache, v_cache, n_valid):
     """Flash-decode over a dense [B, L, kv, hd] cache."""
-    if q.device.type == "cpu":
-        return _dense.decode_attention_plain(q, k_cache, v_cache, n_valid)
-    return _dense.decode_attention_cuda(q, k_cache, v_cache, n_valid)
+    args = (q, k_cache, v_cache, n_valid)
+    fn = _dense.decode_attention_plain if q.device.type == "cpu" \
+        else _dense.decode_attention_cuda
+    return cost.counted(lambda: fn(*args),
+                        (_dense.NAME, lambda: cost.dense_work(args)))
 
 
 def decode_attention_q8(q, k_cache, k_scale, v_cache, v_scale, n_valid):
     """Flash-decode over a dense int8 cache with bf16 scales."""
-    if q.device.type == "cpu":
-        return _dense_q8.decode_attention_q8_plain(q, k_cache, k_scale,
-                                                   v_cache, v_scale, n_valid)
-    return _dense_q8.decode_attention_q8_cuda(q, k_cache, k_scale, v_cache,
-                                              v_scale, n_valid)
+    args = (q, k_cache, k_scale, v_cache, v_scale, n_valid)
+    fn = _dense_q8.decode_attention_q8_plain if q.device.type == "cpu" \
+        else _dense_q8.decode_attention_q8_cuda
+    return cost.counted(lambda: fn(*args),
+                        (_dense_q8.NAME, lambda: cost.dense_q8_work(args)))
 
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int, init_state=None):
@@ -118,10 +127,13 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int, init_state=None):
 def ragged_dot(x, w, group_sizes):
     """The MoE FFN's grouped product: rows of ``x`` [T, K] in consecutive
     groups of ``group_sizes`` [G], group g times ``w[g]`` ([G, K, N]).
-    -> [T, N]."""
-    if x.device.type == "cpu":
-        return _ragged.ragged_dot_plain(x, w, group_sizes)
-    return _ragged.ragged_dot_cuda(x, w, group_sizes)
+    -> [T, N].  Counted by its formula in the forward; its backward is
+    the aten ops autograd runs (:mod:`repro_torch.kernels.cost`)."""
+    fn = _ragged.ragged_dot_plain if x.device.type == "cpu" \
+        else _ragged.ragged_dot_cuda
+    return cost.counted(lambda: fn(x, w, group_sizes),
+                        (_ragged.NAME,
+                         lambda: _ragged.ragged_work(x, w, group_sizes)))
 
 
 def anneal_chains(reqc, n_valid, draws, max_batch: int, T0: float,
@@ -132,5 +144,8 @@ def anneal_chains(reqc, n_valid, draws, max_batch: int, T0: float,
     int32, best bnd [I,C,N] bool, best G [I,C])."""
     fn = _anneal.anneal_chains_plain if reqc.device.type == "cpu" \
         else _anneal.anneal_chains_cuda
-    return fn(reqc, n_valid, draws, max_batch, T0, T_thres, tau, iters,
-              incremental)
+    return cost.counted(
+        lambda: fn(reqc, n_valid, draws, max_batch, T0, T_thres, tau, iters,
+                   incremental),
+        (_anneal.NAME, lambda: _anneal.anneal_work(
+            reqc, draws, max_batch, T0, T_thres, tau, iters, incremental)))

@@ -40,6 +40,17 @@ def ragged_dot_plain(x, w, group_sizes):
     return torch.cat(parts)
 
 
+def ragged_work(x, w, group_sizes):
+    """(bytes, flops): x, w and the group sizes read once, the output
+    written once; 2 · rows · K · N for the rows in groups (reads the
+    group sizes: a host sync on the card)."""
+    rows = int(group_sizes.sum())
+    el = x.element_size()
+    nbytes = (x.numel() + w.numel() + x.shape[0] * w.shape[-1]) * el + \
+        group_sizes.numel() * group_sizes.element_size()
+    return nbytes, 2 * rows * w.shape[1] * w.shape[2]
+
+
 def ragged_dot_cuda(x, w, group_sizes):
     """``torch._grouped_mm`` over the groups' cumulative ends, counted in
     ``LAUNCHES[NAME]``; nothing is read back on the bf16 path."""

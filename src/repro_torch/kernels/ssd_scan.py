@@ -37,7 +37,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 
 NAME = "ssd_scan"
 BWD = "ssd_scan_bwd"
@@ -324,16 +324,21 @@ class SSDScanFn(torch.autograd.Function):
     and :func:`ssd_scan_bwd_cuda` on the card.  The residuals are the
     inputs; the states are recomputed in the backward.  A cotangent that
     autograd leaves out (the final state's, in training) reaches the
-    kernel as a null pointer, not as zeros."""
+    kernel as a null pointer, not as zeros.  Each pass adds its
+    kernel's formula to a :class:`~repro_torch.kernels.cost.CostCounter`
+    in force."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, init_state, chunk: int):
         ctx.set_materialize_grads(False)
         if x.device.type == "cpu":
-            y, final = ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
-                                      init_state=init_state)
+            run = lambda: ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
+                                         init_state=init_state)
         else:
-            y, final = ssd_scan_cuda(x, dt, A, B, C, init_state=init_state)
+            run = lambda: ssd_scan_cuda(x, dt, A, B, C,
+                                        init_state=init_state)
+        y, final = cost.counted(run, (NAME, lambda: cost.ssd_work(
+            x, B, init_state)))
         ctx.save_for_backward(x, dt, A, B, C, init_state)
         ctx.chunk = chunk
         return y, final
@@ -341,13 +346,17 @@ class SSDScanFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dfinal):
         x, dt, A, B, C, st = ctx.saved_tensors
-        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
-        if dfinal is not None:
-            dfinal = dfinal.contiguous()
-        if x.device.type == "cpu":
-            grads = ssd_scan_bwd_plain(x, dt, A, B, C, dy, chunk=ctx.chunk,
-                                       init_state=st, dfinal=dfinal)
-        else:
-            grads = ssd_scan_bwd_cuda(x, dt, A, B, C, dy, init_state=st,
-                                      dfinal=dfinal)
+
+        def run(dy=dy, dfinal=dfinal):
+            dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+            if dfinal is not None:
+                dfinal = dfinal.contiguous()
+            if x.device.type == "cpu":
+                return ssd_scan_bwd_plain(x, dt, A, B, C, dy,
+                                          chunk=ctx.chunk, init_state=st,
+                                          dfinal=dfinal)
+            return ssd_scan_bwd_cuda(x, dt, A, B, C, dy, init_state=st,
+                                     dfinal=dfinal)
+        grads = cost.counted(run, (BWD, lambda: cost.ssd_bwd_work(
+            x, B, st, dfinal)))
         return (*grads, None)

@@ -1,16 +1,30 @@
-"""Multi-pod dry run by spec arithmetic: every (arch x input shape x
-production mesh), per device (counterpart of ``src/repro/launch/dryrun.py``).
+"""Multi-pod dry run: every (arch x input shape x production mesh), per
+device (counterpart of ``src/repro/launch/dryrun.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
-      --shape all --both-meshes [--optimized] [--out-dir DIR]
+      --shape all --both-meshes [--optimized] [--out-dir DIR] \\
+      [--device cpu]
 
 The reference lowers and compiles each step under GSPMD and reads its
-memory and its collectives from the compiled program.  The port runs one
-process per rank, so there is nothing to compile: one step's per-device
-bytes and collectives follow from the specs each rank holds its arrays
-by and from the order in which the port's forwards and backwards issue
-their collectives.  Nothing here starts a process group or allocates a
-tensor: parameters and caches are ``device="meta"`` trees.
+memory, cost and collectives from the compiled program.  The port runs
+one process per rank, so there is nothing to compile.  Two parts:
+
+* **Spec arithmetic** (any device, nothing allocated: parameters and
+  caches are ``device="meta"`` trees): one step's per-device argument
+  and output bytes follow from the specs each rank holds its arrays by
+  (:func:`memory`), its collectives from the order in which the port's
+  forwards and backwards issue them (:func:`collectives`).
+* **One rank's real step** (:func:`measure`, on the card): rank 0 of a
+  world the size of the mesh (256 ranks at 16 x 16, 512 at 2 x 16 x
+  16) on torch's ``"fake"`` process-group backend
+  (``launch.mesh.fake_world``), where every collective returns at once
+  with its buffer unchanged, so the values are wrong and the shapes,
+  bytes and calls right.  Its shards of the params are drawn straight
+  on the device at their local shapes (the whole tree is never drawn:
+  DBRX's is 264 GB), with its AdamW moments, its cache and its rows of
+  the inputs; one warm-up step (kernel builds, library workspaces),
+  then the measured step under a
+  :class:`~repro_torch.kernels.cost.CostCounter`.
 
 Per case (the reference's record keys; ``run_one``):
 
@@ -23,7 +37,15 @@ Per case (the reference's record keys; ``run_one``):
   ``cache_specs`` (``cache_struct``), and the inputs (:func:`input_specs`)
   split over the data axes where they divide the batch, else whole.
   ``param_bytes``, ``moment_bytes``, ``cache_bytes`` and ``input_bytes``
-  break it down.
+  break it down.  A measured rank's allocated params, moments and inputs
+  equal them exactly.  Its cache does not: it holds the cache the port
+  runs, ``pool_bytes``: for ``prefill`` a dense ring of its rows over
+  the kv heads its attention computes (whole heads where the placement
+  keeps attention whole over tp, where the reference's ``cache_specs``
+  cut the sequence), for ``decode`` the paged pool
+  (``init_paged_cache(mesh=)``: pages of 16 tokens, every row's context
+  in pages of its own, plus the null page; an attention-free stack its
+  per-row state alone).
 * ``output_bytes``: what the step hands back: ``train`` the params and
   the optimizer state (updated in place) and five float32 metrics;
   ``prefill`` / ``decode`` the cache and the rank's logits, whole over
@@ -39,13 +61,37 @@ Per case (the reference's record keys; ``run_one``):
   stop), backward, the data-axis gradient sum, the norm); ``prefill`` is
   ``forward_full(..., cache=, ctx=, last_only=True)``; ``decode`` one
   ``forward_decode_paged`` round, the port's decode on a mesh, over the
-  rank's rows of the batch.  :func:`collectives` computes them for any
-  mesh shape, so the tests hold them to the tallies of spawned ranks.
-* ``flops_per_device``, ``bytes_accessed_per_device``, ``temp_bytes``,
-  ``peak_bytes``, ``lower_s``, ``compile_s``: ``null``.  The reference
-  reads them from XLA's cost and memory analysis of the compiled
-  program; the port has no compiled program, and its eager kernels'
-  temporaries depend on the allocator, so no number stands in for them.
+  rank's rows of the batch, each row's context ``seq - 1`` tokens (a
+  ``decode_window`` ring at ``long_500k``).  :func:`collectives` computes
+  them for any mesh shape; a measured rank's tallies equal them exactly.
+* ``flops_per_device``, ``bytes_accessed_per_device`` (measured): the
+  measured step's count (:mod:`repro_torch.kernels.cost`): the aten
+  products' FLOPs and every hand-written kernel's formula; the bytes
+  each op that computes reads and writes, as XLA's "bytes accessed"
+  are the bytes each HLO op reads and writes, its elementwise ops
+  included (XLA fuses some of them and counts a fusion's inputs and
+  outputs only: the port's eager ops are not fused).  Where the work
+  depends on values that crossed ranks it is rank 0's on the fake
+  world's values: a gather leaves the other ranks' parts zero, so the
+  expert-parallel MoE over gathered rows (training under
+  ``--optimized``; the 2-D branch of an FSDP decode) routes every zero
+  row alike, to the first experts, which rank 0 holds, and counts more
+  expert work there than a real rank would.
+* ``peak_bytes`` (measured): ``torch.cuda.max_memory_allocated`` over
+  the measured step, its arguments included; ``temp_bytes``: that peak
+  minus what was allocated when the step began.  A case that does not
+  fit one card records ``oom`` (the allocator's message and the bytes
+  it asked for) with both ``null``, its FLOPs and bytes counted on the
+  same step at fewer rows of the batch and taken to its rows (every
+  count is affine in the rows a rank runs: :func:`measure`).
+* ``lower_s``, ``compile_s``: ``null``: nothing is lowered or compiled
+  (the kernels are built once, before the first case, and the warm-up
+  step pays the rest).
+
+With ``device="cpu"`` (``--device cpu``) a case is the spec arithmetic
+alone and the four measured fields are ``null``: production widths do
+not run on the host.  :func:`measure` itself runs on the CPU too, at the
+widths the caller gives (the tests' reduced configs).
 
 The port's runtime mesh has one data axis (``layers.dp_axis``); at the
 multi-pod mesh (``pod`` x ``data`` x ``model``) the two data axes are
@@ -65,6 +111,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs import ASSIGNED, get_config
+from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import (P, ParallelismConfig,
                                               cache_specs, fsdp_dims,
                                               input_sharding, local_shape,
@@ -639,6 +686,336 @@ def _data_sum(st: _Step):
         row[1] += BUF_BYTES * total
 
 
+# ------------------------------------------------------------- measure
+PAGE = 16                     # the engine's page (tokens)
+SEED = 0
+
+
+def _runtime(mesh: Mesh, par: ParallelismConfig):
+    """(data, tp) of the runtime mesh and the parallelism it runs under:
+    the data axes of ``par`` taken as one ``"data"`` axis of their
+    product (the port's meshes have one)."""
+    dp = math.prod(mesh.shape[a] for a in ((par.dp_axes,)
+                   if isinstance(par.dp_axes, str) else par.dp_axes))
+    return dp, mesh.shape[par.tp_axis], dataclasses.replace(
+        par, dp_axes=("data",), tp_axis="model")
+
+
+def _leaf_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for _, t in _paths(tree))
+
+
+def draw_params(cfg: ModelConfig, rmesh: Mesh, par: ParallelismConfig,
+                device, seed: int = SEED):
+    """The rank's shard of every param leaf, drawn straight on ``device``
+    at its local shape under ``sharding.rank_specs`` from a seeded
+    generator (the whole tree never exists): matrices N(0, 1/fan-in)
+    (tables and heads 1/d_model), biases 0, ``A_log`` log(1..16) over
+    the rank's heads, other vectors 1, in the leaf's dtype."""
+    from repro_torch.distributed.sharding import rank_specs, tree_map
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    full = _meta_params(cfg)
+    specs = rank_specs(cfg, rmesh, par)
+    table = {id(full.get("embed")), id(full.get("lm_head"))}
+
+    def leaf(t, spec):
+        shape = local_shape(t.shape, spec, rmesh)
+        out = torch.empty(shape, dtype=t.dtype, device=device)
+        if t.dim() >= 2:
+            std = cfg.d_model ** -0.5 if id(t) in table \
+                else t.shape[-2] ** -0.5
+            return out.normal_(0.0, std, generator=gen)
+        return out
+    params = tree_map(leaf, full, specs)
+    for path, t in _paths(params):
+        if t.dim() >= 2:
+            continue
+        name = path.rsplit(".", 1)[-1]
+        if name.endswith("bias"):
+            t.zero_()
+        elif name == "A_log":
+            t.copy_(torch.log(torch.linspace(1.0, 16.0, t.numel(),
+                                             device=device)))
+        else:
+            t.fill_(1.0)
+    return params
+
+
+def draw_inputs(cfg: ModelConfig, shape_name: str, mesh: Mesh,
+                par: ParallelismConfig, device, seed: int = SEED):
+    """The rank's rows of every model input of :func:`input_specs`
+    (split over the data axes where they divide the batch, else whole),
+    on ``device``: token ids and labels uniform over the vocabulary,
+    embeds N(0, 1), M-RoPE positions 0.. (a decode step at ``seq - 1``)."""
+    sh = SHAPES[shape_name]
+    bspec = input_sharding(cfg, mesh, par, sh["batch"])
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 1)
+    out = {}
+    for name, v in input_specs(cfg, shape_name).items():
+        shape = local_shape(v.shape, _batch_spec(v.shape, bspec), mesh)
+        if name == "embeds":
+            t = torch.empty(shape, dtype=v.dtype, device=device)
+            out[name] = t.normal_(0.0, 1.0, generator=gen)
+        elif name == "positions":
+            start = sh["seq"] - 1 if sh["kind"] == "decode" else 0
+            pos = start + torch.arange(shape[1], dtype=v.dtype,
+                                       device=device)
+            out[name] = pos[None, :, None].expand(shape).contiguous()
+        else:
+            out[name] = torch.randint(0, cfg.vocab_size, shape,
+                                      dtype=v.dtype, device=device,
+                                      generator=gen)
+    return out
+
+
+def _rank_dense_cache(cfg: ModelConfig, rows: int, seq: int, tp: int,
+                      device):
+    """The dense cache a rank's prefill writes: ``rows`` rings of
+    ``cache_len`` slots over the kv heads its attention computes (its
+    share where the heads divide tp, else all), the MLA latent and SSM
+    state whole."""
+    from repro_torch.models.cache import init_cache
+    if cfg.num_kv_heads and heads_split(cfg, tp):
+        cfg = dataclasses.replace(cfg, num_kv_heads=cfg.num_kv_heads // tp)
+    return init_cache(cfg, rows, seq, device=device)
+
+
+def _rank_pool(cfg: ModelConfig, shape_name: str, rows: int, rmesh: Mesh,
+               par: ParallelismConfig, device):
+    """The paged pool a rank's decode round runs over: every row's
+    context (``seq - 1`` tokens, or a ``decode_window`` ring) in pages
+    of its own, plus the null page; pages split over tp where the kv
+    heads divide it (``init_paged_cache(mesh=)``).  An attention-free
+    stack has no pages: its per-row state and block tables of width 0."""
+    from repro_torch.models.cache import (init_cache, init_paged_cache,
+                                          paged_slot_len)
+    seq = SHAPES[shape_name]["seq"]
+    if not cfg.attn_layers:
+        cache = init_cache(cfg, rows, 1, device=device)
+        cache["block_tables"] = torch.zeros((rows, 0), dtype=torch.int32,
+                                            device=device)
+    else:
+        window = decode_window(cfg, shape_name)
+        pps = paged_slot_len(cfg, seq, PAGE, window) // PAGE
+        cache = init_paged_cache(cfg, rows, seq, 1 + rows * pps, PAGE,
+                                 window=window, device=device, mesh=rmesh,
+                                 parallelism=par)
+        cache["block_tables"].copy_(1 + torch.arange(
+            rows * pps, dtype=torch.int32, device=device).reshape(rows, pps))
+    cache["pos"].fill_(seq - 1)
+    return cache
+
+
+def _step(cfg: ModelConfig, kind: str, params, state, batch, cache, ctx):
+    """One step of ``kind`` on the rank (module docstring)."""
+    from repro_torch.models.model import forward_decode_paged, forward_full
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import train_step
+    if kind == "train":
+        train_step(cfg, opt.AdamWConfig(), params, state,
+                   {k: v for k, v in batch.items() if k != "positions"},
+                   ctx=ctx, remat=True)
+        return
+    fwd = forward_full if kind == "prefill" else forward_decode_paged
+    kw = dict(last_only=True) if kind == "prefill" else {}
+    with torch.no_grad():
+        fwd(params, cfg, tokens=batch.get("tokens"),
+            embeds=batch.get("embeds"), positions=batch.get("positions"),
+            cache=cache, ctx=ctx, **kw)
+
+
+def _oom_record(err) -> Dict:
+    """The allocator's message head and the bytes it asked for."""
+    import re
+    msg = str(err).strip()
+    m = re.search(r"Tried to allocate ([\d.]+) (B|KiB|MiB|GiB|TiB)", msg)
+    scale = {"B": 1, "KiB": 2**10, "MiB": 2**20, "GiB": 2**30,
+             "TiB": 2**40}
+    return {"message": msg.splitlines()[0][:300],
+            "requested_bytes": round(float(m.group(1)) * scale[m.group(2)])
+            if m else None}
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _free(device):
+    """Give the case's memory back to the card before the next."""
+    if device.type == "cuda":
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _run(cfg: ModelConfig, shape_name: str, mesh: Mesh,
+         par: ParallelismConfig, device) -> Dict:
+    """One rank's warm-up and measured step (:func:`measure`), or
+    ``{"oom": ...}`` where the card runs out of memory."""
+    from repro_torch.distributed.sharding import make_ctx
+    from repro_torch.kernels import cost, ops
+    from repro_torch.launch.mesh import fake_world
+    from repro_torch.models.layers import (collective_counts,
+                                           reset_collective_counts)
+    from repro_torch.train import optimizer as opt
+    sh = SHAPES[shape_name]
+    kind = sh["kind"]
+    dp, tp, rpar = _runtime(mesh, par)
+    out: Dict = {}
+    cuda = device.type == "cuda"
+    with fake_world(dp, tp, device=device) as rmesh:
+        ctx = make_ctx(rmesh, rpar)
+        held = {}
+        try:
+            params = draw_params(cfg, rmesh, rpar, device)
+            held["param_bytes"] = _leaf_bytes(params)
+            state = opt.init(params) if kind == "train" else None
+            held["moment_bytes"] = 0 if state is None else \
+                _leaf_bytes({"mu": state.mu, "nu": state.nu}) + \
+                state.step.numel() * state.step.element_size()
+            batch = draw_inputs(cfg, shape_name, mesh, par, device)
+            held["input_bytes"] = _leaf_bytes(batch)
+            rows = next(iter(batch.values())).shape[0]
+            cache = None
+            if kind == "prefill":
+                cache = _rank_dense_cache(cfg, rows, sh["seq"], tp, device)
+            elif kind == "decode":
+                cache = _rank_pool(cfg, shape_name, rows, rmesh, rpar,
+                                   device)
+            held["pool_bytes"] = 0 if cache is None else _leaf_bytes(cache)
+            out["held"] = held
+            t0 = time.perf_counter()
+            _step(cfg, kind, params, state, batch, cache, ctx)
+            _sync(device)
+            out["warmup_s"] = time.perf_counter() - t0
+            reset_collective_counts()
+            launched = ops.launch_counts()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(device)
+                before = torch.cuda.memory_allocated(device)
+            t0 = time.perf_counter()
+            with cost.CostCounter() as counter:
+                _step(cfg, kind, params, state, batch, cache, ctx)
+            _sync(device)
+            out["step_s"] = time.perf_counter() - t0
+            if cuda:
+                peak = torch.cuda.max_memory_allocated(device)
+                out.update(peak_bytes=peak, temp_bytes=peak - before,
+                           launches={k: v - launched[k] for k, v in
+                                     ops.launch_counts().items()
+                                     if v > launched[k]})
+            out["count"] = counter.summary()
+            out["tally"] = collective_counts()
+        except torch.cuda.OutOfMemoryError as err:
+            out = {"held": held or None, "oom": _oom_record(err)}
+        finally:
+            params = state = batch = cache = None
+            _free(device)
+    return out
+
+
+def repeat_depths(cfg: ModelConfig) -> Tuple[int, int]:
+    """Two depths ``n1 < n2 <= num_layers`` whose difference is one
+    period of the layer pattern after its distinct first layers (an
+    MoE config's dense layers): every count of a step is affine in the
+    periods it runs, so it is ``f(n1) + (L - n1) / (n2 - n1) * (f(n2) -
+    f(n1))`` at ``L`` layers."""
+    pat = cfg.layer_pattern
+    lead = 1 + max(cfg.moe.dense_layers) if cfg.moe is not None \
+        and cfg.moe.dense_layers else 0
+    n = len(pat) - lead
+    for p in range(1, n + 1):
+        if n % p == 0 and all(pat[i] == pat[lead + (i - lead) % p]
+                              for i in range(lead, len(pat))):
+            return lead + p, lead + 2 * p
+    raise ValueError(f"{cfg.name}: no repeating layer pattern")
+
+
+def _at_depth(cfg: ModelConfig, n: int) -> ModelConfig:
+    return dataclasses.replace(cfg, num_layers=n,
+                               layer_pattern=cfg.layer_pattern[:n])
+
+
+def _extrapolate(lo, hi, t: float):
+    """``lo + t (hi - lo)`` over nested dicts of counts (keys of either)."""
+    if isinstance(lo, dict) or isinstance(hi, dict):
+        lo, hi = lo or {}, hi or {}
+        return {k: _extrapolate(lo.get(k, 0), hi.get(k, 0), t)
+                for k in sorted(set(lo) | set(hi))}
+    v = lo + t * (hi - lo)
+    return round(v) if float(v).is_integer() or isinstance(lo, int) else v
+
+
+def measure(cfg: ModelConfig, shape_name: str, mesh: Mesh,
+            par: ParallelismConfig, device=None) -> Dict:
+    """One rank's real step of ``cfg`` x ``shape_name`` on the
+    production ``mesh`` (shape only) under ``par`` (module docstring):
+    rank 0 of a fake world of the mesh's size on ``device`` (default the
+    card; ``"cpu"`` runs the plain path at the caller's widths).
+
+    Returns the four measured fields of the record
+    (``flops_per_device``, ``bytes_accessed_per_device``, ``peak_bytes``,
+    ``temp_bytes``; the last two ``None`` off the card or where the case
+    does not fit it), ``oom``, ``pool_bytes`` (the cache the rank holds),
+    ``held`` (its allocated params, moments, inputs and cache),
+    ``tally`` (its collectives by kind), ``count`` (the counter's
+    breakdown: kernels' calls, bytes and FLOPs), ``launches`` (kernel
+    launches of the measured step, on the card), ``warmup_s`` /
+    ``step_s`` and ``counted_at``.  Where the case runs out of memory its
+    counts come from the same step at the two depths of
+    :func:`repeat_depths`, taken to the full depth (``counted_at``; the
+    held bytes then are the shapes', not allocated); an error that is
+    not running out of memory raises."""
+    dev = resolve_device(device)
+    par = step_parallelism(par, SHAPES[shape_name]["kind"])
+    run = _run(cfg, shape_name, mesh, par, dev)
+    rec = {"oom": run.get("oom"), "counted_at": cfg.num_layers,
+           "peak_bytes": run.get("peak_bytes"),
+           "temp_bytes": run.get("temp_bytes"),
+           "launches": run.get("launches"),
+           "warmup_s": run.get("warmup_s"), "step_s": run.get("step_s")}
+    if rec["oom"] is None:
+        rec.update(count=run["count"], tally=run["tally"], held=run["held"])
+    else:
+        n1, n2 = repeat_depths(cfg)
+        cut = [_run(_at_depth(cfg, n), shape_name, mesh, par, dev)
+               for n in (n1, n2)]
+        for n, r in zip((n1, n2), cut):
+            if r.get("oom"):
+                raise RuntimeError(f"{cfg.name} x {shape_name}: out of "
+                                   f"memory at {n} layers too: "
+                                   f"{r['oom']['message']}")
+        t = (cfg.num_layers - n1) / (n2 - n1)
+        rec.update(counted_at=[n1, n2],
+                   count=_extrapolate(cut[0]["count"], cut[1]["count"], t),
+                   tally=_extrapolate(cut[0]["tally"], cut[1]["tally"], t),
+                   held=_extrapolate(cut[0]["held"], cut[1]["held"], t))
+    rec.update(flops_per_device=rec["count"]["flops"],
+               bytes_accessed_per_device=rec["count"]["bytes"],
+               pool_bytes=rec["held"]["pool_bytes"])
+    return rec
+
+
+def check_measured(rec: Dict) -> List[str]:
+    """What a measured record gets wrong against the spec arithmetic:
+    the rank's params, moments and inputs against :func:`memory`'s
+    bytes, its collectives against :func:`collectives`' (both exact).
+    Empty when it agrees."""
+    bad = []
+    for k in ("param_bytes", "moment_bytes", "input_bytes"):
+        if rec["held"][k] != rec[k]:
+            bad.append(f"{k}: held {rec['held'][k]}, spec {rec[k]}")
+    want = {k: {"calls": rec["collective_counts"][k],
+                "bytes": rec["collective_bytes_per_device"][k]}
+            for k in rec["collective_counts"]}
+    if rec["tally"] != want:
+        bad.append(f"collectives: tallied {rec['tally']}, spec {want}")
+    return bad
+
+
 # --------------------------------------------------------------- driver
 def mesh_name(mesh: Mesh) -> str:
     return "x".join(str(n) for n in mesh.shape.values())
@@ -647,9 +1024,15 @@ def mesh_name(mesh: Mesh) -> str:
 def run_one(arch: str, shape_name: str, multi_pod: bool,
             par: Optional[ParallelismConfig] = None, save: bool = True,
             verbose: bool = True, optimized: bool = False,
-            out_dir: Optional[str] = None, cfg: Optional[ModelConfig] = None):
+            out_dir: Optional[str] = None, cfg: Optional[ModelConfig] = None,
+            device=None):
     """One case's record (module docstring), written to
-    ``<out_dir>/<arch>_<shape>_<mesh>.json`` with ``save``."""
+    ``<out_dir>/<arch>_<shape>_<mesh>.json`` with ``save``.  On the card
+    (the default) the spec arithmetic and one rank's measured step
+    (:func:`measure`; ``mismatch`` lists where the two disagree); with
+    ``device="cpu"`` the spec arithmetic alone.  Raises without a card
+    unless ``device="cpu"``."""
+    dev = resolve_device(device)
     cfg = cfg or get_config(arch)
     mesh = make_production_mesh(multi_pod=multi_pod)
     sh = SHAPES[shape_name]
@@ -669,10 +1052,14 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
                active_param_count=cfg.active_param_count(),
                held_whole=held_whole(cfg, mesh, par,
                                      moments=sh["kind"] == "train"),
-               parallelism=dataclasses.asdict(par),
-               seconds=time.perf_counter() - t0)
+               parallelism=dataclasses.asdict(par))
+    if dev.type == "cuda":
+        rec.update(measure(cfg, shape_name, mesh, par, dev),
+                   device=torch.cuda.get_device_name(dev))
+        rec["mismatch"] = check_measured(rec)
+    rec["seconds"] = time.perf_counter() - t0
     if verbose:
-        print(line(rec))
+        print(line(rec), flush=True)
     if save:
         d = out_dir or RESULTS_DIR
         os.makedirs(d, exist_ok=True)
@@ -683,19 +1070,35 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
 
 
 def line(rec) -> str:
-    """One record as a table row: GiB a device and collective MiB."""
+    """One record as a table row: GiB a device and collective MiB; a
+    measured record also its peak and temporaries (or ``oom``), FLOPs
+    and bytes accessed."""
     g = 2 ** 30
     coll = sum(rec["collective_bytes_per_device"].values())
     calls = sum(rec["collective_counts"].values())
-    return (f"[dryrun] {rec['arch']} x {rec['shape']} x {rec['mesh']}: "
-            f"args {rec['argument_bytes'] / g:.3f} GiB/dev (params "
-            f"{rec['param_bytes'] / g:.3f}, moments "
-            f"{rec['moment_bytes'] / g:.3f}, cache "
-            f"{rec['cache_bytes'] / g:.3f}, inputs "
-            f"{rec['input_bytes'] / g:.4f}), out "
-            f"{rec['output_bytes'] / g:.3f}; collectives "
-            f"{coll / 2**20:.1f} MiB in {calls} calls; "
-            f"{len(rec['held_whole'])} leaves held whole")
+    out = (f"[dryrun] {rec['arch']} x {rec['shape']} x {rec['mesh']}: "
+           f"args {rec['argument_bytes'] / g:.3f} GiB/dev (params "
+           f"{rec['param_bytes'] / g:.3f}, moments "
+           f"{rec['moment_bytes'] / g:.3f}, cache "
+           f"{rec['cache_bytes'] / g:.3f}, inputs "
+           f"{rec['input_bytes'] / g:.4f}), out "
+           f"{rec['output_bytes'] / g:.3f}; collectives "
+           f"{coll / 2**20:.1f} MiB in {calls} calls; "
+           f"{len(rec['held_whole'])} leaves held whole")
+    if rec["flops_per_device"] is None:
+        return out
+    mem = (f"oom (asked {rec['oom']['requested_bytes']} B: "
+           f"{rec['oom']['message'][:80]})" if rec["oom"] else
+           f"peak {rec['peak_bytes'] / g:.3f} GiB/dev, temp "
+           f"{rec['temp_bytes'] / g:.3f}")
+    return (out + f"; measured on {rec['device']}: {mem}, pool "
+            f"{rec['pool_bytes'] / g:.3f} GiB, flops/dev "
+            f"{rec['flops_per_device']:.4g}, bytes/dev "
+            f"{rec['bytes_accessed_per_device']:.4g}"
+            + (f" (counted at {rec['counted_at']} layers)"
+               if isinstance(rec["counted_at"], list) else "")
+            + (f", step {rec['step_s']:.2f} s" if rec["step_s"] else "")
+            + (f"; MISMATCH {rec['mismatch']}" if rec["mismatch"] else ""))
 
 
 def main(argv=None):
@@ -709,18 +1112,43 @@ def main(argv=None):
                     help="expert-parallel MoE and sequence-parallel "
                          "attention")
     ap.add_argument("--out-dir", default=None)
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default: measure one rank's step on "
+                         "the card) or cpu (the spec arithmetic alone)")
     args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
     archs = ASSIGNED if args.arch in (None, "all") else [args.arch]
     shapes = list(SHAPES) if args.shape in (None, "all") else [args.shape]
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
-    n = 0
+    if dev.type == "cuda":
+        from repro_torch.kernels import _build
+        built = _build.build()
+        print(f"dry-run on {torch.cuda.get_device_name(dev)}: "
+              f"{built['built']} kernel sources built in "
+              f"{built['seconds']:.1f} s", flush=True)
+    n, failures = 0, []
     for arch in archs:
         for shape in shapes:
             for mp in meshes:
-                run_one(arch, shape, mp, optimized=args.optimized,
-                        out_dir=args.out_dir)
+                try:
+                    rec = run_one(arch, shape, mp, optimized=args.optimized,
+                                  out_dir=args.out_dir, device=dev)
+                except Exception as e:                  # noqa: BLE001
+                    # a case that fails for another reason than memory
+                    failures.append((arch, shape, mp, repr(e)[:300]))
+                    print(f"[dryrun] FAIL {arch} x {shape} mp={mp}: "
+                          f"{e!r}", flush=True)
+                    continue
+                if rec.get("mismatch"):
+                    failures.append((arch, shape, mp, rec["mismatch"]))
                 n += 1
-    print(f"dry-run: {n} cases by spec arithmetic")
+    how = "one rank's step measured" if dev.type == "cuda" \
+        else "spec arithmetic"
+    print(f"dry-run: {n} cases by {how}, {len(failures)} failed")
+    for f in failures:
+        print("  ", f)
+    if failures:
+        raise SystemExit(1)
 
 
 if __name__ == "__main__":

@@ -20,6 +20,13 @@ process and touches no device.
   rank in the same order, one group per axis line, one over both axes
   (every rank), and a gloo group over all ranks for host messages (the
   serving engine's step commands).
+* :func:`fake_world` — rank 0 of a world of ``data * tp`` ranks on
+  torch's ``"fake"`` process-group backend, in this process alone: the
+  groups :func:`make_host_mesh` builds, over which every collective
+  returns at once, its buffer unchanged.  Values that cross ranks are
+  wrong; shapes, bytes and the calls issued are right.  The dry run
+  (``launch/dryrun.py``) runs one rank's step of a production mesh on
+  it.
 * :func:`spawn` — starts one process per rank with the ``spawn`` start
   method (a forked child cannot use CUDA once the parent has), joins
   them into a group through a ``TCPStore`` that the parent opens (on a
@@ -35,6 +42,7 @@ run fail with a timeout error instead of hanging.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import itertools
 import math
@@ -141,12 +149,23 @@ def make_host_mesh(tp: Optional[int] = None, data: int = 1, *,
                          f"the process group has {world}")
     shape = dict(zip(AXES, (data, tp)))
     rank = dist.get_rank()
-    mine = coords_of(rank, shape)
     td = _timeout(timeout)
+    groups = _axis_groups(shape, rank, td)
+    control = dist.new_group(list(range(world)), backend="gloo", timeout=td)
+    return Mesh(shape, rank=rank, device=resolve_device(device),
+                groups=groups, control_group=control, timeout=timeout)
+
+
+def _axis_groups(shape: Dict[str, int], rank: int,
+                 td: datetime.timedelta) -> Dict:
+    """One group per axis line (every rank creates every group, in the
+    same order) and one over every rank (the 2-D expert-parallel MoE
+    sums over both axes); -> the groups that hold ``rank``."""
+    import torch.distributed as dist
+    mine = coords_of(rank, shape)
     groups = {}
-    for axis in AXES:
-        others = [a for a in AXES if a != axis]
-        # every rank creates every group, in the same order
+    for axis in shape:
+        others = [a for a in shape if a != axis]
         for fixed in itertools.product(*(range(shape[a]) for a in others)):
             at = dict(zip(others, fixed))
             ranks = [rank_of({**at, axis: i}, shape)
@@ -154,11 +173,35 @@ def make_host_mesh(tp: Optional[int] = None, data: int = 1, *,
             g = dist.new_group(ranks, timeout=td)
             if all(mine[a] == at[a] for a in others):
                 groups[axis] = g
-    # both axes at once: the 2-D expert-parallel MoE sums over them
-    groups[AXES] = dist.new_group(list(range(world)), timeout=td)
-    control = dist.new_group(list(range(world)), backend="gloo", timeout=td)
-    return Mesh(shape, rank=rank, device=resolve_device(device),
-                groups=groups, control_group=control, timeout=timeout)
+    groups[tuple(shape)] = dist.new_group(list(range(math.prod(
+        shape.values()))), timeout=td)
+    return groups
+
+
+@contextlib.contextmanager
+def fake_world(data: int, tp: int, *, device=None):
+    """Rank 0's :class:`Mesh` of a ``(data, tp)`` world whose other ranks
+    do not exist: the default process group on torch's ``"fake"``
+    backend (``torch.testing._internal.distributed.fake_pg``), every
+    group of :func:`make_host_mesh` on it, no control group (no engine
+    runs on it).  Every collective completes at once and leaves its
+    buffer as it was.  ``device``: the card by default, or ``"cpu"``.
+    The process group is destroyed on exit; none may be running on
+    entry."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("fake_world starts the default process group: "
+                           "one is running already")
+    shape = dict(zip(AXES, (data, tp)))
+    dev = resolve_device(device)
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=data * tp)
+    try:
+        groups = _axis_groups(shape, 0, _timeout(DEFAULT_TIMEOUT))
+        yield Mesh(shape, rank=0, device=dev, groups=groups)
+    finally:
+        dist.destroy_process_group()
 
 
 def rank_device(device: str, rank: int, world: int) -> torch.device:

@@ -88,7 +88,7 @@ def run(tmp_path_factory):
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     try:
         dryrun.main(["--arch", "all", "--shape", "all", "--both-meshes",
-                     "--out-dir", str(tmp / "records")])
+                     "--out-dir", str(tmp / "records"), "--device", "cpu"])
         records = {}
         for path in glob.glob(str(tmp / "records" / "*.json")):
             with open(path) as f:
@@ -114,8 +114,8 @@ def run(tmp_path_factory):
 
 def test_cli_writes_every_case(run):
     """80 records (10 archs x 4 shapes x 2 meshes) with the reference's
-    keys; the fields only a compiler gives are null; no process group
-    was started."""
+    keys; with ``--device cpu`` (the spec arithmetic alone) the fields a
+    measured step gives are null; no process group was started."""
     recs = run["records"]
     assert len(ASSIGNED) == 10
     want = {f"{a}_{s}_{m}" for a in ASSIGNED for s in dryrun.SHAPES
